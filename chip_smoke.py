@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
+each kernel against its plain PyTorch version on the card (small ragged
+shapes, the golden path-enumeration vectors, the headline shape), then
+drives the main path once: ``rnnt_loss_simple_pruned`` at B=30, T=1000,
+S=100, C=500, s_range=5, fp32, on inputs made exactly as ``bench.py``
+makes them (seed 0), and checks that every kernel of the path ran and that
+the losses agree with the plain path on the card.  Last it measures where
+the step's time goes: device time per kernel and the device's busy share
+under ``torch.profiler``, and 60 single-step samples for each of seeds 0
+and 1.
+
+Every phase prints one line (the profile adds one line per kernel); any
+failed check exits non-zero.  The last two
+lines are a JSON object of per-kernel numbers and the JSON result
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
+and prints no result: there is no CPU fallback.
+"""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+B, T, S, C = 30, 1000, 100, 500
+S_RANGE = 5
+REPS = 10
+
+
+class Failed(Exception):
+    pass
+
+
+def phase(name, msg):
+    print(f"[{name}] {msg}", flush=True)
+
+
+def make_inputs(seed=0):
+    """bench.py's make_inputs, in numpy (bench.py itself imports JAX)."""
+    rng = np.random.default_rng(seed)
+    am = rng.normal(size=(B, T, C)).astype(np.float32)
+    lm = rng.normal(size=(B, S + 1, C)).astype(np.float32)
+    symbols = rng.integers(1, C, size=(B, S)).astype(np.int32)
+    t_end = np.clip(rng.integers(T // 2, T + 1, size=B), S + 2, T).astype(np.int32)
+    s_end = np.clip(rng.integers(S // 2, S + 1, size=B), 2, S).astype(np.int32)
+    boundary = np.stack(
+        [np.zeros(B, np.int32), np.zeros(B, np.int32), s_end, t_end], axis=1
+    )
+    return am, lm, symbols, boundary
+
+
+def cuda_ms(fn, reps=REPS, inner=10):
+    """Milliseconds per call of ``fn``: CUDA events around ``inner``
+    back-to-back calls, divided by ``inner``; the median of ``reps`` such
+    runs, after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
+
+
+def finite_err(got, want, name, atol, rtol):
+    """(max abs, max rel) error of ``got`` over the finite entries of
+    ``want``; the -inf pattern must match exactly and
+    |got - want| <= atol + rtol * |want| everywhere.  The relative error is
+    taken where |want| > atol / rtol."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise Failed(f"{name}: -inf pattern differs")
+    if torch.isnan(got).any() or torch.isnan(want).any():
+        raise Failed(f"{name}: NaN")
+    fin = torch.isfinite(want)
+    if not fin.any():
+        return 0.0, 0.0
+    d = (got[fin] - want[fin]).abs()
+    ref = want[fin].abs()
+    bad = d > atol + rtol * ref
+    if bad.any():
+        raise Failed(f"{name}: max abs err {d.max().item():.3e} over atol {atol} + rtol {rtol}")
+    # relative error where the rtol term of the bound dominates
+    big = ref > atol / rtol
+    rel = (d[big] / ref[big]).max().item() if big.any() else 0.0
+    return d.max().item(), rel
+
+
+def worst(*errs):
+    return tuple(max(e[i] for e in errs) for i in range(2))
+
+
+def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
+    """Compare two (B, T) window-start arrays by the near-tie rule: every
+    frame where they differ must have window scores (``scores``, (K', B, T))
+    within ``gap_tol`` of each other at the two starts.  Returns (number of
+    flips, largest gap)."""
+    import torch
+
+    diff = k_starts != p_starts
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0.0
+    bi, ti = torch.nonzero(diff, as_tuple=True)
+    ka = k_starts[bi, ti].long().clamp(0, scores.shape[0] - 1)
+    kb = p_starts[bi, ti].long().clamp(0, scores.shape[0] - 1)
+    gaps = (scores[ka, bi, ti] - scores[kb, bi, ti]).abs()
+    gmax = gaps.max().item()
+    if gmax > gap_tol:
+        raise Failed(f"{name}: {n} range flips, largest window-score gap {gmax:.3e} > {gap_tol}")
+    return n, gmax
+
+
+def rand_case(rng, Bc, Sc, Tc, modified, banded, offset):
+    """Random unmasked rows, a ragged boundary (non-zero begins when
+    ``offset``) and, when ``banded``, random band starts."""
+    T1 = Tc if modified else Tc + 1
+    px = (rng.normal(size=(Sc, Bc, T1)) * 2.0).astype(np.float32)
+    py = (rng.normal(size=(Sc + 1, Bc, Tc)) * 2.0).astype(np.float32)
+    se = rng.integers(Sc // 2, Sc + 1, size=Bc)
+    te = np.maximum(rng.integers(Tc // 2, Tc + 1, size=Bc), 1)
+    sb = rng.integers(0, se // 2 + 1) if offset else np.zeros(Bc, np.int64)
+    tb = rng.integers(0, te // 3 + 1) if offset else np.zeros(Bc, np.int64)
+    bnd = np.stack([sb, tb, se, te], axis=1).astype(np.int32)
+    lo = None
+    if banded:
+        K = 3
+        lo = np.sort(rng.integers(0, max(Sc - K + 2, 1), size=(Bc, Tc)), axis=1).astype(np.int32)
+        return px, py, bnd, lo, K
+    return px, py, bnd, lo, 0
+
+
+def profile_step(step, reps=10):
+    """Device time of one step by kernel, from ``torch.profiler`` over
+    ``reps`` back-to-back steps: rows (kernel name, us per step, calls per
+    step), largest first, and the device's busy share of the window from
+    the first kernel's start to the last one's end.  None where the
+    profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    per = {}
+    for e in dev_events:
+        us, n = per.get(e.name, (0.0, 0))
+        per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows = sorted(((k, us / reps, n / reps) for k, (us, n) in per.items()), key=lambda r: -r[1])
+    return rows, busy / (spans[-1][1] - spans[0][0])
+
+
+def step_samples(step, n=60):
+    """``n`` single-step samples after one warm-up: (median, q1, q3, p90)
+    of CUDA-event ms around one call, and the median host wall ms of one
+    call with its synchronise."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    dev, wall = [], []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    q = np.percentile(dev, [50, 25, 75, 90])
+    return tuple(float(x) for x in q), float(np.median(wall))
+
+
+def headline_kernels(am, lm, sym, bnd):
+    """Each kernel against its plain version at the main path's shapes, with
+    CUDA-event times of both.  The tensors made here are freed on return, so
+    that the main path's peak memory is its own."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
+    from fast_rnnt_tpu_torch.ops.pruning import _window_scores
+
+    dev = am.device
+    report = {}
+
+    px_k, py_k = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
+    px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
+    e = worst(finite_err(px_k, px_p, "headline build px", 1e-4, 1e-5),
+              finite_err(py_k, py_p, "headline build py", 1e-4, 1e-5))
+    report["latbuild_fwd"] = dict(
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
+        ms=cuda_ms(lambda: latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)),
+        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)),
+    )
+
+    p_k, sc_k = wavefront.forward_rows(px_k, py_k, bnd)
+    p_p, sc_p = wavefront.forward_rows_plain(px_k, py_k, bnd)
+    e = worst(finite_err(p_k, p_p, "headline fwd p", 1e-4, 1e-5),
+              finite_err(sc_k, sc_p, "headline fwd scores", 1e-4, 1e-5))
+    report["wavefront_fwd"] = dict(
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
+        ms=cuda_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)),
+        plain_ms=cuda_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1),
+    )
+
+    ones = torch.ones(B, device=dev)
+    gx_k, gy_k = wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)
+    gx_p, gy_p = wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones)
+    e = worst(finite_err(gx_k, gx_p, "headline bwd px_grad", 1e-5, 1e-4),
+              finite_err(gy_k, gy_p, "headline bwd py_grad", 1e-5, 1e-4))
+    report["wavefront_bwd"] = dict(
+        err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|",
+        ms=cuda_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)),
+        plain_ms=cuda_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1),
+    )
+    # occupancy conservation: the occupancies of one utterance sum to its
+    # path length.  fp32 occupancies of a long lattice carry ~1e-3 of
+    # round-off in that sum, for the plain version as much as the kernel, so
+    # the bound is the JAX package's own fp32 round-trip bound, 1e-2
+    # (fast_rnnt_tpu/ops/recursion.py:867)
+    expect = (bnd[:, 2] - bnd[:, 0] + bnd[:, 3] - bnd[:, 1]).double()
+
+    def conservation(gx, gy):
+        tot = gx.double().sum((0, 2)) + gy.double().sum((0, 2))
+        return ((tot - expect).abs() / expect).max().item()
+
+    cons = (conservation(gx_k, gy_k), conservation(gx_p, gy_p))
+    if cons[0] > 1e-2:
+        raise Failed(f"occupancy conservation off by {cons[0]:.3e} (rel)")
+
+    st_k = ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
+    st_p = ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
+    n_flip, gap = range_flips(st_k, st_p, _window_scores(gx_k, gy_k, S_RANGE), "headline ranges")
+    report["ranges"] = dict(
+        err=gap, rel=0.0, tol="window-score gap <= 1e-3 at each flip",
+        ms=cuda_ms(lambda: ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
+        plain_ms=cuda_ms(lambda: ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
+    )
+    return report, n_flip, cons
+
+
+def main():
+    import torch
+
+    # --- 1. device --------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port has no CPU fallback here", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    phase("device", f"{kind} x{torch.cuda.device_count()}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}; matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+
+    sys.path.insert(0, HERE)
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned
+    from fast_rnnt_tpu_torch.ops.kernels import _build, latbuild, ranges, wavefront
+    from fast_rnnt_tpu_torch.ops.pruning import _window_argmax, _window_scores
+    from fast_rnnt_tpu_torch.utils import from_numpy
+
+    # --- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.load_library()
+    log = _build.BUILD_LOG.get("compiler_output", "")
+    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    phase("build", f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(_build.BUILD_LOG['path'], HERE)}")
+    for ln in usage:
+        print("  ptxas: " + ln, flush=True)
+
+    def t(*arrays):
+        return from_numpy(*arrays, device=dev)
+
+    # --- 3. each kernel against its plain version --------------------------
+    rng = np.random.default_rng(1)
+    cases = [
+        (3, 6, 20, False, False, False), (3, 6, 20, True, False, False),
+        (4, 7, 33, False, True, True), (4, 7, 33, True, True, True),
+        (2, 0, 9, False, False, False), (2, 0, 9, True, False, True),
+        (3, 9, 1200, False, False, True), (2, 5, 64, True, True, False),
+    ]
+    small = {"wavefront_fwd": 0.0, "wavefront_bwd": 0.0, "latbuild_fwd": 0.0}
+    for (Bc, Sc, Tc, modified, banded, offset) in cases:
+        px, py, bnd, lo, K = t(*rand_case(rng, Bc, Sc, Tc, modified, banded, offset))
+        p_k, sc_k = wavefront.forward_rows(px, py, bnd, lo, K)
+        p_p, sc_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
+        small["wavefront_fwd"] = max(
+            small["wavefront_fwd"],
+            finite_err(p_k, p_p, "fwd p", 1e-4, 1e-5)[0],
+            finite_err(sc_k, sc_p, "fwd scores", 1e-4, 1e-5)[0],
+        )
+        ag = torch.rand(Bc, device=dev) + 0.5
+        gx_k, gy_k = wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K)
+        gx_p, gy_p = wavefront.backward_rows_plain(px, py, p_p, bnd, ag, lo, K)
+        small["wavefront_bwd"] = max(
+            small["wavefront_bwd"],
+            finite_err(gx_k, gx_p, "bwd px_grad", 1e-5, 1e-4)[0],
+            finite_err(gy_k, gy_p, "bwd py_grad", 1e-5, 1e-4)[0],
+        )
+        if Sc >= 2:
+            Kr = min(3, Sc + 1)
+            step = 2 if modified else Kr
+            st_k = ranges.window_starts(gy_k, gx_k, Kr, bnd, step)
+            st_p = ranges.window_starts_plain(gy_k, gx_k, Kr, bnd, step)
+            range_flips(st_k, st_p, _window_scores(gx_k, gy_k, Kr), "ranges (small)")
+        Cc = 17
+        lm = torch.randn(Bc, Sc + 1, Cc, device=dev)
+        am = torch.randn(Bc, Tc, Cc, device=dev)
+        sym = torch.randint(1, Cc, (Bc, Sc), device=dev, dtype=torch.int32)
+        if offset and Sc:
+            # out-of-range symbols read 0 (the JAX package's one-hot gather);
+            # the last one sits at the very end of am
+            sym[0, 0], sym[-1, -1] = -1, Cc
+        rt = "modified" if modified else "regular"
+        pxb_k, pyb_k = latbuild.lattice_rows(lm, am, sym, 0, rt, bnd)
+        pxb_p, pyb_p = latbuild.lattice_rows_plain(lm, am, sym, 0, rt, bnd)
+        small["latbuild_fwd"] = max(
+            small["latbuild_fwd"],
+            finite_err(pxb_k, pxb_p, "build px", 1e-4, 1e-5)[0],
+            finite_err(pyb_k, pyb_p, "build py", 1e-4, 1e-5)[0],
+        )
+    phase("kernels-small", f"{len(cases)} ragged cases (regular/modified, banded, "
+          f"non-zero begins, S=0, out-of-range symbols) ok; max abs err {json.dumps(small)} (tol: lattices "
+          f"1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x|, ranges flips near-ties)")
+
+    # golden path-enumeration vectors (float64 enumeration, tests/golden)
+    gfiles = sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.npz")))
+    gerr = 0.0
+    for path in gfiles:
+        g = np.load(path)
+        px = torch.from_numpy(g["px"].astype(np.float32)).permute(1, 0, 2).contiguous().to(dev)
+        py = torch.from_numpy(g["py"].astype(np.float32)).permute(1, 0, 2).contiguous().to(dev)
+        bnd = t(g["boundary"])
+        lo, K = (t(g["lo"]), int(g["K"])) if "lo" in g.files else (None, 0)
+        p_k, sc_k = wavefront.forward_rows(px, py, bnd, lo, K)
+        gx_k, gy_k = wavefront.backward_rows(px, py, p_k, bnd, torch.ones_like(sc_k), lo, K)
+        gerr = max(
+            gerr,
+            finite_err(sc_k.cpu(), torch.from_numpy(g["scores"]), "golden scores", 1e-5, 1e-5)[0],
+            finite_err(gx_k.permute(1, 0, 2).cpu(), torch.from_numpy(g["px_grad"]),
+                       "golden px_grad", 1e-5, 1e-4)[0],
+            finite_err(gy_k.permute(1, 0, 2).cpu(), torch.from_numpy(g["py_grad"]),
+                       "golden py_grad", 1e-5, 1e-4)[0],
+        )
+    if not gfiles:
+        raise Failed("no golden vectors under tests/golden")
+    phase("golden", f"{len(gfiles)} path-enumeration vectors ok; max abs err {gerr:.3e}")
+
+    # headline shape: each kernel against its plain version, with times
+    am_np, lm_np, sym_np, bnd_np = make_inputs(seed=0)
+    am, lm, sym, bnd = t(am_np, lm_np, sym_np, bnd_np)
+    report, n_flip, cons = headline_kernels(am, lm, sym, bnd)
+    phase("kernels-headline", f"B={B} T={T} S={S} C={C}: " + "; ".join(
+        f"{k} max abs err {v['err']:.3e} rel {v['rel']:.3e} (tol {v['tol']}) "
+        f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
+        for k, v in report.items()
+    ) + f"; ranges flips {n_flip}; occupancy conservation rel err kernel {cons[0]:.2e} "
+      f"plain {cons[1]:.2e}")
+
+    # --- 4. main path -------------------------------------------------------
+    def step():
+        return rnnt_loss_simple_pruned(lm, am, sym, 0, S_RANGE, bnd, reduction="none")
+
+    counters = {
+        "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
+        "wavefront_bwd": (wavefront.LAUNCHES, "bwd"),
+        "latbuild_fwd": (latbuild.LAUNCHES, "fwd"),
+        "ranges": (ranges.LAUNCHES, "ranges"),
+    }
+    for d, k in counters.values():
+        d[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    simple, pruned, rng_k = step()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = {name: d[k] for name, (d, k) in counters.items()}
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise Failed(f"main path did not launch {missing}: {launches}")
+    if simple.shape != (B,) or pruned.shape != (B,) or tuple(rng_k.shape) != (B, T, S_RANGE):
+        raise Failed(f"shapes {simple.shape} {pruned.shape} {tuple(rng_k.shape)}")
+    if not (torch.isfinite(simple).all() and torch.isfinite(pruned).all()):
+        raise Failed("non-finite losses")
+    if (pruned < simple - 1e-3 * simple.abs()).any():
+        # the pruned lattice is a subset of the full one: its loss is larger
+        raise Failed("pruned loss below the simple loss")
+
+    # the plain path on the card, on the same inputs
+    ones = torch.ones(B, device=dev)
+    px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
+    p_p, sc_p = wavefront.forward_rows_plain(px_p, py_p, bnd)
+    gx_p, gy_p = wavefront.backward_rows_plain(px_p, py_p, p_p, bnd, ones)
+    # the kernel path's stage-1 occupancies, recomputed outside the counted run
+    px_k, py_k = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
+    p_k, _ = wavefront.forward_rows(px_k, py_k, bnd)
+    gx_k, gy_k = wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)
+    del p_k
+    # ranges, by the near-tie rule: (a) the main path's ranges are the plain
+    # window search of its own occupancies; (b) where the two paths'
+    # occupancies (which differ in the last float32 bits) pick different raw
+    # window argmaxes, the two windows' scores are within 1e-3.  A raw flip
+    # cascades through the monotone repair into other frames, so the
+    # repaired ranges themselves are compared only on equal occupancies.
+    lo_k = rng_k[:, :, 0].contiguous()
+    range_flips(lo_k, ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE),
+                _window_scores(gx_k, gy_k, S_RANGE), "main-path ranges")
+    n_flip, gap = range_flips(
+        _window_argmax(gx_k, gy_k, S_RANGE), _window_argmax(gx_p, gy_p, S_RANGE),
+        _window_scores(gx_p, gy_p, S_RANGE), "main-path raw window argmax",
+    )
+    # stage 2 of the plain path on the kernel's ranges (near-tie rule)
+    _, sc2_p = wavefront.forward_rows_plain(px_p, py_p, bnd, lo_k, S_RANGE)
+    rel_s = ((simple + sc_p).abs() / sc_p.abs()).max().item()
+    rel_p = ((pruned + sc2_p).abs() / sc2_p.abs()).max().item()
+    if rel_s > 1e-4 or rel_p > 1e-4:
+        raise Failed(f"losses vs plain path: rel err simple {rel_s:.3e} pruned {rel_p:.3e} > 1e-4")
+    step_ms = cuda_ms(step)
+    phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
+          f"fp32: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
+          f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); step {step_ms:.4f} ms "
+          f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_ms:.1f} ms); peak "
+          f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs); "
+          f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}")
+
+    # --- 5. where the step's time goes (measurements, not checks) ----------
+    try:
+        prof = profile_step(step)
+    except Exception as e:  # noqa: BLE001 - a profiler fault leaves the checks standing
+        prof, why = None, f"{type(e).__name__}: {e}"
+    else:
+        why = "the profiler saw no device activity"
+    if prof is None:
+        phase("profile", f"not measured ({why})")
+    else:
+        rows, busy = prof
+        total = sum(r[1] for r in rows)
+        phase("profile", f"torch.profiler, 10 steps: device busy {100 * busy:.1f}% of the "
+              f"device window; kernel time {total:.1f} us per step")
+        for name, us, calls in rows:
+            print(f"  {us:9.1f} us/step {calls:5.1f} calls/step {100 * us / total:5.1f}%  "
+                  f"{name[:90]}", flush=True)
+    for seed in (0, 1):
+        if seed:
+            am, lm, sym, bnd = t(*make_inputs(seed))
+        (med, q1, q3, p90), wall = step_samples(step)
+        phase("step-samples", f"seed {seed}: 60 single-step CUDA-event samples, median "
+              f"{med:.4f} ms (q1 {q1:.4f}, q3 {q3:.4f}, p90 {p90:.4f}); host wall per step "
+              f"with its synchronise, median {wall:.4f} ms")
+
+    # --- 6. results -----------------------------------------------------------
+    sources = {
+        "wavefront_fwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+                          "fast_rnnt_tpu/ops/kernels/wavefront.py:224"),
+        "wavefront_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+                          "fast_rnnt_tpu/ops/kernels/wavefront.py:420"),
+        "latbuild_fwd": ("fast_rnnt_tpu_torch/csrc/latbuild.cu",
+                         "fast_rnnt_tpu/ops/kernels/latbuild.py:207"),
+        "ranges": ("fast_rnnt_tpu_torch/csrc/ranges.cu",
+                   "fast_rnnt_tpu/ops/kernels/ranges.py:64"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": report[name]["err"],
+         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+        for name, (src, rep) in sources.items()
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Failed as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,16 @@
+"""PyTorch / CUDA port of fast_rnnt_tpu: the pruned RNN-T loss on NVIDIA
+Hopper GPUs, with hand-written CUDA kernels for the lattice build, the
+recursion and the pruning windows, and plain PyTorch versions of each for
+CPU tensors."""
+
+from .ops.lattice import get_rnnt_logprobs_rows
+from .ops.losses import rnnt_loss_simple_pruned
+from .ops.pruning import get_rnnt_prune_ranges_rows
+from .ops.recursion import mutual_information_rows
+
+__all__ = [
+    "get_rnnt_logprobs_rows",
+    "get_rnnt_prune_ranges_rows",
+    "mutual_information_rows",
+    "rnnt_loss_simple_pruned",
+]

@@ -1,0 +1,86 @@
+// Shared device helpers of the lattice kernels: -inf-safe log-add, the
+// safe exp of the occupancy backward, and a block-wide inclusive scan.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <limits>
+
+namespace frt {
+
+constexpr float kNegInf = -std::numeric_limits<float>::infinity();
+
+// log(exp(x) + exp(y)); two -inf inputs give -inf, not NaN.
+__device__ __forceinline__ float log_add(float x, float y) {
+  float m = fmaxf(x, y);
+  if (m == kNegInf) return kNegInf;
+  return m + log1pf(expf(-fabsf(x - y)));
+}
+
+// exp(x), with the arguments whose exp overflows float32 (x > 88.6) or is
+// NaN mapped to 0: occupancy terms made of -inf - -inf contribute nothing.
+__device__ __forceinline__ float safe_exp(float x) {
+  return (isnan(x) || x > 88.6f) ? 0.f : expf(x);
+}
+
+// One element of a first-order linear recurrence x_t = a_t (x) x_{t-1} (+) b_t.
+struct Pair {
+  float a, b;
+};
+
+// log-semiring: x_t = logadd(a_t + x_{t-1}, b_t).  (l then r).
+struct LogOp {
+  __device__ __forceinline__ Pair operator()(Pair l, Pair r) const {
+    return {l.a + r.a, log_add(l.b + r.a, r.b)};
+  }
+};
+
+// ordinary algebra: x_t = a_t * x_{t-1} + b_t.  (l then r).
+struct LinOp {
+  __device__ __forceinline__ Pair operator()(Pair l, Pair r) const {
+    return {l.a * r.a, fmaf(l.b, r.a, r.b)};
+  }
+};
+
+struct MinOp {
+  __device__ __forceinline__ int operator()(int l, int r) const { return min(l, r); }
+};
+
+__device__ __forceinline__ Pair shfl_up(Pair v, int d) {
+  return {__shfl_up_sync(0xffffffffu, v.a, d), __shfl_up_sync(0xffffffffu, v.b, d)};
+}
+__device__ __forceinline__ int shfl_up(int v, int d) {
+  return __shfl_up_sync(0xffffffffu, v, d);
+}
+
+// Inclusive scan over the threads of the block, in thread order, of an
+// associative op (l then r).  blockDim.x must be a multiple of 32 and every
+// thread must call it.  `warp_tot` is shared scratch of 32 values.  Lanes
+// only ever receive values from lower lanes, so no identity is needed.
+template <class V, class Op>
+__device__ V block_inclusive_scan(V v, Op op, V* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    V o = shfl_up(v, d);
+    if (lane >= d) v = op(o, v);
+  }
+  if (lane == 31) warp_tot[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    V w = warp_tot[lane < nw ? lane : 0];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      V o = shfl_up(w, d);
+      if (lane >= d) w = op(o, w);
+    }
+    if (lane < nw) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  if (wid > 0) v = op(warp_tot[wid - 1], v);
+  __syncthreads();  // warp_tot may be reused right after
+  return v;
+}
+
+}  // namespace frt

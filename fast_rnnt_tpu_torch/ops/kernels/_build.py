@@ -1,0 +1,124 @@
+"""Build and load the CUDA kernels of ``fast_rnnt_tpu_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
+library with a plain C interface, for Hopper (``sm_90a``), into
+``build/kernels/`` at the root of the checkout.  The file name carries a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  The library is loaded with ``ctypes``:
+every pointer and the stream are ``c_void_p``, every size ``c_int``, and
+every entry returns ``cudaGetLastError()`` after its launch.
+
+Nothing here runs at import: the CPU tests import every module, and the
+CPU has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["load_library", "check", "stream_ptr", "ptr", "BUILD_LOG"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every C entry (see the .cu files for the argument meanings)
+_SIGNATURES = {
+    # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, stream
+    "frt_wavefront_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, P],
+    # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, pxg, pyg,
+    # threads, stream
+    "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, P],
+    # lmp, pxlm, pylm, lmmax, symbols, te, am, B, S, T, C, blank, modified,
+    # px, py, stream
+    "frt_latbuild_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P],
+    # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, out, threads, stream
+    "frt_ranges": [P, P, P, I, I, I, I, I, I, P, I, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = {}  # seconds, path and compiler output of this process's build
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc") or "")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Return the loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        import time
+
+        sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+        out = BUILD_DIR / f"libfrt_kernels_{_source_hash()}.so"
+        t0 = time.perf_counter()
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+                )
+            os.replace(tmp, out)
+            BUILD_LOG["compiler_output"] = res.stdout + res.stderr
+        BUILD_LOG["seconds"] = time.perf_counter() - t0
+        BUILD_LOG["path"] = str(out)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.frt_error_string.argtypes = [ctypes.c_int]
+        lib.frt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        msg = _lib.frt_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t):
+    """Device pointer of a tensor, or None (a NULL pointer) for None."""
+    return None if t is None else t.data_ptr()

@@ -1,0 +1,145 @@
+"""Forward and occupancy-backward lattice recursion: wrappers of the CUDA
+kernels in ``csrc/wavefront.cu`` and their plain PyTorch versions.
+
+Replaces the Pallas kernels ``fast_rnnt_tpu/ops/kernels/wavefront.py``
+``_fwd_kernel`` (:224, entry ``forward_rows_pallas`` :366) and
+``_bwd_kernel`` (:420, entry ``backward_rows_pallas`` :558).
+
+A CPU tensor runs the plain version (``recursion._forward_rows_plain`` /
+``_backward_rows_plain``); a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..recursion import _backward_rows_plain, _forward_rows_plain
+from . import _build
+
+__all__ = [
+    "forward_rows",
+    "backward_rows",
+    "forward_rows_plain",
+    "backward_rows_plain",
+    "LAUNCHES",
+]
+
+LAUNCHES = {"fwd": 0, "bwd": 0}
+
+forward_rows_plain = _forward_rows_plain
+backward_rows_plain = _backward_rows_plain
+
+_MAX_SMEM = 232_448  # bytes of shared memory one Hopper block may use
+
+
+def _threads(width: int) -> int:
+    """One block per utterance; up to 1024 threads, one per lattice column
+    when the row fits (each thread scans a segment of ceil(W / threads))."""
+    return min(1024, max(32, -(-width // 32) * 32))
+
+
+def _check_cuda(px_rows, py_rows, boundary, lo, extra=()):
+    S, B, T1 = px_rows.shape
+    if py_rows.dim() != 3 or py_rows.shape[:2] != (S + 1, B):
+        raise ValueError(f"py_rows {tuple(py_rows.shape)} != ({S + 1}, {B}, T)")
+    T = py_rows.shape[2]
+    if T1 not in (T, T + 1):
+        raise ValueError(f"px_rows last dim {T1} must be T={T} or T+1={T + 1}")
+    dev = px_rows.device
+    for name, x in (("px_rows", px_rows), ("py_rows", py_rows), *extra):
+        if not x.is_cuda or x.device != dev:
+            raise ValueError(f"{name} must be on {dev}, got {x.device}")
+        if x.dtype != torch.float32:
+            # the dtype policy: float64 (and bf16 storage, not ported yet) on
+            # a CUDA tensor raises; it is never sent to the plain path
+            raise TypeError(f"the CUDA kernels take float32 only: {name} is {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    ints = [("boundary", boundary, (B, 4))]
+    if lo is not None:
+        ints.append(("lo", lo, (B, T)))
+    for name, x, shape in ints:
+        if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+    return S, B, T1, T
+
+
+def forward_rows(
+    px_rows: torch.Tensor,
+    py_rows: torch.Tensor,
+    boundary: torch.Tensor,
+    lo: Optional[torch.Tensor] = None,
+    K: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward lattice, s-major: returns (p_rows [S+1, B, T+1] float32,
+    scores [B]).  ``px_rows``/``py_rows`` are unmasked; the boundary and
+    the optional band ``lo <= s < lo + K`` are masked inside."""
+    if not px_rows.is_cuda:
+        return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
+    S, B, T1, T = _check_cuda(px_rows, py_rows, boundary, lo)
+    W = T + 1
+    nt = _threads(W)
+    smem = (4 * W + nt) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"T={T} needs {smem} B of shared memory (> {_MAX_SMEM})")
+    p_rows = torch.empty((S + 1, B, W), dtype=torch.float32, device=px_rows.device)
+    scores = torch.empty((B,), dtype=torch.float32, device=px_rows.device)
+    if B == 0:
+        return p_rows, scores
+    lib = _build.load_library()
+    err = lib.frt_wavefront_fwd(
+        _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(boundary),
+        _build.ptr(lo), int(K), S, B, T, int(T1 == T),
+        _build.ptr(p_rows), _build.ptr(scores), nt,
+        _build.stream_ptr(px_rows.device),
+    )
+    _build.check(err, "wavefront_fwd")
+    LAUNCHES["fwd"] += 1
+    return p_rows, scores
+
+
+def backward_rows(
+    px_rows: torch.Tensor,
+    py_rows: torch.Tensor,
+    p_rows: torch.Tensor,
+    boundary: torch.Tensor,
+    ans_grad: torch.Tensor,
+    lo: Optional[torch.Tensor] = None,
+    K: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Occupancy backward, s-major, seeded with ``ans_grad`` [B] at
+    (s_end, t_end).  Returns (px_grad [S, B, T'], py_grad [S+1, B, T])."""
+    if not px_rows.is_cuda:
+        return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
+    S, B, T1, T = _check_cuda(
+        px_rows, py_rows, boundary, lo,
+        extra=(("p_rows", p_rows), ("ans_grad", ans_grad)),
+    )
+    W = T + 1
+    if tuple(p_rows.shape) != (S + 1, B, W) or tuple(ans_grad.shape) != (B,):
+        raise ValueError(
+            f"p_rows {tuple(p_rows.shape)} / ans_grad {tuple(ans_grad.shape)} "
+            f"!= ({S + 1}, {B}, {W}) / ({B},)"
+        )
+    nt = _threads(W)
+    smem = (4 * W + nt) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"T={T} needs {smem} B of shared memory (> {_MAX_SMEM})")
+    px_grad = torch.empty_like(px_rows)
+    py_grad = torch.empty_like(py_rows)
+    if B == 0:
+        return px_grad, py_grad
+    lib = _build.load_library()
+    err = lib.frt_wavefront_bwd(
+        _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(p_rows),
+        _build.ptr(boundary), _build.ptr(lo), int(K), _build.ptr(ans_grad),
+        S, B, T, int(T1 == T), _build.ptr(px_grad), _build.ptr(py_grad), nt,
+        _build.stream_ptr(px_rows.device),
+    )
+    _build.check(err, "wavefront_bwd")
+    LAUNCHES["bwd"] += 1
+    return px_grad, py_grad

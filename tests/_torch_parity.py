@@ -1,0 +1,116 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made once in numpy from a seed and handed to both the JAX
+package and the port; results come back as numpy arrays and are compared
+with the tolerances stated here:
+
+  * fp32 losses and scores: |a - b| <= 1e-4 + 1e-5 |b|;
+  * lattices (px, py, p) and occupancies: |a - b| <= 1e-5 + 1e-5 |b|
+    (atol 1e-5 at these small sizes, where |values| are O(10));
+  * pruning ranges: equal, or every differing window start a near-tie
+    (ROADMAP Queue 3): window scores within 1e-3.
+
+Tier-1 runs six test workers on eight cores, so torch is held to one
+thread.
+"""
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+LOSS_ATOL, LOSS_RTOL = 1e-4, 1e-5
+LAT_ATOL, LAT_RTOL = 1e-5, 1e-5
+TIE_GAP = 1e-3
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x)
+
+
+def tt(*arrays):
+    """numpy -> CPU tensors (float32 / int32)."""
+    from fast_rnnt_tpu_torch.utils import from_numpy
+
+    return from_numpy(*arrays, device="cpu")
+
+
+def jj(*arrays):
+    import jax.numpy as jnp
+
+    out = tuple(None if a is None else jnp.asarray(a) for a in arrays)
+    return out[0] if len(out) == 1 else out
+
+
+def assert_close(got, want, atol, rtol, what=""):
+    """-inf patterns equal; finite entries within atol + rtol * |want|."""
+    got, want = to_np(got).astype(np.float64), to_np(want).astype(np.float64)
+    assert got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}"
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want), err_msg=f"{what}: -inf pattern")
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], atol=atol, rtol=rtol, err_msg=what)
+
+
+def assert_loss_close(got, want, what=""):
+    assert_close(got, want, LOSS_ATOL, LOSS_RTOL, what)
+
+
+def assert_lattice_close(got, want, what=""):
+    assert_close(got, want, LAT_ATOL, LAT_RTOL, what)
+
+
+def loss_inputs(seed, B=3, T=17, S=6, C=12, ragged=True):
+    """(am [B,T,C], lm [B,S+1,C], symbols [B,S], boundary [B,4]) in numpy."""
+    rng = np.random.default_rng(seed)
+    am = rng.normal(size=(B, T, C)).astype(np.float32)
+    lm = rng.normal(size=(B, S + 1, C)).astype(np.float32)
+    symbols = rng.integers(1, C, size=(B, S)).astype(np.int32)
+    if ragged:
+        se = rng.integers(max(S // 2, 1), S + 1, size=B)
+        te = np.maximum(rng.integers(T // 2, T + 1, size=B), se + 2)
+        te = np.minimum(te, T)
+        te[0], se[0] = T, S  # one full-length utterance
+    else:
+        se, te = np.full(B, S), np.full(B, T)
+    boundary = np.stack([np.zeros(B), np.zeros(B), se, te], axis=1).astype(np.int32)
+    return am, lm, symbols, boundary
+
+
+def rows_inputs(seed, B=3, S=5, T=11, modified=False, offset=False, neg_inf_frac=0.0):
+    """Random s-major (px_rows, py_rows, boundary) with ragged ends and,
+    when ``offset``, non-zero begins."""
+    rng = np.random.default_rng(seed)
+    T1 = T if modified else T + 1
+    px = (rng.normal(size=(S, B, T1)) * 2.0).astype(np.float32)
+    py = (rng.normal(size=(S + 1, B, T)) * 2.0).astype(np.float32)
+    if not modified:
+        px[:, :, -1] = -np.inf
+    if neg_inf_frac:
+        px[rng.random(px.shape) < neg_inf_frac] = -np.inf
+        py[rng.random(py.shape) < neg_inf_frac] = -np.inf
+    se = rng.integers(max(S // 2, 0), S + 1, size=B)
+    te = rng.integers(max(T // 2, 1), T + 1, size=B)
+    sb = rng.integers(0, se // 2 + 1) if offset else np.zeros(B, np.int64)
+    tb = rng.integers(0, te // 3 + 1) if offset else np.zeros(B, np.int64)
+    boundary = np.stack([sb, tb, se, te], axis=1).astype(np.int32)
+    return px, py, boundary
+
+
+def band(seed, B, S, T, K):
+    """Monotone random band starts lo (B, T) in [0, S + 1 - K]."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, S + 2 - K, size=(B, T))
+    return np.sort(lo, axis=1).astype(np.int32)
+
+
+def assert_ranges_match(got, want, scores, what=""):
+    """Window starts equal, or each differing start a near-tie of the
+    window scores ``scores`` (K', B, T)."""
+    got, want, scores = to_np(got), to_np(want), to_np(scores)
+    diff = np.argwhere(got != want)
+    for b, t in diff:
+        gap = abs(scores[got[b, t], b, t] - scores[want[b, t], b, t])
+        assert gap <= TIE_GAP, f"{what}: window start flip at b={b} t={t}, score gap {gap}"
