@@ -6,13 +6,20 @@
 Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
 each kernel against its plain PyTorch version on the card (small ragged
 shapes, the golden path-enumeration vectors, the headline shape), then
-drives the main path once: ``rnnt_loss_simple_pruned`` at B=30, T=1000,
-S=100, C=500, s_range=5, fp32, on inputs made exactly as ``bench.py``
-makes them (seed 0), and checks that every kernel of the path ran and that
-the losses agree with the plain path on the card.  Last it measures where
-the step's time goes: device time per kernel and the device's busy share
-under ``torch.profiler``, and 60 single-step samples for each of seeds 0
-and 1.
+drives three paths at B=30, T=1000, S=100, C=500, s_range=5, fp32, on
+inputs made exactly as ``bench.py`` makes them (seed 0), each with every
+launch count set to 0 just before and read just after:
+
+  * forward only: ``rnnt_loss_simple_pruned``; the losses agree with the
+    plain path on the card, and no backward residual is kept;
+  * training: ``bench.py``'s step, the gradient of ``0.5*simple + pruned``
+    w.r.t. (am, lm); the gradients agree with the plain recursion's
+    occupancies fed through the plain build backward;
+  * smoothed training: the same for ``rnnt_loss_smoothed_pruned``.
+
+Last it measures where the three steps' time goes: device
+time per kernel and the device's busy share under ``torch.profiler``, and
+60 single-step samples of the forward step for each of seeds 0 and 1.
 
 Every phase prints one line (the profile adds one line per kernel); any
 failed check exits non-zero.  The last two
@@ -34,6 +41,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 B, T, S, C = 30, 1000, 100, 500
 S_RANGE = 5
 REPS = 10
+# the forward-only main path's peak device memory may not exceed the first
+# slice's 156.1 MiB by more than 1 MiB: it keeps no backward residual
+FWD_PEAK_MIB = 157.1
 
 
 class Failed(Exception):
@@ -61,10 +71,13 @@ def make_inputs(seed=0):
 def cuda_ms(fn, reps=REPS, inner=10):
     """Milliseconds per call of ``fn``: CUDA events around ``inner``
     back-to-back calls, divided by ``inner``; the median of ``reps`` such
-    runs, after one warm-up call."""
+    runs, after a warm-up run of ``inner`` calls (the first timer of a
+    process otherwise reads the card before its clocks are up)."""
     import torch
 
-    fn()
+    for _ in range(inner):
+        fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -106,6 +119,146 @@ def finite_err(got, want, name, atol, rtol):
 
 def worst(*errs):
     return tuple(max(e[i] for e in errs) for i in range(2))
+
+
+# gradients (d_lm, d_am, d_uni), kernel against plain, both fp32: the largest
+# |difference| over the largest |plain value|
+GRAD_TOL = 1e-4
+
+
+def grad_err(got, want, name, tol=GRAD_TOL):
+    """(max abs err, max abs err / max |want|); fails above ``tol`` or on a
+    non-finite value."""
+    import torch
+
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise Failed(f"{name}: non-finite gradient")
+    if got.shape != want.shape:
+        raise Failed(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if want.numel() == 0:
+        return 0.0, 0.0
+    err = (got.double() - want.double()).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if rel > tol:
+        raise Failed(f"{name}: max abs err {err:.3e} is {rel:.3e} of max |plain| > {tol}")
+    return err, rel
+
+
+# training gradients against the plain reference, which runs its own fp32
+# recursion: fp32 occupancies of a 1000-frame lattice carry ~3e-3 of
+# round-off (p reaches |p| ~ 4e3, where a float32 step is 4.9e-4, and an
+# occupancy is the exp of a difference of such values), in the plain
+# version as much as in the kernels; the bound is the JAX package's own fp32
+# occupancy bound (fast_rnnt_tpu/ops/recursion.py:867).  The build backward
+# itself is held to GRAD_TOL on identical cotangents (kernels-headline).
+TRAIN_GRAD_TOL = 1e-2
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12  # fp32 FMA pipes, outside the tensor cores
+
+
+def bound(nbytes, nflops):
+    """(ms, "bytes" | "operations"): the least time the card could take, the
+    larger of the bytes over the memory rate and the fp32 operations over
+    the fp32 peak."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def kernel_bounds(bnd):
+    """Bound of each kernel at this run's headline inputs: each input read
+    once, each output written once, fp32 (4 bytes).  The build kernels need
+    every frame; the recursion and ranges kernels read only the cells inside
+    each utterance's boundary (s <= s_end, t <= t_end), and their per-cell
+    operation counts are taken from the code (log-add: 7, occupancy: 10,
+    window sum: 2)."""
+    se = bnd[:, 2].double() - bnd[:, 0].double()
+    te = bnd[:, 3].double() - bnd[:, 1].double()
+    npx = float((se * (te + 1)).sum())
+    npy = float(((se + 1) * te).sum())
+    ncell = float(((se + 1) * (te + 1)).sum())
+    px, py, p = S * B * (T + 1), (S + 1) * B * T, (S + 1) * B * (T + 1)
+    am, lm, sym = B * T * C, B * (S + 1) * C, B * S
+    gemm = 2 * B * T * (S + 1) * C
+    return {
+        "latbuild_fwd": bound(4 * (am + lm + sym + B + px + py), gemm),
+        "wavefront_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
+        "wavefront_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
+        "ranges": bound(4 * (npx + npy + 4 * B + B * T), 2 * npy),
+        # inputs lm, am, symbols, t_end, the residuals D and amax, dpx, dpy;
+        # outputs d_am, d_lm
+        "latbuild_bwd": bound(4 * (lm + am + sym + B + py + B * T + px + py + am + lm), 2 * gemm),
+        "latbuild_fwd_parts": bound(4 * (am + lm + sym + B + C + px + 2 * py),
+                                    gemm + 2 * B * T * C),
+        # + uni, the residual duni and dnd in, d_uni out
+        "latbuild_bwd_parts": bound(4 * (lm + am + sym + B + C + py + 2 * B * T + px + 2 * py
+                                         + am + lm + C),
+                                    2 * 2 * B * T * (S + 2) * C),
+    }
+
+
+def build_checks(dev, rng, bnd, Sc, Tc, modified, offset):
+    """The build kernels at a small ragged shape against their plain
+    versions: the forward with its residuals, the backward through the
+    autograd route for every rnnt_type (random cotangents, also on the -inf
+    columns, which both sides drop), and the smoothed build's forward and
+    backward.  A random blank; with ``offset`` out-of-range symbols.
+    Returns {kernel: max abs err}."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild
+
+    Bc, Cc = bnd.shape[0], 17
+    lm = torch.randn(Bc, Sc + 1, Cc, device=dev)
+    am = torch.randn(Bc, Tc, Cc, device=dev) * 2
+    sym = torch.randint(1, Cc, (Bc, Sc), device=dev, dtype=torch.int32)
+    if offset and Sc:
+        # out-of-range symbols read 0 (the JAX package's one-hot gather); the
+        # last one sits at the very end of am
+        sym[0, 0], sym[-1, -1] = -1, Cc
+    blank = int(rng.integers(Cc))
+    rt = "modified" if modified else "regular"
+    te = bnd[:, 3].contiguous() if not modified else torch.full((Bc,), -1, dtype=torch.int32, device=dev)
+    T1 = Tc if modified else Tc + 1
+    dpx, dpy = torch.randn(Sc, Bc, T1, device=dev), torch.randn(Sc + 1, Bc, Tc, device=dev)
+    err = {}
+
+    px_k, py_k = latbuild.lattice_rows(lm, am, sym, blank, rt, bnd)
+    px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, blank, rt, bnd)
+    e = [finite_err(px_k, px_p, "build px", 1e-4, 1e-5)[0],
+         finite_err(py_k, py_p, "build py", 1e-4, 1e-5)[0]]
+    px_r, py_r, _, _ = latbuild.build_fwd(lm, am, sym, te, blank, modified, save=True)
+    e += [finite_err(px_r, px_p, "build px (residuals on)", 1e-4, 1e-5)[0],
+          finite_err(py_r, py_p, "build py (residuals on)", 1e-4, 1e-5)[0]]
+    err["latbuild_fwd"] = max(e)
+
+    e = []
+    for rtype in (("modified", "constrained") if modified else ("regular",)):
+        lm_l, am_l = lm.clone().requires_grad_(), am.clone().requires_grad_()
+        px_k, py_k = latbuild.lattice_rows(lm_l, am_l, sym, blank, rtype, bnd)
+        g_lm, g_am = torch.autograd.grad([px_k, py_k], [lm_l, am_l], [dpx, dpy])
+        dpy_eff = dpy + torch.cat([torch.zeros_like(dpy[:1]), dpx]) if rtype == "constrained" else dpy
+        w_lm, w_am, _ = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy_eff, blank, modified)
+        e += [grad_err(g_lm, w_lm, f"build bwd d_lm ({rtype})")[0],
+              grad_err(g_am, w_am, f"build bwd d_am ({rtype})")[0]]
+    err["latbuild_bwd"] = max(e)
+
+    uni = torch.softmax(torch.randn(Cc, device=dev), 0) + 1e-3
+    dnd = torch.randn(Sc + 1, Bc, Tc, device=dev)
+    *out_k, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True)
+    out_p = latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, modified)
+    err["latbuild_fwd_parts"] = max(
+        finite_err(a, b, f"parts {n}", 1e-4, 1e-5)[0]
+        for a, b, n in zip(out_k, out_p, ("px", "py", "normd"))
+    )
+    g_k = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd)
+    g_p = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd)
+    err["latbuild_bwd_parts"] = max(
+        grad_err(a, b, f"parts bwd {n}")[0] for a, b, n in zip(g_k, g_p, ("d_lm", "d_am", "d_uni"))
+    )
+    return err
 
 
 def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
@@ -221,11 +374,67 @@ def headline_kernels(am, lm, sym, bnd):
     px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
     e = worst(finite_err(px_k, px_p, "headline build px", 1e-4, 1e-5),
               finite_err(py_k, py_p, "headline build py", 1e-4, 1e-5))
+    te = bnd[:, 3].contiguous()
+    # the GEMM operands, for the library yardsticks (one cuBLAS call each)
+    lmp = torch.exp(lm - lm.amax(2, keepdim=True))
+    amp = torch.exp(am - am.amax(2, keepdim=True))
     report["latbuild_fwd"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
         ms=cuda_ms(lambda: latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)),
         plain_ms=cuda_ms(lambda: latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)),
+        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp, amp)),
+        # the training forward, which also writes the residuals D and amax:
+        # the residual's cost is the difference, a recompute's at least the
+        # forward kernel's own time
+        residuals_ms=cuda_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)),
     )
+
+    # build backward on random cotangents at the main path's shapes
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dpx = torch.randn((S, B, T + 1), device=dev, generator=gen)
+    dpy = torch.randn((S + 1, B, T), device=dev, generator=gen)
+    dnd = torch.randn((S + 1, B, T), device=dev, generator=gen)
+    _, _, _, res = latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)
+    g_k = latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)[:2]
+    g_p = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False)[:2]
+    e = worst(*(grad_err(a, b, f"headline build bwd {n}") for a, b, n in zip(g_k, g_p, ("d_lm", "d_am"))))
+    w = torch.randn((B, S + 1, T), device=dev, generator=gen)
+    report["latbuild_bwd"] = dict(
+        err=e[0], rel=e[1], tol=f"{GRAD_TOL} of max |plain|",
+        ms=cuda_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)),
+        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False)),
+        library_ms=cuda_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp), torch.bmm(w, amp))),
+    )
+    del g_k, g_p, res
+
+    # the smoothed build, forward and backward, with the unigram LM that
+    # lattice_rows_smoothed makes
+    uni = (lmp / lmp.sum(2, keepdim=True)).mean((0, 1)) + float(np.finfo(np.float32).tiny)
+    *o_k, res = latbuild.build_fwd(lm, am, sym, te, 0, False, uni, save=True)
+    o_p = latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)
+    e = worst(*(finite_err(a, b, f"headline parts {n}", 1e-4, 1e-5)
+                for a, b, n in zip(o_k, o_p, ("px", "py", "normd"))))
+    lmp_x = torch.cat([lmp, uni.expand(B, 1, C)], 1)
+    report["latbuild_fwd_parts"] = dict(
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
+        ms=cuda_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, uni)),
+        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)),
+        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp_x, amp)),
+    )
+    del o_k, o_p
+    g_k = latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy, uni, dnd)
+    g_p = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd)
+    e = worst(*(grad_err(a, b, f"headline parts bwd {n}")
+                for a, b, n in zip(g_k, g_p, ("d_lm", "d_am", "d_uni"))))
+    w = torch.randn((B, S + 2, T), device=dev, generator=gen)
+    report["latbuild_bwd_parts"] = dict(
+        err=e[0], rel=e[1], tol=f"{GRAD_TOL} of max |plain|",
+        ms=cuda_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy, uni, dnd)),
+        plain_ms=cuda_ms(
+            lambda: latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd)),
+        library_ms=cuda_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp_x), torch.bmm(w, amp))),
+    )
+    del g_k, g_p, res, w, dpx, dpy, dnd
 
     p_k, sc_k = wavefront.forward_rows(px_k, py_k, bnd)
     p_p, sc_p = wavefront.forward_rows_plain(px_k, py_k, bnd)
@@ -295,7 +504,7 @@ def main():
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
 
     sys.path.insert(0, HERE)
-    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned, rnnt_loss_smoothed_pruned
     from fast_rnnt_tpu_torch.ops.kernels import _build, latbuild, ranges, wavefront
     from fast_rnnt_tpu_torch.ops.pruning import _window_argmax, _window_scores
     from fast_rnnt_tpu_torch.utils import from_numpy
@@ -344,25 +553,12 @@ def main():
             st_k = ranges.window_starts(gy_k, gx_k, Kr, bnd, step)
             st_p = ranges.window_starts_plain(gy_k, gx_k, Kr, bnd, step)
             range_flips(st_k, st_p, _window_scores(gx_k, gy_k, Kr), "ranges (small)")
-        Cc = 17
-        lm = torch.randn(Bc, Sc + 1, Cc, device=dev)
-        am = torch.randn(Bc, Tc, Cc, device=dev)
-        sym = torch.randint(1, Cc, (Bc, Sc), device=dev, dtype=torch.int32)
-        if offset and Sc:
-            # out-of-range symbols read 0 (the JAX package's one-hot gather);
-            # the last one sits at the very end of am
-            sym[0, 0], sym[-1, -1] = -1, Cc
-        rt = "modified" if modified else "regular"
-        pxb_k, pyb_k = latbuild.lattice_rows(lm, am, sym, 0, rt, bnd)
-        pxb_p, pyb_p = latbuild.lattice_rows_plain(lm, am, sym, 0, rt, bnd)
-        small["latbuild_fwd"] = max(
-            small["latbuild_fwd"],
-            finite_err(pxb_k, pxb_p, "build px", 1e-4, 1e-5)[0],
-            finite_err(pyb_k, pyb_p, "build py", 1e-4, 1e-5)[0],
-        )
-    phase("kernels-small", f"{len(cases)} ragged cases (regular/modified, banded, "
-          f"non-zero begins, S=0, out-of-range symbols) ok; max abs err {json.dumps(small)} (tol: lattices "
-          f"1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x|, ranges flips near-ties)")
+        for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset).items():
+            small[name] = max(small.get(name, 0.0), err)
+    phase("kernels-small", f"{len(cases)} ragged cases (regular/modified/constrained, banded, "
+          f"non-zero begins, S=0, out-of-range symbols, random blanks, random cotangents) ok; "
+          f"max abs err {json.dumps(small)} (tol: lattices 1e-4 + 1e-5|x|, occupancies "
+          f"1e-5 + 1e-4|x|, build gradients {GRAD_TOL} of max |plain|, ranges flips near-ties)")
 
     # golden path-enumeration vectors (float64 enumeration, tests/golden)
     gfiles = sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.npz")))
@@ -394,35 +590,53 @@ def main():
     phase("kernels-headline", f"B={B} T={T} S={S} C={C}: " + "; ".join(
         f"{k} max abs err {v['err']:.3e} rel {v['rel']:.3e} (tol {v['tol']}) "
         f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
+        + (f" library {v['library_ms']:.4f} ms" if "library_ms" in v else "")
+        + (f" with residuals {v['residuals_ms']:.4f} ms" if "residuals_ms" in v else "")
         for k, v in report.items()
     ) + f"; ranges flips {n_flip}; occupancy conservation rel err kernel {cons[0]:.2e} "
       f"plain {cons[1]:.2e}")
 
-    # --- 4. main path -------------------------------------------------------
-    def step():
-        return rnnt_loss_simple_pruned(lm, am, sym, 0, S_RANGE, bnd, reduction="none")
-
+    # --- 4. the paths: forward only, training, smoothed training ------------
     counters = {
         "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
         "wavefront_bwd": (wavefront.LAUNCHES, "bwd"),
         "latbuild_fwd": (latbuild.LAUNCHES, "fwd"),
         "ranges": (ranges.LAUNCHES, "ranges"),
+        "latbuild_bwd": (latbuild.LAUNCHES, "bwd"),
+        "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
+        "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
     }
-    for d, k in counters.values():
-        d[k] = 0
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base_mb = torch.cuda.memory_allocated() / 2**20
-    t0 = time.perf_counter()
-    simple, pruned, rng_k = step()
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    launches = {name: d[k] for name, (d, k) in counters.items()}
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise Failed(f"main path did not launch {missing}: {launches}")
+
+    def counted(fn, path, want):
+        """Run ``fn`` once with every launch count set to 0 just before and
+        read just after; the counts must be ``want`` (0 for the kernels not
+        named).  Returns (result, counts, first-call ms, peak MiB, MiB
+        allocated before)."""
+        for d, k in counters.values():
+            d[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        got = {name: d[k] for name, (d, k) in counters.items()}
+        if got != {name: want.get(name, 0) for name in counters}:
+            raise Failed(f"{path}: launches {got}, expected {want}")
+        return out, got, first, peak, base
+
+    def step():
+        return rnnt_loss_simple_pruned(lm, am, sym, 0, S_RANGE, bnd, reduction="none")
+
+    (simple, pruned, rng_k), launches, first_ms, peak_mb, base_mb = counted(
+        step, "main path (forward)",
+        {"wavefront_fwd": 2, "wavefront_bwd": 1, "latbuild_fwd": 1, "ranges": 1},
+    )
+    if peak_mb > FWD_PEAK_MIB:
+        raise Failed(f"forward-only peak {peak_mb:.1f} MiB > {FWD_PEAK_MIB} MiB: a residual was kept")
     if simple.shape != (B,) or pruned.shape != (B,) or tuple(rng_k.shape) != (B, T, S_RANGE):
         raise Failed(f"shapes {simple.shape} {pruned.shape} {tuple(rng_k.shape)}")
     if not (torch.isfinite(simple).all() and torch.isfinite(pruned).all()):
@@ -436,11 +650,12 @@ def main():
     px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
     p_p, sc_p = wavefront.forward_rows_plain(px_p, py_p, bnd)
     gx_p, gy_p = wavefront.backward_rows_plain(px_p, py_p, p_p, bnd, ones)
+    del p_p
     # the kernel path's stage-1 occupancies, recomputed outside the counted run
     px_k, py_k = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
     p_k, _ = wavefront.forward_rows(px_k, py_k, bnd)
     gx_k, gy_k = wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)
-    del p_k
+    del p_k, px_k, py_k
     # ranges, by the near-tie rule: (a) the main path's ranges are the plain
     # window search of its own occupancies; (b) where the two paths'
     # occupancies (which differ in the last float32 bits) pick different raw
@@ -454,37 +669,110 @@ def main():
         _window_argmax(gx_k, gy_k, S_RANGE), _window_argmax(gx_p, gy_p, S_RANGE),
         _window_scores(gx_p, gy_p, S_RANGE), "main-path raw window argmax",
     )
+    del gx_k, gy_k
     # stage 2 of the plain path on the kernel's ranges (near-tie rule)
-    _, sc2_p = wavefront.forward_rows_plain(px_p, py_p, bnd, lo_k, S_RANGE)
+    p2_p, sc2_p = wavefront.forward_rows_plain(px_p, py_p, bnd, lo_k, S_RANGE)
     rel_s = ((simple + sc_p).abs() / sc_p.abs()).max().item()
     rel_p = ((pruned + sc2_p).abs() / sc2_p.abs()).max().item()
     if rel_s > 1e-4 or rel_p > 1e-4:
         raise Failed(f"losses vs plain path: rel err simple {rel_s:.3e} pruned {rel_p:.3e} > 1e-4")
     step_ms = cuda_ms(step)
     phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
-          f"fp32: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
+          f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
           f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); step {step_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_ms:.1f} ms); peak "
-          f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs); "
+          f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs; bound {FWD_PEAK_MIB}); "
           f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}")
 
-    # --- 5. where the step's time goes (measurements, not checks) ----------
-    try:
-        prof = profile_step(step)
-    except Exception as e:  # noqa: BLE001 - a profiler fault leaves the checks standing
-        prof, why = None, f"{type(e).__name__}: {e}"
-    else:
-        why = "the profiler saw no device activity"
-    if prof is None:
-        phase("profile", f"not measured ({why})")
-    else:
+    # training: bench.py's step, the gradient of 0.5 * simple + pruned
+    am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
+
+    def train_step():
+        s, p, r = rnnt_loss_simple_pruned(lm_g, am_g, sym, 0, S_RANGE, bnd, reduction="sum")
+        loss = 0.5 * s + p
+        return (loss.detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
+
+    (loss_t, g_am, g_lm, r_t), launches_t, first_t, peak_t, base_t = counted(
+        train_step, "training",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
+    )
+    loss_f = 0.5 * simple.sum() + pruned.sum()
+    rel_l = ((loss_t - loss_f).abs() / loss_f.abs()).item()
+    if rel_l > 1e-6 or not torch.equal(r_t, rng_k):
+        raise Failed(f"training loss {loss_t.item()} / ranges differ from the forward path's ({rel_l:.3e})")
+    # plain reference: the plain recursion's occupancies (stage 2 on the
+    # kernel path's ranges) as cotangents of the plain build backward
+    g2x, g2y = wavefront.backward_rows_plain(px_p, py_p, p2_p, bnd, ones, lo_k, S_RANGE)
+    del p2_p
+    w_lm, w_am, _ = latbuild.lattice_rows_bwd_plain(
+        lm, am, sym, bnd[:, 3], -(0.5 * gx_p + g2x), -(0.5 * gy_p + g2y), 0, False
+    )
+    e_t = worst(grad_err(g_am, w_am, "training d_am", TRAIN_GRAD_TOL),
+                grad_err(g_lm, w_lm, "training d_lm", TRAIN_GRAD_TOL))
+    del g_am, g_lm, w_am, w_lm, g2x, g2y, gx_p, gy_p, px_p, py_p
+    train_ms = cuda_ms(train_step)
+    phase("train", f"grad of 0.5*simple + pruned (reduction sum) w.r.t. (am, lm), B={B} T={T} "
+          f"S={S} C={C} s_range={S_RANGE} fp32: launches {json.dumps(launches_t)}; loss "
+          f"{loss_t.item():.3f} (rel {rel_l:.1e} from the forward path's); gradients vs plain "
+          f"max abs err {e_t[0]:.3e} ({e_t[1]:.3e} of max |plain|, tol {TRAIN_GRAD_TOL}); step "
+          f"{train_ms:.4f} ms (CUDA events, median of {REPS} runs of 10 steps; first call "
+          f"{first_t:.1f} ms); peak {peak_t:.1f} MiB ({peak_t - base_t:.1f} MiB above the inputs)")
+
+    # smoothed training: rnnt_loss_smoothed_pruned, default scales
+    def smoothed_step():
+        s, p, r = rnnt_loss_smoothed_pruned(lm_g, am_g, sym, 0, S_RANGE, boundary=bnd,
+                                            reduction="sum")
+        loss = 0.5 * s + p
+        return (loss.detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
+
+    (loss_s, g_am, g_lm, r_s), launches_s, first_s, peak_s, base_s = counted(
+        smoothed_step, "smoothed training",
+        {"latbuild_fwd_parts": 1, "latbuild_bwd_parts": 1, "latbuild_fwd": 1, "latbuild_bwd": 1,
+         "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
+    )
+    # plain reference: autograd of the plain builds, fed the plain
+    # recursion's occupancies (stage 2 on the kernel path's ranges)
+    am_r, lm_r = am.clone().requires_grad_(), lm.clone().requires_grad_()
+    pxs, pys = latbuild.lattice_rows_smoothed_plain(lm_r, am_r, sym, 0, 0.1, 0.1, bnd)
+    px2, py2 = latbuild.lattice_rows_plain(lm_r, am_r, sym, 0, "regular", bnd)
+    lo_s = r_s[:, :, 0].contiguous()
+    with torch.no_grad():
+        p_s, sc_s = wavefront.forward_rows_plain(pxs, pys, bnd)
+        gxs, gys = wavefront.backward_rows_plain(pxs, pys, p_s, bnd, ones)
+        del p_s
+        p_2, sc_2 = wavefront.forward_rows_plain(px2, py2, bnd, lo_s, S_RANGE)
+        gx2, gy2 = wavefront.backward_rows_plain(px2, py2, p_2, bnd, ones, lo_s, S_RANGE)
+        del p_2
+    loss_r = -(0.5 * sc_s.sum() + sc_2.sum())
+    rel_ls = ((loss_s - loss_r).abs() / loss_r.abs()).item()
+    if rel_ls > 1e-4:
+        raise Failed(f"smoothed training loss rel err vs plain {rel_ls:.3e} > 1e-4")
+    w_am, w_lm = torch.autograd.grad(
+        [pxs, pys, px2, py2], [am_r, lm_r], [-0.5 * gxs, -0.5 * gys, -gx2, -gy2]
+    )
+    e_s = worst(grad_err(g_am, w_am, "smoothed training d_am", TRAIN_GRAD_TOL),
+                grad_err(g_lm, w_lm, "smoothed training d_lm", TRAIN_GRAD_TOL))
+    del g_am, g_lm, w_am, w_lm, pxs, pys, px2, py2, gxs, gys, gx2, gy2
+    smoothed_ms = cuda_ms(smoothed_step)
+    phase("smoothed-train", f"grad of 0.5*smoothed + pruned (rnnt_loss_smoothed_pruned, scales 0.1/0.1, "
+          f"reduction sum) w.r.t. (am, lm): launches {json.dumps(launches_s)}; loss "
+          f"{loss_s.item():.3f} (rel err vs plain {rel_ls:.3e}); gradients vs plain max abs err "
+          f"{e_s[0]:.3e} ({e_s[1]:.3e} of max |plain|, tol {TRAIN_GRAD_TOL}); step {smoothed_ms:.4f} ms "
+          f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_s:.1f} ms); peak "
+          f"{peak_s:.1f} MiB ({peak_s - base_s:.1f} MiB above the inputs)")
+
+    # --- 5. where the steps' time goes (measurements) ----------------------
+    for name, fn in (("forward", step), ("train", train_step), ("smoothed-train", smoothed_step)):
+        prof = profile_step(fn)
+        if prof is None:
+            raise Failed(f"profile of the {name} step: the profiler saw no device activity")
         rows, busy = prof
         total = sum(r[1] for r in rows)
-        phase("profile", f"torch.profiler, 10 steps: device busy {100 * busy:.1f}% of the "
-              f"device window; kernel time {total:.1f} us per step")
-        for name, us, calls in rows:
+        phase("profile", f"{name} step, torch.profiler, 10 steps: device busy {100 * busy:.1f}% "
+              f"of the device window; kernel time {total:.1f} us per step")
+        for kname, us, calls in rows:
             print(f"  {us:9.1f} us/step {calls:5.1f} calls/step {100 * us / total:5.1f}%  "
-                  f"{name[:90]}", flush=True)
+                  f"{kname[:90]}", flush=True)
     for seed in (0, 1):
         if seed:
             am, lm, sym, bnd = t(*make_inputs(seed))
@@ -503,11 +791,26 @@ def main():
                          "fast_rnnt_tpu/ops/kernels/latbuild.py:207"),
         "ranges": ("fast_rnnt_tpu_torch/csrc/ranges.cu",
                    "fast_rnnt_tpu/ops/kernels/ranges.py:64"),
+        "latbuild_bwd": ("fast_rnnt_tpu_torch/csrc/latbuild_bwd.cu",
+                         "fast_rnnt_tpu/ops/kernels/latbuild.py:290"),
+        "latbuild_fwd_parts": ("fast_rnnt_tpu_torch/csrc/latbuild.cu",
+                               "fast_rnnt_tpu/ops/kernels/latbuild.py:836"),
+        "latbuild_bwd_parts": ("fast_rnnt_tpu_torch/csrc/latbuild_bwd.cu",
+                               "fast_rnnt_tpu/ops/kernels/latbuild.py:920"),
     }
+    # each kernel's launches from the first path that runs it
+    path_launches = {}
+    for counts in (launches, launches_t, launches_s):
+        for k, n in counts.items():
+            if n:
+                path_launches.setdefault(k, n)
+    bounds = kernel_bounds(bnd)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": report[name]["err"],
-         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+         "launches": path_launches[name], "max_abs_err": report[name]["err"],
+         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": report[name].get("library_ms")}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

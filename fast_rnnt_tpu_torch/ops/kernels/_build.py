@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``fast_rnnt_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, for Hopper (``sm_90a``), into
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` (one process per
+source, all started together) and links them into one shared library
+with a plain C interface, for Hopper (``sm_90a``), into
 ``build/kernels/`` at the root of the checkout.  The file name carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  The library is loaded with ``ctypes``:
@@ -29,8 +30,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry (see the .cu files for the argument meanings)
@@ -40,9 +42,12 @@ _SIGNATURES = {
     # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, pxg, pyg,
     # threads, stream
     "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, P],
-    # lmp, pxlm, pylm, lmmax, symbols, te, am, B, S, T, C, blank, modified,
-    # px, py, stream
-    "frt_latbuild_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P],
+    # lmp, pxlm, pylm, lmmax, symbols, te, am, uni, B, S, T, C, blank,
+    # modified, px, py, nd, d, amax, duni, stream
+    "frt_latbuild_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P],
+    # lmp, symbols, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
+    # modified, w, colsum, rsx, rsy, d_am, d_lm, duni_part, stream
+    "frt_latbuild_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P],
     # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, out, threads, stream
     "frt_ranges": [P, P, P, I, I, I, I, I, I, P, I, P],
 }
@@ -64,7 +69,7 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -79,20 +84,38 @@ def load_library() -> ctypes.CDLL:
             return _lib
         import time
 
-        sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+        sources = sorted(CSRC.glob("*.cu"))
         out = BUILD_DIR / f"libfrt_kernels_{_source_hash()}.so"
         t0 = time.perf_counter()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            tag = f"{os.getpid()}.tmp"
+            nvcc = _nvcc()
+            # one nvcc per source, all started together, then one link
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
+                for src, obj in zip(sources, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [(s.name, p.returncode, lg) for s, p, lg in zip(sources, procs, logs)
+                      if p.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n} ({rc}):\n{lg}" for n, rc, lg in failed))
+            tmp = out.with_suffix(f".{tag}")
+            res = subprocess.run(
+                [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
             os.replace(tmp, out)
-            BUILD_LOG["compiler_output"] = res.stdout + res.stderr
+            BUILD_LOG["compiler_output"] = "".join(logs) + res.stdout + res.stderr
         BUILD_LOG["seconds"] = time.perf_counter() - t0
         BUILD_LOG["path"] = str(out)
         lib = ctypes.CDLL(str(out))

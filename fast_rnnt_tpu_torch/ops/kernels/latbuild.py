@@ -1,16 +1,22 @@
-"""Simple-lattice build (lm, am, symbols) -> s-major (px, py): wrapper of
-the CUDA kernel in ``csrc/latbuild.cu`` and its plain PyTorch version.
+"""Simple and smoothed lattice builds, (lm, am, symbols) -> s-major rows,
+and their backward: wrappers of the CUDA kernels in ``csrc/latbuild.cu``
+(forward) and ``csrc/latbuild_bwd.cu`` (VJP), and their plain PyTorch
+versions.
 
-Replaces the Pallas TPU kernel ``fast_rnnt_tpu/ops/kernels/latbuild.py``
-``_build_fwd_kernel(parts=False)`` (:207, entry ``lattice_rows_fused``
-:713).  As there, the small lm-side precomputation (``_lm_parts``) is plain
-tensor work outside the kernel, and the constrained variant is composed in
-plain torch: build "modified", add ``py[1:]`` to px, cast last.
+Replaces the Pallas TPU kernels ``fast_rnnt_tpu/ops/kernels/latbuild.py``
+``_build_fwd_kernel`` (:207) and ``_build_bwd_kernel`` (:290), each with
+``parts=False`` (entry ``lattice_rows_fused`` :713) and ``parts=True``
+(entry ``lattice_rows_fused_smoothed`` :968).  As there, the small
+lm-side work (``_lm_parts``, the unigram statistics, the three-way
+interpolation of the smoothed lattice) is plain tensor work outside the
+kernels, and the constrained variant is composed in plain torch: build
+"modified", add ``py[1:]`` to px.
 
-A CPU tensor runs the plain einsum build (``lattice._build_rows_plain``),
-which is ordinary differentiable torch.  A CUDA tensor runs the kernel; the
-kernel's backward (the build's VJP, ``_build_bwd_kernel`` in the JAX
-package) is not ported yet, so differentiating the CUDA build raises.
+A CPU tensor runs the plain versions, which are ordinary differentiable
+torch.  A CUDA tensor runs the kernels: the forward writes the backward's
+residuals (the normalizer denominator D, the frame maxima and, smoothed,
+the unigram denominator) only when autograd needs a gradient, and the
+backward launches the VJP kernels on them.
 """
 
 from __future__ import annotations
@@ -19,14 +25,40 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..lattice import _build_rows_plain, _symbol_index
+from ..lattice import (
+    _TINY,
+    _assert_fp32_matmul,
+    _build_rows_plain,
+    _build_smoothed_rows_plain,
+    _kill_t_end,
+    _normalizers_plain,
+    _pad_px,
+    _px_gathers,
+    _py_gathers,
+    _smoothing_scales,
+    _symbol_index,
+)
+from ..numerics import NEG_INF
 from . import _build
 
-__all__ = ["lattice_rows", "lattice_rows_plain", "LAUNCHES"]
+__all__ = [
+    "lattice_rows",
+    "lattice_rows_plain",
+    "lattice_rows_bwd_plain",
+    "lattice_rows_parts_plain",
+    "lattice_rows_smoothed",
+    "lattice_rows_smoothed_plain",
+    "build_fwd",
+    "build_bwd",
+    "LAUNCHES",
+]
 
-LAUNCHES = {"fwd": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_parts": 0, "bwd_parts": 0}
 
 lattice_rows_plain = _build_rows_plain
+lattice_rows_smoothed_plain = _build_smoothed_rows_plain
+
+_PREP_FRAMES = 128  # frames per block of the backward's prep pass (latbuild_bwd.cu)
 
 
 def _lm_parts(lm: torch.Tensor, symbols: torch.Tensor, blank: int):
@@ -42,52 +74,168 @@ def _lm_parts(lm: torch.Tensor, symbols: torch.Tensor, blank: int):
     return lmmax.contiguous(), lmp.contiguous(), pxlm.contiguous(), pylm.contiguous()
 
 
-def _launch(lm, am, symbols, te_fix, blank: int, modified: bool):
+def _check_inputs(lm, am, symbols, te_fix, blank, uni=None):
+    """Device, dtype and shape checks shared by both kernel wrappers;
+    returns (B, S, T, C, blank wrapped into [0, C))."""
     B, T, C = am.shape
     S = lm.shape[1] - 1
     dev = am.device
-    for name, x in (("lm", lm), ("am", am)):
-        if x.device != dev or x.dtype != torch.float32:
+    for name, x in (("lm", lm), ("am", am), ("uni", uni)):
+        if x is not None and (x.device != dev or x.dtype != torch.float32):
             raise TypeError(f"{name} must be float32 on {dev}, got {x.dtype} on {x.device}")
+    if tuple(lm.shape) != (B, S + 1, C):
+        raise ValueError(f"lm {tuple(lm.shape)} must be ({B}, S+1, {C})")
     if tuple(symbols.shape) != (B, S) or symbols.device != dev:
         raise ValueError(f"symbols {tuple(symbols.shape)} must be ({B}, {S}) on {dev}")
+    if tuple(te_fix.shape) != (B,) or te_fix.dtype != torch.int32 or te_fix.device != dev:
+        raise ValueError(f"te_fix must be int32 ({B},) on {dev}")
+    if uni is not None and tuple(uni.shape) != (C,):
+        raise ValueError(f"uni {tuple(uni.shape)} must be ({C},)")
     if B > 65535:
         raise ValueError(f"B={B} exceeds the kernel grid's utterance axis (65535)")
     if not -C <= blank < C:
         raise IndexError(f"termination_symbol {blank} is out of range for C={C}")
-    blank %= C  # a negative blank counts from the end, as am[:, :, blank] does
+    # a negative blank counts from the end, as am[:, :, blank] does
+    return B, S, T, C, blank % C
+
+
+def _check_cotangent(name, x, shape, dev):
+    if x.device != dev or x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 on {dev}, got {x.dtype} on {x.device}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+    return x.contiguous()
+
+
+def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, save: bool = False):
+    """Launch the forward kernel.  Returns ``(px, py, nd, residuals)``:
+    ``nd`` (S+1, B, T) only with ``uni`` (the smoothed build), else None;
+    ``residuals`` = (D (S+1, B, T), amax (B, T), duni (B, T) or None) only
+    with ``save``, else None."""
+    B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
+    dev = am.device
     am = am.contiguous()
     sym = symbols.to(torch.int32).contiguous()
     lmmax, lmp, pxlm, pylm = _lm_parts(lm, sym, blank)
-    T1 = T if modified else T + 1
-    px = torch.empty((S, B, T1), dtype=torch.float32, device=dev)
-    py = torch.empty((S + 1, B, T), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    px = torch.empty((S, B, T if modified else T + 1), **f32)
+    py = torch.empty((S + 1, B, T), **f32)
+    nd = torch.empty((S + 1, B, T), **f32) if uni is not None else None
+    res = None
+    if save:
+        duni = torch.empty((B, T), **f32) if uni is not None else None
+        res = (torch.empty((S + 1, B, T), **f32), torch.empty((B, T), **f32), duni)
     if B == 0:
-        return px, py
+        return px, py, nd, res
+    d, amax, duni = res if save else (None, None, None)
     lib = _build.load_library()
+    p = _build.ptr
     err = lib.frt_latbuild_fwd(
-        _build.ptr(lmp), _build.ptr(pxlm), _build.ptr(pylm), _build.ptr(lmmax),
-        _build.ptr(sym), _build.ptr(te_fix), _build.ptr(am),
+        p(lmp), p(pxlm), p(pylm), p(lmmax), p(sym), p(te_fix), p(am),
+        p(None if uni is None else uni.contiguous()),
         B, S, T, C, int(blank), int(modified),
-        _build.ptr(px), _build.ptr(py), _build.stream_ptr(dev),
+        p(px), p(py), p(nd), p(d), p(amax), p(duni), _build.stream_ptr(dev),
     )
     _build.check(err, "latbuild_fwd")
-    LAUNCHES["fwd"] += 1
-    return px, py
+    LAUNCHES["fwd" if uni is None else "fwd_parts"] += 1
+    return px, py, nd, res
+
+
+def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
+              uni=None, dnd=None):
+    """Launch the VJP kernels on the forward's ``residuals``.  Returns
+    ``(d_lm (B, S+1, C), d_am (B, T, C), d_uni (C,) or None)``; ``uni`` and
+    ``dnd`` together select the smoothed build's backward."""
+    if (uni is None) != (dnd is None):
+        raise ValueError("uni and dnd go together (the smoothed build's backward)")
+    B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
+    dev = am.device
+    d, amax, duni = residuals
+    dpx = _check_cotangent("dpx", dpx, (S, B, T if modified else T + 1), dev)
+    dpy = _check_cotangent("dpy", dpy, (S + 1, B, T), dev)
+    d = _check_cotangent("D", d, (S + 1, B, T), dev)
+    amax = _check_cotangent("amax", amax, (B, T), dev)
+    if uni is not None:
+        dnd = _check_cotangent("dnd", dnd, (S + 1, B, T), dev)
+        duni = _check_cotangent("duni", duni, (B, T), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_am = torch.empty((B, T, C), **f32)
+    d_lm = torch.empty((B, S + 1, C), **f32)
+    d_uni_part = torch.zeros((B, C), **f32) if uni is not None else None
+    if B == 0 or T == 0:
+        d_lm.zero_()
+    else:
+        sym = symbols.to(torch.int32).contiguous()
+        _, lmp, _, _ = _lm_parts(lm, sym, blank)
+        if uni is not None:  # the unigram row S+1 of both GEMMs
+            lmp = torch.cat([lmp, uni.expand(B, 1, C)], dim=1).contiguous()
+        S1x = lmp.shape[1]
+        P = 4 * -(-T // _PREP_FRAMES)  # one row-sum partial per warp of the prep pass
+        w = torch.empty((B, S1x, T), **f32)
+        colsum = torch.empty((B, T), **f32)
+        rsx = torch.empty((B, P, S + 1), **f32)
+        rsy = torch.empty((B, P, S + 1), **f32)
+        lib = _build.load_library()
+        p = _build.ptr
+        err = lib.frt_latbuild_bwd(
+            p(lmp), p(sym), p(te_fix), p(am.contiguous()), p(amax), p(d), p(duni),
+            p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified),
+            p(w), p(colsum), p(rsx), p(rsy), p(d_am), p(d_lm), p(d_uni_part),
+            _build.stream_ptr(dev),
+        )
+        _build.check(err, "latbuild_bwd")
+        LAUNCHES["bwd" if uni is None else "bwd_parts"] += 1
+    return d_lm, d_am, None if uni is None else d_uni_part.sum(dim=0)
 
 
 class _BuildFn(torch.autograd.Function):
+    """The CUDA build: (lm, am) -> (px, py), its VJP a kernel too."""
+
     @staticmethod
     def forward(ctx, lm, am, symbols, te_fix, blank, modified):
-        return _launch(lm, am, symbols, te_fix, blank, modified)
+        save = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        px, py, _, res = build_fwd(lm, am, symbols, te_fix, blank, modified, save=save)
+        if save:
+            ctx.save_for_backward(lm, am, symbols, te_fix, *res[:2])
+            ctx.blank, ctx.modified = blank, modified
+        return px, py
 
     @staticmethod
     def backward(ctx, dpx, dpy):
-        raise NotImplementedError(
-            "the gradient of the CUDA lattice build is not ported yet: it is "
-            "the build's VJP kernel (fast_rnnt_tpu latbuild._build_bwd_kernel), "
-            "first in ROADMAP.md Queue 2"
+        lm, am, symbols, te_fix, d, amax = ctx.saved_tensors
+        d_lm, d_am, _ = build_bwd(
+            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy
         )
+        return d_lm, d_am, None, None, None, None
+
+
+class _BuildPartsFn(torch.autograd.Function):
+    """The CUDA smoothed build: (lm, am, uni) -> (px, py, normd)."""
+
+    @staticmethod
+    def forward(ctx, lm, am, symbols, te_fix, uni, blank, modified):
+        save = any(ctx.needs_input_grad[i] for i in (0, 1, 4))
+        px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save)
+        if save:
+            ctx.save_for_backward(lm, am, symbols, te_fix, uni, *res)
+            ctx.blank, ctx.modified = blank, modified
+        return px, py, nd
+
+    @staticmethod
+    def backward(ctx, dpx, dpy, dnd):
+        lm, am, symbols, te_fix, uni, d, amax, duni = ctx.saved_tensors
+        d_lm, d_am, d_uni = build_bwd(
+            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, duni), dpx, dpy,
+            uni, dnd,
+        )
+        return d_lm, d_am, None, None, d_uni, None, None
+
+
+def _te_fix(boundary, B: int, regular: bool, device) -> torch.Tensor:
+    """(B,) int32 t_end column that regular px kills; -1 kills nothing."""
+    if regular and boundary is not None:
+        return boundary[:, 3].to(device=device, dtype=torch.int32).contiguous()
+    return torch.full((B,), -1, dtype=torch.int32, device=device)
 
 
 def lattice_rows(
@@ -107,14 +255,125 @@ def lattice_rows(
     elif not am.is_cuda:
         px, py = lattice_rows_plain(lm, am, symbols, termination_symbol, rnnt_type, boundary)
     else:
-        B = am.shape[0]
-        if rnnt_type == "regular" and boundary is not None:
-            te_fix = boundary[:, 3].to(device=am.device, dtype=torch.int32).contiguous()
-        else:
-            te_fix = torch.full((B,), -1, dtype=torch.int32, device=am.device)
+        te_fix = _te_fix(boundary, am.shape[0], rnnt_type == "regular", am.device)
         px, py = _BuildFn.apply(
             lm, am, symbols, te_fix, int(termination_symbol), rnnt_type == "modified"
         )
     if out_dtype is not None:
         px, py = px.to(out_dtype), py.to(out_dtype)
     return px, py
+
+
+def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
+    """The plain version of the smoothed build kernel: (px, py, normd) with
+    ``normd[s, t] = norm[s, t] - log sum_c uni[c] exp(am[t, c])``; ordinary
+    differentiable torch in (lm, am, uni)."""
+    normalizers, am_max, am_probs, _, _ = _normalizers_plain(lm, am)
+    px_am, px_lm = _px_gathers(lm, am, symbols)
+    px = _pad_px(px_am + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
+    if not modified:
+        px = _kill_t_end(px, te_fix)
+    py = _py_gathers(lm, am, blank) - normalizers
+    amonly = torch.log(torch.einsum("btc,c->bt", am_probs, uni)) + am_max[:, :, 0]
+    return px, py, normalizers - amonly[None]
+
+
+def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modified: bool,
+                           uni=None, dnd=None):
+    """The plain version of the VJP kernels, the formulas of
+    ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``
+    for cotangents (dpx, dpy) and, with the smoothed build's unigram row,
+    ``uni`` and dnd."""
+    _assert_fp32_matmul(am)
+    B, T, C = am.shape
+    S = symbols.shape[1]
+    blank %= C
+    lm32, am32 = lm.detach().float(), am.detach().float()
+    lmp = torch.exp(lm32 - lm32.amax(dim=2, keepdim=True))
+    amp = torch.exp(am32 - am32.amax(dim=2, keepdim=True))
+    d = torch.einsum("bsc,btc->bst", lmp, amp) + _TINY
+    # cotangents B-major; dpx zeroed on the constant -inf columns
+    gx = dpx.float().permute(1, 0, 2)[:, :, :T]
+    if not modified:
+        t = torch.arange(T, device=am.device)[None, None, :]
+        gx = torch.where(t == te_fix.to(am.device)[:, None, None], 0.0, gx)
+    gy = dpy.float().permute(1, 0, 2)
+    dnorm = -(torch.cat([gx, gx.new_zeros((B, 1, T))], dim=1) + gy)
+    if dnd is not None:
+        gnd = dnd.float().permute(1, 0, 2)
+        dnorm = dnorm + gnd
+    w = dnorm / d  # (B, S+1, T)
+    d_am = amp * torch.einsum("bst,bsc->btc", w, lmp)
+    d_lm = lmp * torch.einsum("bst,btc->bsc", w, amp)
+    sym, valid = _symbol_index(symbols, C)
+    gxv = torch.where(valid[:, :, None], gx, 0.0)
+    d_am = d_am.scatter_add(2, sym[:, None, :].expand(B, T, S), gxv.transpose(1, 2))
+    d_am[:, :, blank] += gy.sum(dim=1)
+    d_lm[:, :S] = d_lm[:, :S].scatter_add(2, sym[:, :, None], gxv.sum(dim=2, keepdim=True))
+    d_lm[:, :, blank] += gy.sum(dim=2)
+    d_uni = None
+    if uni is not None:
+        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", amp, uni.detach())
+        d_am = d_am + amp * uni.detach() * rd[:, :, None]
+        d_uni = torch.einsum("bt,btc->c", rd, amp)
+    return d_lm, d_am, d_uni
+
+
+def lattice_rows_smoothed(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    lm_only_scale: float = 0.1,
+    am_only_scale: float = 0.1,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smoothed s-major rows (port of ``lattice_rows_fused_smoothed``): the
+    smoothed build kernel returns (px, py, normd) on a CUDA tensor (its
+    plain version on a CPU tensor); the unigram statistics and the three-way
+    interpolation are plain torch, differentiable end to end."""
+    if rnnt_type == "constrained":
+        px, py = lattice_rows_smoothed(
+            lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, None, "modified"
+        )
+        return px + py[1:], py
+    B, T, C = am.shape
+    S = lm.shape[1] - 1
+    modified = rnnt_type == "modified"
+    blank = int(termination_symbol)
+    te_fix = _te_fix(boundary, B, not modified, am.device)
+    lm32 = lm.float()
+    lmmax = lm32.amax(dim=2).detach()
+    lmp = torch.exp(lm32 - lmmax[:, :, None])
+    lmsum = lmp.sum(dim=2)  # (B, S+1)
+    # unigram LM: mean of the normalized lm probs over (B, S+1), padding
+    # included, as the reference does
+    uni = (lmp / lmsum[:, :, None]).mean(dim=(0, 1)) + _TINY
+    uni_log = torch.log(uni)
+    if am.is_cuda:
+        px, py, normd = _BuildPartsFn.apply(lm, am, symbols, te_fix, uni, blank, modified)
+    else:
+        px, py, normd = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified)
+
+    # per-(b, s) columns, s-major (S?, B, 1)
+    sym, valid = _symbol_index(symbols, C)
+    pxlm = torch.where(valid, torch.gather(lm32[:, :S], 2, sym[:, :, None])[:, :, 0], 0.0)
+    pxlm = pxlm.t()[:, :, None]
+    pylm = lm32[:, :, blank].t()[:, :, None]
+    lmonly = (torch.log(lmsum) + lmmax).t()[:, :, None]
+    px_uni = torch.where(valid, uni_log[sym], 0.0).t()[:, :, None]
+    py_uni = uni_log[blank]
+
+    c, l, a = _smoothing_scales(lm_only_scale, am_only_scale)
+    # px_amonly = px + normd + px_uni - pxlm ; px_lmonly = pxlm - lmonly
+    nd_px = _pad_px(normd[:S], modified, 0.0)
+    px_i = (c + a) * px + l * (pxlm - lmonly[:S]) + a * (nd_px + px_uni - pxlm)
+    py_i = (c + a) * py + l * (pylm - lmonly) + a * (normd + py_uni - pylm)
+    if not modified:
+        # re-kill the -inf columns after the interpolation, so that no
+        # cotangent flows through any term there (values are unchanged)
+        t = torch.arange(T + 1, device=am.device)[None, None, :]
+        kill = (t == T) | (t == te_fix[None, :, None])
+        px_i = torch.where(kill, NEG_INF, px_i)
+    return px_i, py_i

@@ -1,18 +1,34 @@
-"""RNN-T losses (PyTorch port of ``fast_rnnt_tpu/ops/losses.py``): the
-two-stage pruned pipeline for the additive joiner."""
+"""RNN-T losses for the additive joiner (PyTorch port of
+``fast_rnnt_tpu/ops/losses.py``): the simple and smoothed losses, the
+band-native pruned loss, and the two-stage pruned pipelines.  Same argument
+order, defaults and reductions as the JAX package; no ``impl`` argument:
+the port dispatches on the tensor's device."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..utils.validation import check_rnnt_inputs
-from .lattice import band_mask_rows_smajor, get_rnnt_logprobs_rows
+from .lattice import (
+    _check_rnnt_type,
+    band_mask_rows_smajor,
+    get_rnnt_logprobs_rows,
+    get_rnnt_logprobs_smoothed_rows,
+)
 from .pruning import get_rnnt_prune_ranges_rows
 from .recursion import _normalize_boundary, mutual_information_rows
 
-__all__ = ["rnnt_loss_simple_pruned"]
+__all__ = [
+    "rnnt_loss_simple",
+    "rnnt_loss_pruned_simple",
+    "rnnt_loss_simple_pruned",
+    "rnnt_loss_smoothed",
+    "rnnt_loss_smoothed_pruned",
+]
+
+LossOrLossAndGrads = Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]
 
 
 def _apply_delay_penalty_rows(
@@ -44,6 +60,127 @@ def _reduce(negated_loss: torch.Tensor, reduction: Optional[str]) -> torch.Tenso
     if reduction == "sum":
         return -torch.sum(negated_loss)
     raise ValueError(f"reduction should be ('none' | 'mean' | 'sum'), given {reduction}")
+
+
+def _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type, delay_penalty,
+                    reduction, calc_gradients) -> LossOrLossAndGrads:
+    """The unpruned recursion on a built lattice, as the simple and smoothed
+    losses share it; occupancies come back (B, S, T')-major."""
+    px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
+    bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device)
+    out = mutual_information_rows(px_rows, py_rows, bnd, calc_gradients=calc_gradients)
+    if calc_gradients:
+        negated_loss, (gx_rows, gy_rows) = out
+        return _reduce(negated_loss, reduction), (gx_rows.movedim(0, 1), gy_rows.movedim(0, 1))
+    return _reduce(out, reduction)
+
+
+def rnnt_loss_simple(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    calc_gradients: bool = False,
+) -> LossOrLossAndGrads:
+    """Simple RNN-T loss (the joiner is just lm + am).  With
+    ``calc_gradients`` also returns the occupancies ``(px_grad [B, S, T'],
+    py_grad [B, S+1, T])`` that feed :func:`get_rnnt_prune_ranges`.
+
+    Returns the loss ([B] for reduction "none", else a scalar), or
+    ``(loss, (px_grad, py_grad))``."""
+    check_rnnt_inputs(
+        lm=lm, am=am, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary,
+    )
+    px_rows, py_rows = get_rnnt_logprobs_rows(
+        lm, am, symbols, termination_symbol, rnnt_type, boundary
+    )
+    return _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type,
+                           delay_penalty, reduction, calc_gradients)
+
+
+def rnnt_loss_smoothed(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    lm_only_scale: float = 0.1,
+    am_only_scale: float = 0.1,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    calc_gradients: bool = False,
+) -> LossOrLossAndGrads:
+    """Smoothed simple RNN-T loss with lm-only / am-only interpolation
+    (reference rnnt_loss.py:1369-1494); results as :func:`rnnt_loss_simple`."""
+    check_rnnt_inputs(
+        lm=lm, am=am, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary,
+    )
+    px_rows, py_rows = get_rnnt_logprobs_smoothed_rows(
+        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type
+    )
+    return _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type,
+                           delay_penalty, reduction, calc_gradients)
+
+
+def rnnt_loss_pruned_simple(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    ranges: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    lattice_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Pruned RNN-T loss for the additive joiner, band-native: equal to the
+    reference's ``do_rnnt_pruning`` -> ``rnnt_loss_pruned(am_p + lm_p, ...)``
+    but the band ``ranges`` [B, T, s_range] is masked inside the recursion
+    on the simple lattice, so the [B, T, s_range, C] pruned logits are never
+    made."""
+    check_rnnt_inputs(
+        lm=lm, am=am, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary, ranges=ranges,
+    )
+    _check_rnnt_type(rnnt_type)
+    if rnnt_type == "constrained" and ranges.shape[2] < 2:
+        raise ValueError("constrained RNN-T needs s_range >= 2")
+    K = ranges.shape[2]
+    lo = ranges[:, :, 0]
+    px_rows, py_rows = _stage2_rows(
+        lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
+        lattice_dtype, lo, K,
+    )
+    bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device)
+    neg = mutual_information_rows(px_rows, py_rows, bnd, lo=lo, s_range=K)
+    return _reduce(neg, reduction)
+
+
+def _stage2_rows(lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
+                 lattice_dtype, lo, K):
+    """The pruned stage's rows: the simple lattice (constrained: its px plus
+    the band-masked py[1:], added after masking as the reference's pruned
+    lattice does), delay-penalised and stored in ``lattice_dtype``."""
+    base_type = "modified" if rnnt_type == "constrained" else rnnt_type
+    # fuse the storage cast into the build when nothing is added to px
+    cast = lattice_dtype if (delay_penalty <= 0.0 and rnnt_type != "constrained") else None
+    px_rows, py_rows = get_rnnt_logprobs_rows(
+        lm, am, symbols, termination_symbol, base_type, boundary, out_dtype=cast
+    )
+    if rnnt_type == "constrained":
+        px_rows = px_rows + band_mask_rows_smajor(py_rows, lo, K)[1:]
+    px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
+    if lattice_dtype is not None:
+        px_rows, py_rows = px_rows.to(lattice_dtype), py_rows.to(lattice_dtype)
+    return px_rows, py_rows
 
 
 def rnnt_loss_simple_pruned(
@@ -115,3 +252,52 @@ def rnnt_loss_simple_pruned(
         px_stage2, py_rows, boundary, lo=lo, s_range=K, calc_gradients=False
     )
     return _reduce(neg_simple, reduction), _reduce(neg_pruned, reduction), ranges
+
+
+def rnnt_loss_smoothed_pruned(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    s_range: int,
+    lm_only_scale: float = 0.1,
+    am_only_scale: float = 0.1,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    lattice_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-stage pruned pipeline with a smoothed first stage, the
+    reference's own test recipe (simple_rnnt_loss_test.py:108-143): the
+    smoothed lattice's occupancies steer the ranges, and the pruned stage is
+    the band-masked simple lattice, which is what the additive joiner makes.
+
+    Returns (smoothed_loss, pruned_loss, ranges [B, T, s_range'])."""
+    check_rnnt_inputs(
+        lm=lm, am=am, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary,
+    )
+    if rnnt_type == "constrained" and s_range < 2:
+        raise ValueError("constrained RNN-T needs s_range >= 2")
+    boundary = _normalize_boundary(
+        boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device
+    )
+    px_sm, py_sm = get_rnnt_logprobs_smoothed_rows(
+        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type
+    )
+    px_sm = _apply_delay_penalty_rows(px_sm, boundary, rnnt_type, delay_penalty)
+    if lattice_dtype is not None:
+        px_sm, py_sm = px_sm.to(lattice_dtype), py_sm.to(lattice_dtype)
+    neg_smoothed, (gx_rows, gy_rows) = mutual_information_rows(
+        px_sm, py_sm, boundary, calc_gradients=True
+    )
+    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range)
+    K = ranges.shape[2]
+    lo = ranges[:, :, 0]
+    px_rows, py_rows = _stage2_rows(
+        lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
+        lattice_dtype, lo, K,
+    )
+    neg_pruned = mutual_information_rows(px_rows, py_rows, boundary, lo=lo, s_range=K)
+    return _reduce(neg_smoothed, reduction), _reduce(neg_pruned, reduction), ranges

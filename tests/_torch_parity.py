@@ -7,6 +7,11 @@ with the tolerances stated here:
   * fp32 losses and scores: |a - b| <= 1e-4 + 1e-5 |b|;
   * lattices (px, py, p) and occupancies: |a - b| <= 1e-5 + 1e-5 |b|
     (atol 1e-5 at these small sizes, where |values| are O(10));
+  * build gradients (d_lm, d_am, d_uni) against the JAX package's XLA VJP
+    or torch autograd: the lattice tolerance; against the Pallas build
+    backward, |a - b| <= 1e-4 + 1e-4 |b|: that kernel forms its products
+    as 2-term bf16 splits, ~2^-16 relative
+    (fast_rnnt_tpu/ops/kernels/latbuild.py:333);
   * pruning ranges: equal, or every differing window start a near-tie
     (ROADMAP Queue 3): window scores within 1e-3.
 
@@ -21,6 +26,7 @@ torch.set_num_threads(1)
 
 LOSS_ATOL, LOSS_RTOL = 1e-4, 1e-5
 LAT_ATOL, LAT_RTOL = 1e-5, 1e-5
+SPLIT_ATOL, SPLIT_RTOL = 1e-4, 1e-4
 TIE_GAP = 1e-3
 
 

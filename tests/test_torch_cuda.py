@@ -10,7 +10,8 @@ needs no JAX).
 chip_smoke.py compares every kernel with its plain version at small
 ragged shapes and at the headline shape, and drives the main path; the
 cases here are the ones it does not cover: random shapes, very long
-utterances, out-of-range symbols and the CUDA dtype and gradient rules."""
+utterances, out-of-range symbols, the CUDA dtype and gradient rules, and
+the forward-only build's memory."""
 
 import numpy as np
 import pytest
@@ -60,20 +61,106 @@ def test_latbuild_kernel_out_of_range_symbols(dev, rnnt_type):
 
 
 def test_dtype_policy_and_build_gradient_on_cuda(dev):
+    """float64 on the card raises; the training step's gradient runs the
+    build's backward kernel and matches autograd of the plain route on the
+    same card."""
     px, py, bnd = from_numpy(*rows_inputs(6, B=2, S=3, T=8), device=dev)
     with pytest.raises(TypeError):
         ft.mutual_information_rows(px.double(), py.double(), bnd)
     am, lm, sym, b = from_numpy(*loss_inputs(7, B=2, T=8, S=3, C=6), device=dev)
-    am.requires_grad_()
-    s, p, _ = ft.rnnt_loss_simple_pruned(lm, am, sym, 0, 2, b)
-    with pytest.raises(NotImplementedError):
-        (s + p).backward()
-    # the recursion's own gradient works on the card
-    px.requires_grad_()
-    scores = ft.mutual_information_rows(px, py, bnd)
-    scores.sum().backward()
-    assert torch.isfinite(px.grad).all()
-    assert np.isfinite(px.grad.cpu().numpy()).all()
+    grads = []
+    for route in ("kernel", "plain"):
+        am_l, lm_l = am.clone().requires_grad_(), lm.clone().requires_grad_()
+        if route == "kernel":
+            before = latbuild.LAUNCHES["bwd"]
+            s, p, r = ft.rnnt_loss_simple_pruned(lm_l, am_l, sym, 0, 2, b)
+            (0.5 * s + p).backward()
+            assert latbuild.LAUNCHES["bwd"] == before + 1
+        else:  # the plain build on the card, the same recursion kernels and ranges
+            px_l, py_l = (x.contiguous() for x in latbuild.lattice_rows_plain(lm_l, am_l, sym, 0, "regular", b))
+            bn = b.contiguous()
+            s = -ft.mutual_information_rows(px_l, py_l, bn, calc_gradients=True)[0].mean()
+            p = -ft.mutual_information_rows(px_l, py_l, bn, lo=r[:, :, 0], s_range=2).mean()
+            (0.5 * s + p).backward()
+        grads.append((am_l.grad, lm_l.grad))
+    for a, w in zip(*grads):
+        assert_close(a, w, 1e-5, 1e-4)
+
+
+def _build_grad_case(dev, rng, B, S, T, C, modified):
+    lm = torch.randn(B, S + 1, C, device=dev)
+    am = torch.randn(B, T, C, device=dev) * 3
+    sym = torch.randint(-1, C + 1, (B, S), device=dev, dtype=torch.int32)  # some out of range
+    blank = int(rng.integers(-C, C))
+    te = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    if not modified:
+        te = torch.randint(0, T + 1, (B,), device=dev, dtype=torch.int32)
+    dpx = torch.randn(S, B, T if modified else T + 1, device=dev)
+    dpy = torch.randn(S + 1, B, T, device=dev)
+    return lm, am, sym, blank, te, dpx, dpy
+
+
+def _assert_grads(got, want):
+    for g, w in zip(got, want):
+        if w is not None:
+            tol = 1e-4 * max(float(w.abs().max()), 1e-30)  # chip_smoke's GRAD_TOL
+            assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_build_backward_kernels_match_plain_on_random_shapes(dev, seed):
+    """The build backward, plain and smoothed, at random shapes: S = 0,
+    C not a multiple of the 64-wide tile, T beyond a 128-frame prep block,
+    random t_end, random (also negative) blanks, out-of-range symbols."""
+    rng = np.random.default_rng(200 + seed)
+    B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
+    C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, save=True)
+    _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy),
+                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified))
+    uni = torch.softmax(torch.randn(C, device=dev), 0)
+    dnd = torch.randn(S + 1, B, T, device=dev)
+    *out, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True)
+    for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, modified)):
+        assert_close(a, b, 1e-4, 1e-5)
+    _assert_grads(
+        latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd),
+        latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd),
+    )
+
+
+def test_build_backward_kernel_long_utterance(dev):
+    """T = 12000: the d_lm GEMM walks all frames in-block (750 K steps) and
+    sums 376 row-sum partials."""
+    rng = np.random.default_rng(9)
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, 2, 12, 12000, 37, False)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, save=True)
+    _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy),
+                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False))
+
+
+def test_forward_only_build_launches_no_backward_and_keeps_no_residual(dev):
+    """Without a gradient the build writes no D: the forward-only loss
+    allocates exactly what it did with the residuals switched off, and no
+    backward kernel runs."""
+    am, lm, sym, b = from_numpy(*loss_inputs(8, B=3, T=300, S=20, C=64), device=dev)
+    before = dict(latbuild.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    px, py = latbuild.lattice_rows(lm, am, sym, 0, "regular", b)
+    peak_fwd = torch.cuda.max_memory_allocated() - base
+    del px, py
+    torch.cuda.reset_peak_memory_stats()
+    te = b[:, 3].contiguous()
+    out = latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)
+    peak_res = torch.cuda.max_memory_allocated() - base
+    d_bytes = out[3][0].numel() * 4 + out[3][1].numel() * 4
+    assert peak_res - peak_fwd >= d_bytes  # the residuals are what training adds
+    ft.rnnt_loss_simple_pruned(lm, am, sym, 0, 3, b)
+    assert latbuild.LAUNCHES["bwd"] == before["bwd"]
+    assert latbuild.LAUNCHES["fwd"] == before["fwd"] + 3  # two builds here, one in the loss
 
 
 @pytest.mark.parametrize("seed", range(12))

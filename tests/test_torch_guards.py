@@ -43,13 +43,35 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+def _all_launches():
+    return {
+        (mod.__name__, k): n
+        for mod in (wavefront, latbuild, ranges)
+        for k, n in mod.LAUNCHES.items()
+    }
+
+
 def test_cpu_path_launches_no_kernel_and_builds_nothing():
-    before = {**wavefront.LAUNCHES, **latbuild.LAUNCHES, **ranges.LAUNCHES}
+    before = _all_launches()
     am, lm, sym, bnd = loss_inputs(20, B=2, T=10, S=4, C=7)
     ft.rnnt_loss_simple_pruned(*tt(lm, am, sym), 0, 2, tt(bnd))
-    assert {**wavefront.LAUNCHES, **latbuild.LAUNCHES, **ranges.LAUNCHES} == before
+    assert _all_launches() == before
     assert _build._lib is None
     assert sorted(_build.CSRC.glob("*.cu")), "CUDA sources missing"
+
+
+def test_cpu_training_launches_no_kernel():
+    """The gradients of both pruned pipelines on CPU tensors run the plain
+    versions only."""
+    before = _all_launches()
+    am, lm, sym, bnd = loss_inputs(21, B=2, T=10, S=4, C=7)
+    for loss_fn in (ft.rnnt_loss_simple_pruned, ft.rnnt_loss_smoothed_pruned):
+        tam, tlm = tt(am).requires_grad_(), tt(lm).requires_grad_()
+        s, p, _ = loss_fn(tlm, tam, tt(sym), 0, 2, boundary=tt(bnd), reduction="sum")
+        (0.5 * s + p).backward()
+        assert tam.grad.isfinite().all() and tlm.grad.isfinite().all()
+    assert _all_launches() == before
+    assert _build._lib is None
 
 
 def _run_smoke(cwd):
