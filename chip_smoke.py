@@ -5,19 +5,36 @@
 
 Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
 each kernel against its plain PyTorch version on the card (small ragged
-shapes, the golden path-enumeration vectors, the headline shape), then
-drives three paths at B=30, T=1000, S=100, C=500, s_range=5, fp32, on
-inputs made exactly as ``bench.py`` makes them (seed 0), each with every
-launch count set to 0 just before and read just after:
+shapes, with the recursion kernels also in bfloat16 and float16 storage
+and the fused kernel also against the split pair; the golden
+path-enumeration vectors; the headline shape, with the fused kernel timed
+against the split pair), then drives these paths at B=30, T=1000, S=100,
+C=500, s_range=5, on inputs made exactly as ``bench.py`` makes them
+(seed 0), each with every launch count set to 0 just before and read just
+after:
 
   * forward only: ``rnnt_loss_simple_pruned``; the losses agree with the
     plain path on the card, and no backward residual is kept;
   * training: ``bench.py``'s step, the gradient of ``0.5*simple + pruned``
     w.r.t. (am, lm); the gradients agree with the plain recursion's
     occupancies fed through the plain build backward;
-  * smoothed training: the same for ``rnnt_loss_smoothed_pruned``.
+  * smoothed training: the same for ``rnnt_loss_smoothed_pruned``;
+  * the real-joiner recipe (``rnnt_loss_simple`` with occupancies,
+    ``get_rnnt_prune_ranges``, ``do_rnnt_pruning``, the joiner
+    ``am_p + lm_p``, ``rnnt_loss_pruned``), as shipped and with the scores
+    op's fuse switch on: with this additive joiner it is the training
+    step's function, so loss and gradients are held to the training
+    step's; then with bf16 pruned logits (a bf16 lattice in the recursion),
+    held to the float32 recipe;
+  * the unpruned ``rnnt_loss`` of full logits at B=4.
 
-Last it measures where the three steps' time goes: device
+The occupancies of the ``calc_gradients`` calls come from the fused
+kernel.  For the A/B behind that choice, the forward, training, recipe and
+full-logits steps also run with the split pair in its place (``split``
+arm, swapped in here, not in the package): the results must be equal and
+both arms are timed in turns.
+
+Last it measures where the steps' time goes: device
 time per kernel and the device's busy share under ``torch.profiler``, and
 60 single-step samples of the forward step for each of seeds 0 and 1.
 
@@ -28,6 +45,7 @@ lines are a JSON object of per-kernel numbers and the JSON result
 and prints no result: there is no CPU fallback.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -91,6 +109,51 @@ def cuda_ms(fn, reps=REPS, inner=10):
     return float(np.median(times))
 
 
+def in_turns(*steps):
+    """CUDA-event ms of ``steps`` in turns, forward then back (a, b, b, a)."""
+    order = list(steps) + list(steps)[::-1]
+    return [cuda_ms(fn) for fn in order]
+
+
+def _split_rows(px_rows, py_rows, boundary, lo=None, K=0):
+    """The split pair (forward, then the backward seeded with ones), in the
+    fused kernel's place for the ``split`` arm."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import wavefront
+
+    p, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K)
+    gx, gy = wavefront.backward_rows(px_rows, py_rows, p, boundary, torch.ones_like(scores), lo, K)
+    return scores, gx, gy
+
+
+@contextlib.contextmanager
+def arm(name):
+    """``"shipped"``: the package as it is; ``"split"``: the calc_gradients
+    calls run the split pair in place of the fused kernel; ``"vjp"``: the
+    scores op's ``_FUSE_SCORES_VJP`` switch on."""
+    from fast_rnnt_tpu_torch.ops import recursion as trec
+    from fast_rnnt_tpu_torch.ops.kernels import wavefront
+
+    fused_rows = wavefront.fused_rows
+    if name == "split":
+        wavefront.fused_rows = _split_rows
+    trec._FUSE_SCORES_VJP = name == "vjp"
+    try:
+        yield
+    finally:
+        wavefront.fused_rows = fused_rows
+        trec._FUSE_SCORES_VJP = False
+
+
+def armed(name, fn):
+    """``fn`` run inside ``arm(name)``."""
+    def run():
+        with arm(name):
+            return fn()
+    return run
+
+
 def finite_err(got, want, name, atol, rtol):
     """(max abs, max rel) error of ``got`` over the finite entries of
     ``want``; the -inf pattern must match exactly and
@@ -144,6 +207,25 @@ def grad_err(got, want, name, tol=GRAD_TOL):
     return err, rel
 
 
+def arm_diff(got, want, name):
+    """One step's outputs in another arm against the shipped arm's:
+    bit-equal expected (the fused kernel runs the split pair's op
+    sequence).  Integer outputs (ranges) must be equal; a float difference
+    is reported and held to GRAD_TOL of max |shipped|."""
+    import torch
+
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return "bit-equal"
+    rel = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                raise Failed(f"{name}: output {i} (ranges) differs from the shipped arm's")
+            continue
+        rel = max(rel, grad_err(a.reshape(-1), b.reshape(-1), f"{name} output {i}")[1])
+    return f"max diff {rel:.3e} of max"
+
+
 # training gradients against the plain reference, which runs its own fp32
 # recursion: fp32 occupancies of a 1000-frame lattice carry ~3e-3 of
 # round-off (p reaches |p| ~ 4e3, where a float32 step is 4.9e-4, and an
@@ -186,6 +268,9 @@ def kernel_bounds(bnd):
         "latbuild_fwd": bound(4 * (am + lm + sym + B + px + py), gemm),
         "wavefront_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
         "wavefront_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
+        # fwd + bwd with p kept in scratch: px, py and the boundary in, the
+        # scores and both occupancies out
+        "wavefront_fused": bound(4 * (npx + npy + 4 * B + B + px + py), 17 * ncell),
         "ranges": bound(4 * (npx + npy + 4 * B + B * T), 2 * npy),
         # inputs lm, am, symbols, t_end, the residuals D and amax, dpx, dpy;
         # outputs d_am, d_lm
@@ -261,6 +346,71 @@ def build_checks(dev, rng, bnd, Sc, Tc, modified, offset):
     return err
 
 
+# recursion kernels in a narrow storage dtype: p and the scores are float32
+# and held to the float32 tolerance; the occupancies are compared in the
+# storage dtype, so their tolerance adds one step of it (two float32 values
+# within 1e-4 relative may round to neighbouring steps)
+STORAGE_STEP = {"float32": 0.0, "bfloat16": 2.0**-7, "float16": 2.0**-10}
+
+
+def recursion_checks(px, py, bnd, lo, K):
+    """On one small case, in float32, bfloat16 and float16 storage: the
+    fused kernel against its plain version and against the split pair, and
+    the split kernels against their plain versions.  Returns ({kernel or
+    kernel/dtype: max abs err}, max |fused - split|)."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import wavefront
+
+    err, vs_split = {}, 0.0
+    ones = torch.ones(px.shape[1], device=px.device)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dt).split(".")[1]
+        occ_rtol = 1e-4 + STORAGE_STEP[name]
+        x, y = px.to(dt), py.to(dt)
+        sc_f, gx_f, gy_f = wavefront.fused_rows(x, y, bnd, lo, K)
+        if sc_f.dtype != torch.float32 or gx_f.dtype != dt or gy_f.dtype != dt:
+            raise Failed(f"fused ({name}): dtypes {sc_f.dtype} {gx_f.dtype} {gy_f.dtype}")
+        # the plain version runs its own forward, whose p differs from the
+        # kernel's in the last bits (a float32 step is 1.2e-4 at |p| ~ 2e3,
+        # T = 1200), and an occupancy is the exp of a difference of p
+        # values: its occupancies are held to 1e-3 relative (the bound of
+        # the long-utterance GPU tests)
+        sc_p, gx_p, gy_p = wavefront.fused_rows_plain(x, y, bnd, lo, K)
+        key = "wavefront_fused" + ("" if dt == torch.float32 else f"/{name}")
+        err[key] = max(
+            finite_err(sc_f, sc_p, f"fused scores ({name})", 1e-4, 1e-5)[0],
+            finite_err(gx_f, gx_p, f"fused px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
+            finite_err(gy_f, gy_p, f"fused py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
+        )
+        p_k, sc_k = wavefront.forward_rows(x, y, bnd, lo, K)
+        gx_k, gy_k = wavefront.backward_rows(x, y, p_k, bnd, ones, lo, K)
+        vs_split = max(
+            vs_split,
+            finite_err(sc_f, sc_k, f"fused vs split scores ({name})", 1e-4, 1e-5)[0],
+            finite_err(gx_f, gx_k, f"fused vs split px_grad ({name})", 1e-5, occ_rtol)[0],
+            finite_err(gy_f, gy_k, f"fused vs split py_grad ({name})", 1e-5, occ_rtol)[0],
+        )
+        if dt == torch.float32:
+            continue  # the float32 split kernels are checked by the caller
+        p_p, sc_p = wavefront.forward_rows_plain(x, y, bnd, lo, K)
+        err[f"wavefront_fwd/{name}"] = max(
+            finite_err(p_k, p_p, f"fwd p ({name})", 1e-4, 1e-5)[0],
+            finite_err(sc_k, sc_p, f"fwd scores ({name})", 1e-4, 1e-5)[0],
+        )
+        # the backward kernel against its plain version on the same p
+        ag = torch.rand(px.shape[1], device=px.device) + 0.5
+        gx_k, gy_k = wavefront.backward_rows(x, y, p_k, bnd, ag, lo, K)
+        gx_p, gy_p = wavefront.backward_rows_plain(x, y, p_k, bnd, ag, lo, K)
+        if gx_k.dtype != dt or gy_k.dtype != dt:
+            raise Failed(f"bwd ({name}): dtypes {gx_k.dtype} {gy_k.dtype}")
+        err[f"wavefront_bwd/{name}"] = max(
+            finite_err(gx_k, gx_p, f"bwd px_grad ({name})", 1e-5, occ_rtol)[0],
+            finite_err(gy_k, gy_p, f"bwd py_grad ({name})", 1e-5, occ_rtol)[0],
+        )
+    return err, vs_split
+
+
 def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
     """Compare two (B, T) window-start arrays by the near-tie rule: every
     frame where they differ must have window scores (``scores``, (K', B, T))
@@ -282,12 +432,16 @@ def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
     return n, gmax
 
 
-def rand_case(rng, Bc, Sc, Tc, modified, banded, offset):
+def rand_case(rng, Bc, Sc, Tc, modified, banded, offset, constrained=False):
     """Random unmasked rows, a ragged boundary (non-zero begins when
-    ``offset``) and, when ``banded``, random band starts."""
+    ``offset``) and, when ``banded``, random band starts; ``constrained``
+    adds py of the next row to the (modified) px, as the constrained
+    lattice does."""
     T1 = Tc if modified else Tc + 1
     px = (rng.normal(size=(Sc, Bc, T1)) * 2.0).astype(np.float32)
     py = (rng.normal(size=(Sc + 1, Bc, Tc)) * 2.0).astype(np.float32)
+    if constrained:
+        px = px + py[1:]
     se = rng.integers(Sc // 2, Sc + 1, size=Bc)
     te = np.maximum(rng.integers(Tc // 2, Tc + 1, size=Bc), 1)
     sb = rng.integers(0, se // 2 + 1) if offset else np.zeros(Bc, np.int64)
@@ -456,6 +610,72 @@ def headline_kernels(am, lm, sym, bnd):
         ms=cuda_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)),
         plain_ms=cuda_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1),
     )
+
+    # the fused kernel: against its plain version and against the split
+    # pair (bit-equal expected: the same row bodies), and timed against the
+    # split pair in turns (split, fused, fused, split)
+    def split_pair(x, y):
+        p, _ = wavefront.forward_rows(x, y, bnd)
+        return wavefront.backward_rows(x, y, p, bnd, ones)
+
+    # the plain version runs its own forward: its p differs from the
+    # kernel's by up to ~5e-3 at |p| ~ 4e3 (the fwd check above), and an
+    # occupancy is the exp of a difference of three p values, so the
+    # occupancies are held to the JAX package's fp32 occupancy bound, 1e-2
+    # relative (fast_rnnt_tpu/ops/recursion.py:867)
+    sc_f, gx_f, gy_f = wavefront.fused_rows(px_k, py_k, bnd)
+    sc_fp, gx_fp, gy_fp = wavefront.fused_rows_plain(px_k, py_k, bnd)
+    e = worst(finite_err(sc_f, sc_fp, "headline fused scores", 1e-4, 1e-5),
+              finite_err(gx_f, gx_fp, "headline fused px_grad", 1e-5, 1e-2),
+              finite_err(gy_f, gy_fp, "headline fused py_grad", 1e-5, 1e-2))
+    del sc_fp, gx_fp, gy_fp
+    bit_equal = torch.equal(sc_f, sc_k) and torch.equal(gx_f, gx_k) and torch.equal(gy_f, gy_k)
+    vs_split = worst(finite_err(sc_f, sc_k, "headline fused vs split scores", 1e-4, 1e-5),
+                     finite_err(gx_f, gx_k, "headline fused vs split px_grad", 1e-5, 1e-4),
+                     finite_err(gy_f, gy_k, "headline fused vs split py_grad", 1e-5, 1e-4))[0]
+    del sc_f, gx_f, gy_f
+    ab = [cuda_ms(lambda: split_pair(px_k, py_k)), cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)),
+          cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)), cuda_ms(lambda: split_pair(px_k, py_k))]
+    # bf16 storage at the headline shape (the recipe's stage 2 runs the split
+    # pair in it): the split kernels against their plain versions as the
+    # float32 ones are held, the fused kernel against its plain version and
+    # against the split pair, and both arms' times
+    px16, py16 = px_k.bfloat16(), py_k.bfloat16()
+    step16 = STORAGE_STEP["bfloat16"]
+    p16, sc16 = wavefront.forward_rows(px16, py16, bnd)
+    p16_p, sc16_p = wavefront.forward_rows_plain(px16, py16, bnd)
+    e16_fwd = max(finite_err(p16, p16_p, "headline bf16 fwd p", 1e-4, 1e-5)[0],
+                  finite_err(sc16, sc16_p, "headline bf16 fwd scores", 1e-4, 1e-5)[0])
+    del p16_p, sc16_p
+    o_s = wavefront.backward_rows(px16, py16, p16, bnd, ones)
+    e16_bwd = max(finite_err(a, b, f"headline bf16 bwd {n}", 1e-5, 1e-4 + step16)[0]
+                  for a, b, n in zip(o_s, wavefront.backward_rows_plain(px16, py16, p16, bnd, ones),
+                                     ("px_grad", "py_grad")))
+    o_k = wavefront.fused_rows(px16, py16, bnd)
+    o_p = wavefront.fused_rows_plain(px16, py16, bnd)
+    e16 = max(finite_err(o_k[0], o_p[0], "headline bf16 fused scores", 1e-4, 1e-5)[0],
+              *(finite_err(a, b, f"headline bf16 fused {n}", 1e-5, 1e-2 + step16)[0]
+                for a, b, n in zip(o_k[1:], o_p[1:], ("px_grad", "py_grad"))))
+    bit16 = torch.equal(o_k[0], sc16) and all(torch.equal(a, b) for a, b in zip(o_k[1:], o_s))
+    if not bit16:
+        e16_vs = max(finite_err(o_k[0], sc16, "headline bf16 fused vs split scores", 1e-4, 1e-5)[0],
+                     *(finite_err(a, b, f"headline bf16 fused vs split {n}", 1e-5, 1e-4 + step16)[0]
+                       for a, b, n in zip(o_k[1:], o_s, ("px_grad", "py_grad"))))
+    del o_k, o_p, o_s, p16, sc16
+    bf16_ms = (cuda_ms(lambda: split_pair(px16, py16)), cuda_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
+    report["wavefront_fused"] = dict(
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies",
+        ms=(ab[1] + ab[2]) / 2,
+        plain_ms=cuda_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
+        note=(f"(split pair fwd+bwd {(ab[0] + ab[3]) / 2:.4f} ms; in turns split {ab[0]:.4f}, fused "
+              f"{ab[1]:.4f}, fused {ab[2]:.4f}, split {ab[3]:.4f}; fused vs split "
+              f"{'bit-equal' if bit_equal else f'max abs diff {vs_split:.3e}'}; bf16 storage: split "
+              f"{bf16_ms[0]:.4f} ms, fused {bf16_ms[1]:.4f} ms; max abs err vs plain: fwd {e16_fwd:.3e} "
+              f"(tol 1e-4 + 1e-5|x|), bwd {e16_bwd:.3e} (tol 1e-5 + (1e-4 + 2^-7)|x|), fused "
+              f"{e16:.3e} (tol 1e-5 + (1e-2 + 2^-7)|x|); fused vs split "
+              f"{'bit-equal' if bit16 else f'max abs diff {e16_vs:.3e}'})"),
+    )
+    del px16, py16
     # occupancy conservation: the occupancies of one utterance sum to its
     # path length.  fp32 occupancies of a long lattice carry ~1e-3 of
     # round-off in that sum, for the plain version as much as the kernel, so
@@ -504,7 +724,15 @@ def main():
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
 
     sys.path.insert(0, HERE)
-    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned, rnnt_loss_smoothed_pruned
+    from fast_rnnt_tpu_torch import (
+        do_rnnt_pruning,
+        get_rnnt_prune_ranges,
+        rnnt_loss,
+        rnnt_loss_pruned,
+        rnnt_loss_simple,
+        rnnt_loss_simple_pruned,
+        rnnt_loss_smoothed_pruned,
+    )
     from fast_rnnt_tpu_torch.ops.kernels import _build, latbuild, ranges, wavefront
     from fast_rnnt_tpu_torch.ops.pruning import _window_argmax, _window_scores
     from fast_rnnt_tpu_torch.utils import from_numpy
@@ -555,10 +783,23 @@ def main():
             range_flips(st_k, st_p, _window_scores(gx_k, gy_k, Kr), "ranges (small)")
         for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset).items():
             small[name] = max(small.get(name, 0.0), err)
+    # the recursion kernels in every storage dtype, and the fused kernel
+    # against the split pair, on fresh draws of every case and on the
+    # constrained lattice (banded and not)
+    vs_split = 0.0
+    for case in cases + [(3, 6, 40, True, False, True, True), (3, 6, 40, True, True, True, True)]:
+        px, py, bnd, lo, K = t(*rand_case(rng, *case))
+        errs, d = recursion_checks(px, py, bnd, lo, K)
+        vs_split = max(vs_split, d)
+        for name, err in errs.items():
+            small[name] = max(small.get(name, 0.0), err)
     phase("kernels-small", f"{len(cases)} ragged cases (regular/modified/constrained, banded, "
-          f"non-zero begins, S=0, out-of-range symbols, random blanks, random cotangents) ok; "
-          f"max abs err {json.dumps(small)} (tol: lattices 1e-4 + 1e-5|x|, occupancies "
-          f"1e-5 + 1e-4|x|, build gradients {GRAD_TOL} of max |plain|, ranges flips near-ties)")
+          f"non-zero begins, S=0, out-of-range symbols, random blanks, random cotangents) ok, the "
+          f"recursion kernels also in bfloat16 and float16 storage; max abs err {json.dumps(small)} "
+          f"(tol: lattices 1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x| (fused against its plain version, "
+          f"which runs its own forward: 1e-5 + 1e-3|x|), in bf16/f16 storage plus one step of it, build "
+          f"gradients {GRAD_TOL} of max |plain|, ranges flips near-ties); fused vs "
+          f"split pair max abs diff {vs_split:.3e} over {len(cases) + 2} cases")
 
     # golden path-enumeration vectors (float64 enumeration, tests/golden)
     gfiles = sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.npz")))
@@ -587,11 +828,13 @@ def main():
     am_np, lm_np, sym_np, bnd_np = make_inputs(seed=0)
     am, lm, sym, bnd = t(am_np, lm_np, sym_np, bnd_np)
     report, n_flip, cons = headline_kernels(am, lm, sym, bnd)
+    bounds = kernel_bounds(bnd)  # of the inputs the kernels were timed on
     phase("kernels-headline", f"B={B} T={T} S={S} C={C}: " + "; ".join(
         f"{k} max abs err {v['err']:.3e} rel {v['rel']:.3e} (tol {v['tol']}) "
         f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
         + (f" library {v['library_ms']:.4f} ms" if "library_ms" in v else "")
         + (f" with residuals {v['residuals_ms']:.4f} ms" if "residuals_ms" in v else "")
+        + (f" {v['note']}" if "note" in v else "")
         for k, v in report.items()
     ) + f"; ranges flips {n_flip}; occupancy conservation rel err kernel {cons[0]:.2e} "
       f"plain {cons[1]:.2e}")
@@ -605,6 +848,7 @@ def main():
         "latbuild_bwd": (latbuild.LAUNCHES, "bwd"),
         "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
         "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
+        "wavefront_fused": (wavefront.LAUNCHES, "fused"),
     }
 
     def counted(fn, path, want):
@@ -633,8 +877,15 @@ def main():
 
     (simple, pruned, rng_k), launches, first_ms, peak_mb, base_mb = counted(
         step, "main path (forward)",
+        {"wavefront_fused": 1, "wavefront_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
+    )
+    # the split arm: stage 1 through the split pair, the same results
+    out_x, _, _, peak_x, base_x = counted(
+        armed("split", step), "main path (forward, split arm)",
         {"wavefront_fwd": 2, "wavefront_bwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
+    same_fwd = arm_diff(out_x, (simple, pruned, rng_k), "main path (split arm)")
+    del out_x
     if peak_mb > FWD_PEAK_MIB:
         raise Failed(f"forward-only peak {peak_mb:.1f} MiB > {FWD_PEAK_MIB} MiB: a residual was kept")
     if simple.shape != (B,) or pruned.shape != (B,) or tuple(rng_k.shape) != (B, T, S_RANGE):
@@ -653,9 +904,8 @@ def main():
     del p_p
     # the kernel path's stage-1 occupancies, recomputed outside the counted run
     px_k, py_k = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
-    p_k, _ = wavefront.forward_rows(px_k, py_k, bnd)
-    gx_k, gy_k = wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)
-    del p_k, px_k, py_k
+    _, gx_k, gy_k = wavefront.fused_rows(px_k, py_k, bnd)
+    del px_k, py_k
     # ranges, by the near-tie rule: (a) the main path's ranges are the plain
     # window search of its own occupancies; (b) where the two paths'
     # occupancies (which differ in the last float32 bits) pick different raw
@@ -677,12 +927,15 @@ def main():
     if rel_s > 1e-4 or rel_p > 1e-4:
         raise Failed(f"losses vs plain path: rel err simple {rel_s:.3e} pruned {rel_p:.3e} > 1e-4")
     step_ms = cuda_ms(step)
+    ab_fwd = in_turns(armed("split", step), step)
     phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
           f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
           f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); step {step_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_ms:.1f} ms); peak "
           f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs; bound {FWD_PEAK_MIB}); "
-          f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}")
+          f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; split arm {same_fwd}, peak "
+          f"{peak_x:.1f} MiB ({peak_x - base_x:.1f} MiB above what was allocated before it); in turns (split, shipped, shipped, split) "
+          + ", ".join(f"{x:.4f}" for x in ab_fwd) + " ms")
 
     # training: bench.py's step, the gradient of 0.5 * simple + pruned
     am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
@@ -694,8 +947,15 @@ def main():
 
     (loss_t, g_am, g_lm, r_t), launches_t, first_t, peak_t, base_t = counted(
         train_step, "training",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+         "wavefront_bwd": 1, "ranges": 1},
+    )
+    out_x, _, _, peak_tx, base_tx = counted(
+        armed("split", train_step), "training (split arm)",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
     )
+    same_train = arm_diff(out_x, (loss_t, g_am, g_lm, r_t), "training (split arm)")
+    del out_x
     loss_f = 0.5 * simple.sum() + pruned.sum()
     rel_l = ((loss_t - loss_f).abs() / loss_f.abs()).item()
     if rel_l > 1e-6 or not torch.equal(r_t, rng_k):
@@ -709,14 +969,19 @@ def main():
     )
     e_t = worst(grad_err(g_am, w_am, "training d_am", TRAIN_GRAD_TOL),
                 grad_err(g_lm, w_lm, "training d_lm", TRAIN_GRAD_TOL))
+    g_train = (g_am, g_lm)  # the recipe phases are held to these
     del g_am, g_lm, w_am, w_lm, g2x, g2y, gx_p, gy_p, px_p, py_p
     train_ms = cuda_ms(train_step)
+    ab_train = in_turns(armed("split", train_step), train_step)
     phase("train", f"grad of 0.5*simple + pruned (reduction sum) w.r.t. (am, lm), B={B} T={T} "
           f"S={S} C={C} s_range={S_RANGE} fp32: launches {json.dumps(launches_t)}; loss "
           f"{loss_t.item():.3f} (rel {rel_l:.1e} from the forward path's); gradients vs plain "
           f"max abs err {e_t[0]:.3e} ({e_t[1]:.3e} of max |plain|, tol {TRAIN_GRAD_TOL}); step "
           f"{train_ms:.4f} ms (CUDA events, median of {REPS} runs of 10 steps; first call "
-          f"{first_t:.1f} ms); peak {peak_t:.1f} MiB ({peak_t - base_t:.1f} MiB above the inputs)")
+          f"{first_t:.1f} ms); peak {peak_t:.1f} MiB ({peak_t - base_t:.1f} MiB above the inputs); "
+          f"split arm {same_train}, peak {peak_tx:.1f} MiB ({peak_tx - base_tx:.1f} MiB above what was "
+          f"allocated before it); in turns (split, shipped, shipped, split) "
+          + ", ".join(f"{x:.4f}" for x in ab_train) + " ms")
 
     # smoothed training: rnnt_loss_smoothed_pruned, default scales
     def smoothed_step():
@@ -728,7 +993,7 @@ def main():
     (loss_s, g_am, g_lm, r_s), launches_s, first_s, peak_s, base_s = counted(
         smoothed_step, "smoothed training",
         {"latbuild_fwd_parts": 1, "latbuild_bwd_parts": 1, "latbuild_fwd": 1, "latbuild_bwd": 1,
-         "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
+         "wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1, "ranges": 1},
     )
     # plain reference: autograd of the plain builds, fed the plain
     # recursion's occupancies (stage 2 on the kernel path's ranges)
@@ -761,8 +1026,129 @@ def main():
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_s:.1f} ms); peak "
           f"{peak_s:.1f} MiB ({peak_s - base_s:.1f} MiB above the inputs)")
 
+    # the real-joiner recipe, with the joiner am_p + lm_p: the training
+    # step's function computed through the pruned logits
+    def recipe_step(logits_dtype=None):
+        simple, (gx, gy) = rnnt_loss_simple(lm_g, am_g, sym, 0, bnd, reduction="sum",
+                                            calc_gradients=True)
+        r = get_rnnt_prune_ranges(gx, gy, bnd, S_RANGE)
+        am_p, lm_p = do_rnnt_pruning(am_g, lm_g, r)
+        logits = am_p + lm_p
+        if logits_dtype is not None:
+            logits = logits.to(logits_dtype)
+        pruned = rnnt_loss_pruned(logits, sym, r, 0, bnd, reduction="sum")
+        loss = 0.5 * simple + pruned
+        return (loss.detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
+
+    # shipped: stage 1 fused, stage 2 the split pair; vjp: stage 2 fused too
+    # (_FUSE_SCORES_VJP); split: both stages through the split pair
+    recipe_arms = {
+        "shipped": {"wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1},
+        "vjp": {"wavefront_fused": 2},
+        "split": {"wavefront_fwd": 2, "wavefront_bwd": 2},
+    }
+    recipe = {}
+    for name, want in recipe_arms.items():
+        (loss_r, *g_r, r_r), n_r, first_r, peak_r, base_r = counted(
+            armed(name, recipe_step), f"recipe-train ({name})",
+            {"latbuild_fwd": 1, "latbuild_bwd": 1, "ranges": 1, **want})
+        # stage 1 is the training step's: the same kernels, so the ranges
+        # must be the training step's
+        if not torch.equal(r_r, r_t):
+            n = int((r_r != r_t).any(2).sum())
+            raise Failed(f"recipe-train ({name}): ranges differ from train's at {n} frames")
+        rel_r = ((loss_r - loss_t).abs() / loss_t.abs()).item()
+        if rel_r > 1e-4:
+            raise Failed(f"recipe-train ({name}): loss rel err vs train {rel_r:.3e} > 1e-4")
+        e_r = worst(*(grad_err(a, b, f"recipe-train ({name}) {n}", TRAIN_GRAD_TOL)
+                      for a, b, n in zip(g_r, g_train, ("d_am", "d_lm"))))
+        held = (f"ranges equal to train's; loss rel err vs train {rel_r:.3e} (tol 1e-4); gradients "
+                f"vs train max abs err {e_r[0]:.3e} ({e_r[1]:.3e} of max, tol {TRAIN_GRAD_TOL})")
+        if name != "shipped":
+            held += f"; vs the shipped arm {arm_diff((loss_r, *g_r, r_r), recipe['shipped'][0], name)}"
+        recipe[name] = ((loss_r, *g_r, r_r), n_r)
+        ms_r = cuda_ms(armed(name, recipe_step))
+        phase("recipe-train", f"{name} arm: rnnt_loss_simple (calc_gradients) -> get_rnnt_prune_ranges "
+              f"-> do_rnnt_pruning -> am_p + lm_p -> rnnt_loss_pruned (reduction sum), grad of 0.5*simple "
+              f"+ pruned w.r.t. (am, lm), B={B} T={T} S={S} C={C} s_range={S_RANGE} fp32: launches "
+              f"{json.dumps(n_r)}; loss {loss_r.item():.3f}; {held}; step {ms_r:.4f} ms (CUDA events, "
+              f"median of {REPS} runs of 10 steps; first call {first_r:.1f} ms); peak {peak_r:.1f} MiB "
+              f"({peak_r - base_r:.1f} MiB above the inputs)")
+    del g_r
+    launches_recipe = recipe["vjp"][1]
+    (loss_f32, *g_f32, r_f32), _ = recipe["shipped"]
+    del recipe
+    # the arms in turns, in one process
+    ab_recipe = in_turns(*(armed(name, recipe_step) for name in ("split", "shipped", "vjp")))
+    phase("recipe-train", "in turns (split, shipped, vjp, vjp, shipped, split): "
+          + ", ".join(f"{x:.4f}" for x in ab_recipe) + " ms")
+
+    # the mixed-precision form: bf16 pruned logits, so a bf16 lattice in the
+    # stage-2 recursion kernels.  Held to the JAX package's bf16 bound (rtol
+    # 5e-2, atol 0.1, tests/test_recursion.py:359-361) of the float32
+    # recipe, and to the bounds below, set from the H100 readings (loss gap
+    # 1.16e-5 relative, gradient gap 1.108e-2 of max, PERF.md)
+    BF16_LOSS_RTOL, BF16_GRAD_TOL = 1e-3, 3e-2
+    def recipe_step_bf16():
+        return recipe_step(torch.bfloat16)
+
+    (loss_b, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
+        recipe_step_bf16, "recipe-train-bf16",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+         "wavefront_bwd": 1, "ranges": 1})
+    if not (torch.isfinite(loss_b) and all(torch.isfinite(g).all() for g in g_b)):
+        raise Failed("recipe-train-bf16: non-finite loss or gradient")
+    if not torch.equal(r_b, r_f32):
+        raise Failed("recipe-train-bf16: ranges differ from the float32 recipe's (same stage 1)")
+    gap = (loss_b - loss_f32).abs().item()
+    if gap > 0.1 + 5e-2 * loss_f32.abs().item() or gap > BF16_LOSS_RTOL * loss_f32.abs().item():
+        raise Failed(f"recipe-train-bf16: loss {loss_b.item()} vs float32 {loss_f32.item()}: gap {gap:.3e}")
+    g_gap = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(g_b, g_f32))
+    if g_gap > BF16_GRAD_TOL:
+        raise Failed(f"recipe-train-bf16: gradients {g_gap:.3e} of max from float32's > {BF16_GRAD_TOL}")
+    del g_b, g_f32
+    ms_b = cuda_ms(recipe_step_bf16)
+    phase("recipe-train-bf16", f"the recipe with bf16 pruned logits (a bf16 lattice in wavefront_fwd/bwd): "
+          f"launches {json.dumps(n_b)}; loss {loss_b.item():.3f} vs float32 {loss_f32.item():.3f}: gap "
+          f"{gap:.3e} ({gap / loss_f32.abs().item():.3e} rel; tol 0.1 + 5e-2|x| and {BF16_LOSS_RTOL}|x|); "
+          f"gradients vs float32 max abs diff {g_gap:.3e} of max (tol {BF16_GRAD_TOL}); step {ms_b:.4f} ms "
+          f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
+
+    # the unpruned loss of full logits [BJ, T, S+1, C] (808 MB at BJ = 4),
+    # with occupancies and a backward, shipped (fused) and split; with the
+    # joiner am + lm it equals the simple loss
+    BJ = 4
+    am_j, lm_j = am[:BJ].clone().requires_grad_(), lm[:BJ].clone().requires_grad_()
+    sym_j, bnd_j = sym[:BJ].contiguous(), bnd[:BJ].contiguous()
+
+    def joint_step():
+        logits = am_j[:, :, None, :] + lm_j[:, None, :, :]
+        loss, (gx, gy) = rnnt_loss(logits, sym_j, 0, bnd_j, reduction="sum", calc_gradients=True)
+        return (loss.detach(), gx, gy, *torch.autograd.grad(loss, (am_j, lm_j)))
+
+    joint = {}
+    for name, want in (("shipped", {"wavefront_fused": 1}), ("split", {"wavefront_fwd": 1, "wavefront_bwd": 1})):
+        out, n_j, first_j, peak_j, base_j = counted(armed(name, joint_step), f"joint ({name})", want)
+        joint[name] = (out, n_j, first_j, peak_j - base_j)
+    same_j = arm_diff(joint["split"][0], joint["shipped"][0], "joint (split arm)")
+    loss_j = joint["shipped"][0][0]
+    simple_j = rnnt_loss_simple(lm[:BJ], am[:BJ], sym_j, 0, bnd_j, reduction="sum")
+    rel_j = ((loss_j - simple_j).abs() / simple_j.abs()).item()
+    if rel_j > 1e-4:
+        raise Failed(f"joint: rnnt_loss of am + lm vs rnnt_loss_simple rel err {rel_j:.3e} > 1e-4")
+    del am_j, lm_j, loss_j
+    phase("joint", f"rnnt_loss on full logits [{BJ}, {T}, {S + 1}, {C}] fp32 (calc_gradients; grad w.r.t. "
+          f"(am, lm) through the joiner am + lm): launches shipped {json.dumps(joint['shipped'][1])} split "
+          f"{json.dumps(joint['split'][1])}; split arm {same_j} (loss, occupancies, gradients); loss vs "
+          f"rnnt_loss_simple rel err {rel_j:.3e} (tol 1e-4); first call shipped {joint['shipped'][2]:.1f} ms "
+          f"split {joint['split'][2]:.1f} ms; peak above the inputs shipped {joint['shipped'][3]:.1f} MiB "
+          f"split {joint['split'][3]:.1f} MiB")
+    del joint
+
     # --- 5. where the steps' time goes (measurements) ----------------------
-    for name, fn in (("forward", step), ("train", train_step), ("smoothed-train", smoothed_step)):
+    for name, fn in (("forward", step), ("train", train_step), ("smoothed-train", smoothed_step),
+                     ("recipe-train", recipe_step), ("recipe-train (vjp arm)", armed("vjp", recipe_step))):
         prof = profile_step(fn)
         if prof is None:
             raise Failed(f"profile of the {name} step: the profiler saw no device activity")
@@ -797,14 +1183,15 @@ def main():
                                "fast_rnnt_tpu/ops/kernels/latbuild.py:836"),
         "latbuild_bwd_parts": ("fast_rnnt_tpu_torch/csrc/latbuild_bwd.cu",
                                "fast_rnnt_tpu/ops/kernels/latbuild.py:920"),
+        "wavefront_fused": ("fast_rnnt_tpu_torch/csrc/wavefront_fused.cu",
+                            "fast_rnnt_tpu/ops/kernels/wavefront.py:623"),
     }
     # each kernel's launches from the first path that runs it
     path_launches = {}
-    for counts in (launches, launches_t, launches_s):
+    for counts in (launches, launches_t, launches_s, launches_recipe):
         for k, n in counts.items():
             if n:
                 path_launches.setdefault(k, n)
-    bounds = kernel_bounds(bnd)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[name], "max_abs_err": report[name]["err"],

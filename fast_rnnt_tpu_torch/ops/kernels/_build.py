@@ -37,11 +37,15 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 P, I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry (see the .cu files for the argument meanings)
 _SIGNATURES = {
-    # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, stream
-    "frt_wavefront_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, P],
+    # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, dtype,
+    # stream
+    "frt_wavefront_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
     # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, pxg, pyg,
-    # threads, stream
-    "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, P],
+    # threads, dtype, stream
+    "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
+    # px, py, boundary, lo, K, S, B, T, modified, p (scratch), scores, pxg,
+    # pyg, threads, dtype, stream
+    "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],
     # lmp, pxlm, pylm, lmmax, symbols, te, am, uni, B, S, T, C, blank,
     # modified, px, py, nd, d, amax, duni, stream
     "frt_latbuild_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P],

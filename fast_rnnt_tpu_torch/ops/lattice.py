@@ -1,11 +1,15 @@
-"""(px, py) lattice construction, s-major rows (PyTorch port of the rows
-part of ``fast_rnnt_tpu/ops/lattice.py``).
+"""(px, py) lattice construction (PyTorch port of
+``fast_rnnt_tpu/ops/lattice.py``): the s-major rows builds of the additive
+joiner, their (B, S, T)-major forms, and the lattices of a real joiner's
+full or pruned logits.
 
 Matmul precision: the JAX package contracts the normalizer at
 ``Precision.HIGHEST`` (fp32-faithful).  The port keeps that contract: the
 CUDA build kernel accumulates plain fp32 FMAs, and the plain build's einsum
 on a CUDA tensor requires TF32 to be off (``torch.backends.cuda.matmul.
-allow_tf32`` False, PyTorch's default), which it asserts.
+allow_tf32`` False, PyTorch's default), which it asserts.  The joiner-logit
+lattices need no matmul: the JAX package's one-hot einsums there were TPU
+gather workarounds, and the port gathers, which is exact.
 """
 
 from __future__ import annotations
@@ -18,10 +22,18 @@ import torch
 from .numerics import NEG_INF
 
 __all__ = [
+    "band_mask_rows",
     "band_mask_rows_smajor",
     "fix_for_boundary",
+    "get_rnnt_logprobs",
+    "get_rnnt_logprobs_joint",
+    "get_rnnt_logprobs_pruned",
+    "get_rnnt_logprobs_pruned_simple",
     "get_rnnt_logprobs_rows",
+    "get_rnnt_logprobs_smoothed",
     "get_rnnt_logprobs_smoothed_rows",
+    "roll_by_shifts",
+    "scatter_window",
 ]
 
 RNNT_TYPES = ("regular", "modified", "constrained")
@@ -262,3 +274,184 @@ def band_mask_rows_smajor(x_rows: torch.Tensor, lo: torch.Tensor, K: int) -> tor
     lo3 = lo[None]
     s_i = torch.arange(Sx, dtype=torch.int32, device=x_rows.device)[:, None, None]
     return torch.where((s_i >= lo3) & (s_i < lo3 + K), x_rows, NEG_INF)
+
+
+def band_mask_rows(x: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
+    """(B, S', T')-major :func:`band_mask_rows_smajor` with the band of
+    ``ranges`` [B, T, K]: -inf outside ``ranges[b, t, 0] <= s <
+    ranges[b, t, 0] + K``."""
+    return band_mask_rows_smajor(x.movedim(1, 0), ranges[:, :, 0], ranges.shape[2]).movedim(0, 1)
+
+
+def get_rnnt_logprobs(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    rnnt_type: str = "regular",
+    boundary: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, T)-major :func:`get_rnnt_logprobs_rows`: px [B, S, T+1]
+    (regular) or [B, S, T], py [B, S+1, T], as views of the s-major rows
+    (the build kernel on a CUDA tensor)."""
+    px, py = get_rnnt_logprobs_rows(lm, am, symbols, termination_symbol, rnnt_type, boundary)
+    return px.movedim(0, 1), py.movedim(0, 1)
+
+
+def get_rnnt_logprobs_smoothed(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    lm_only_scale: float = 0.1,
+    am_only_scale: float = 0.1,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, T)-major :func:`get_rnnt_logprobs_smoothed_rows`."""
+    px, py = get_rnnt_logprobs_smoothed_rows(
+        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type
+    )
+    return px.movedim(0, 1), py.movedim(0, 1)
+
+
+def _pad_normalizers(normalizers: torch.Tensor, rnnt_type: str) -> torch.Tensor:
+    """Width-match (B, S+1, T) normalizers to px: a zero column for the
+    extra t = T position of regular px (where px is -inf)."""
+    if rnnt_type == "regular":
+        B, S1, _ = normalizers.shape
+        return torch.cat([normalizers, normalizers.new_zeros((B, S1, 1))], dim=2)
+    return normalizers
+
+
+def _neg_inf_column(px: torch.Tensor) -> torch.Tensor:
+    """Append the -inf t = T column of regular (B, S, T) px."""
+    B, S, _ = px.shape
+    return torch.cat([px, px.new_full((B, S, 1), NEG_INF)], dim=2)
+
+
+def _finish(px, py, rnnt_type, boundary):
+    """The rnnt_type tail of the B-major builders: regular kills each
+    utterance's t_end column, constrained adds py of the next row."""
+    if rnnt_type == "regular":
+        return fix_for_boundary(px, boundary), py
+    if rnnt_type == "constrained":
+        return px + py[:, 1:, :], py
+    return px, py
+
+
+def get_rnnt_logprobs_joint(
+    logits: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(px, py) from a full joiner output [B, T, S+1, C] (reference
+    rnnt_loss.py:340-452): px [B, S, T(+1)] in at least float32, py
+    [B, S+1, T] in the logits' dtype, as in the JAX package."""
+    _check_rnnt_type(rnnt_type)
+    B, T, S1, C = logits.shape
+    S = S1 - 1
+    normalizers = torch.logsumexp(logits, dim=3).transpose(1, 2)  # [B, S+1, T]
+    sym, valid = _symbol_index(symbols, C)
+    px = torch.gather(logits[:, :, :S, :], 3, sym[:, None, :, None].expand(B, T, S, 1))[..., 0]
+    px = torch.where(valid[:, None, :], px, 0.0).transpose(1, 2)  # [B, S, T]
+    px = px.to(torch.promote_types(px.dtype, torch.float32))
+    if rnnt_type == "regular":
+        px = _neg_inf_column(px)
+    px = px - _pad_normalizers(normalizers, rnnt_type)[:, :S, :]
+    py = logits[:, :, :, termination_symbol].transpose(1, 2) - normalizers
+    return _finish(px, py, rnnt_type, boundary)
+
+
+def roll_by_shifts(src: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Per-(b, t) circular right-roll of the last dim of [B, T, S] ``src``
+    by ``shifts[b, t]`` (reference ``_roll_by_shifts``, rnnt_loss.py:814-851)."""
+    B, T, S = src.shape
+    idx = torch.arange(S, device=src.device)[None, None, :] - shifts[:, :, None].long()
+    return torch.gather(src, 2, idx % S)
+
+
+def scatter_window(
+    win: torch.Tensor, shifts: torch.Tensor, out_width: int, fill: float = NEG_INF
+) -> torch.Tensor:
+    """Place each (b, t) window ``win[b, t, :]`` at offset ``shifts[b, t]``
+    in a ``fill`` row of ``out_width``: ``out[b, t, shifts[b, t] + k] =
+    win[b, t, k]``, ``fill`` elsewhere (the reference's pad-then-roll,
+    rnnt_loss.py:967-1011, whenever ``shifts + K <= out_width``)."""
+    B, T, K = win.shape
+    j = torch.arange(out_width, device=win.device)[None, None, :]
+    rel = j - shifts[:, :, None].long()
+    out = win.new_full((B, T, out_width), fill)
+    for k in range(K):
+        out = torch.where(rel == k, win[:, :, k : k + 1], out)
+    return out
+
+
+def get_rnnt_logprobs_pruned(
+    logits: torch.Tensor,
+    symbols: torch.Tensor,
+    ranges: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(px, py) from a pruned joiner output [B, T, s_range, C] (reference
+    rnnt_loss.py:853-1020): a per-frame normalizer, the pruned symbols'
+    logits, each frame's window placed back at its absolute symbol rows,
+    -inf elsewhere.  px [B, S, T(+1)], py [B, S+1, T], in the logits'
+    dtype."""
+    _check_rnnt_type(rnnt_type)
+    if rnnt_type == "constrained" and ranges.shape[2] < 2:
+        # the constrained px adds py of the next symbol row at t+1; with a
+        # width-1 window that row is outside the band, so every px arc is
+        # -inf and every loss infinite
+        raise ValueError("constrained RNN-T needs s_range >= 2")
+    B, T, K, C = logits.shape
+    S = symbols.shape[1]
+    dev = logits.device
+    sym_wt = torch.cat(
+        [symbols.long(), torch.full((B, 1), int(termination_symbol), dtype=torch.long, device=dev)],
+        dim=1,
+    )  # [B, S+1]
+    rg = ranges.long()
+    rg_ok = (rg >= 0) & (rg <= S)
+    pruned = torch.gather(sym_wt[:, None, :].expand(B, T, S + 1), 2, rg.clamp(0, S))
+    pruned = torch.where(rg_ok, pruned, 0)  # [B, T, K]; a range outside [0, S] reads symbol 0
+    psym, pvalid = _symbol_index(pruned, C)
+    normalizers = torch.logsumexp(logits, dim=3)  # [B, T, K]
+    px = torch.where(pvalid, torch.gather(logits, 3, psym[..., None])[..., 0], 0.0) - normalizers
+    py_band = logits[:, :, :, termination_symbol] - normalizers
+    lo = ranges[:, :, 0]
+    px = scatter_window(px, lo, S + 1)[:, :, :S].transpose(1, 2)  # [B, S, T]
+    if rnnt_type == "regular":
+        px = _neg_inf_column(px)
+    py = scatter_window(py_band, lo, S + 1).transpose(1, 2)  # [B, S+1, T]
+    return _finish(px, py, rnnt_type, boundary)
+
+
+def get_rnnt_logprobs_pruned_simple(
+    lm: torch.Tensor,
+    am: torch.Tensor,
+    symbols: torch.Tensor,
+    ranges: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(px, py) of the pruned additive-joiner loss, built band-natively: the
+    simple lattice masked to the band of ``ranges``, equal (fp32 round-off)
+    to ``get_rnnt_logprobs_pruned(am_p + lm_p, ...)`` with ``am_p, lm_p =
+    do_rnnt_pruning(am, lm, ranges)``, without the [B, T, K, C] logits."""
+    _check_rnnt_type(rnnt_type)
+    if rnnt_type == "constrained" and ranges.shape[2] < 2:
+        raise ValueError("constrained RNN-T needs s_range >= 2")
+    # the constrained add must come after the band masking, as in
+    # get_rnnt_logprobs_pruned
+    base_type = "modified" if rnnt_type == "constrained" else rnnt_type
+    px, py = get_rnnt_logprobs(lm, am, symbols, termination_symbol, base_type, boundary)
+    px, py = band_mask_rows(px, ranges), band_mask_rows(py, ranges)
+    if rnnt_type == "constrained":
+        px = px + py[:, 1:, :]
+    return px, py

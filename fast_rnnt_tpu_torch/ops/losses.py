@@ -1,26 +1,35 @@
-"""RNN-T losses for the additive joiner (PyTorch port of
-``fast_rnnt_tpu/ops/losses.py``): the simple and smoothed losses, the
-band-native pruned loss, and the two-stage pruned pipelines.  Same argument
-order, defaults and reductions as the JAX package; no ``impl`` argument:
-the port dispatches on the tensor's device."""
+"""RNN-T losses (PyTorch port of ``fast_rnnt_tpu/ops/losses.py``): the
+simple and smoothed losses of the additive joiner, the band-native pruned
+loss and the two-stage pruned pipelines, and the losses of a real joiner's
+logits (full, chunked and pruned).  Same argument order, defaults and
+reductions as the JAX package; no ``impl`` argument: the port dispatches on
+the tensor's device."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.validation import check_rnnt_inputs
 from .lattice import (
     _check_rnnt_type,
+    _finish,
+    _neg_inf_column,
     band_mask_rows_smajor,
+    get_rnnt_logprobs_joint,
+    get_rnnt_logprobs_pruned,
     get_rnnt_logprobs_rows,
     get_rnnt_logprobs_smoothed_rows,
 )
 from .pruning import get_rnnt_prune_ranges_rows
-from .recursion import _normalize_boundary, mutual_information_rows
+from .recursion import _normalize_boundary, mutual_information_recursion, mutual_information_rows
 
 __all__ = [
+    "rnnt_loss",
+    "rnnt_loss_chunked",
+    "rnnt_loss_pruned",
     "rnnt_loss_simple",
     "rnnt_loss_pruned_simple",
     "rnnt_loss_simple_pruned",
@@ -50,6 +59,18 @@ def _apply_delay_penalty_rows(
         offset = ((boundary[:, 3].to(device=dev, dtype=dt) - 1.0) / 2.0)[None, :, None]
     penalty = offset - torch.arange(T0, dtype=dt, device=dev)[None, None, :]
     return px_rows + penalty * delay_penalty
+
+
+def _apply_delay_penalty(
+    px: torch.Tensor,
+    boundary: Optional[torch.Tensor],
+    rnnt_type: str,
+    delay_penalty: float,
+) -> torch.Tensor:
+    """(B, S, T')-major :func:`_apply_delay_penalty_rows`."""
+    if delay_penalty <= 0.0:
+        return px
+    return _apply_delay_penalty_rows(px.movedim(1, 0), boundary, rnnt_type, delay_penalty).movedim(0, 1)
 
 
 def _reduce(negated_loss: torch.Tensor, reduction: Optional[str]) -> torch.Tensor:
@@ -129,6 +150,106 @@ def rnnt_loss_smoothed(
                            delay_penalty, reduction, calc_gradients)
 
 
+def _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction,
+                    calc_gradients) -> LossOrLossAndGrads:
+    """The (B, S, T)-major recursion on a built lattice, as the joiner-logit
+    losses share it."""
+    px = _apply_delay_penalty(px, boundary, rnnt_type, delay_penalty)
+    out = mutual_information_recursion(px, py, boundary, calc_gradients=calc_gradients)
+    if calc_gradients:
+        negated_loss, grads = out
+        return _reduce(negated_loss, reduction), grads
+    return _reduce(out, reduction)
+
+
+def rnnt_loss(
+    logits: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    calc_gradients: bool = False,
+) -> LossOrLossAndGrads:
+    """Unpruned RNN-T loss from a full joiner output [B, T, S+1, C]
+    (reference rnnt_loss.py:454-551); results as :func:`rnnt_loss_simple`."""
+    check_rnnt_inputs(
+        logits=logits, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary,
+    )
+    px, py = get_rnnt_logprobs_joint(logits, symbols, termination_symbol, boundary, rnnt_type)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients)
+
+
+def rnnt_loss_chunked(
+    joiner: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    am: torch.Tensor,
+    lm: torch.Tensor,
+    symbols: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+    chunk: int = 64,
+    calc_gradients: bool = False,
+) -> LossOrLossAndGrads:
+    """Unpruned real-joiner RNN-T loss without materializing the joiner
+    output: the joiner runs on ``chunk`` frames at a time under
+    ``torch.utils.checkpoint``, so each chunk's [B, chunk, S+1, C] logits
+    exist only while its px/py columns are made, in the forward and again
+    in the backward.
+
+    Args:
+      joiner: ``joiner(am_chunk [B, Tc, Da], lm [B, S+1, Dl]) -> logits
+        [B, Tc, S+1, C]``.
+      am: [B, T, Da] encoder output; lm: [B, S+1, Dl] predictor output.
+      chunk: frames per joiner call.
+
+    Other arguments and the result are as :func:`rnnt_loss`'s."""
+    check_rnnt_inputs(symbols=symbols, termination_symbol=termination_symbol, boundary=boundary)
+    _check_rnnt_type(rnnt_type)
+
+    def chunk_fn(am_c):
+        # a chunk's "modified" lattice is its raw px/py columns
+        return get_rnnt_logprobs_joint(joiner(am_c, lm), symbols, termination_symbol, None,
+                                       "modified")
+
+    cols = [checkpoint(chunk_fn, am[:, i : i + chunk], use_reentrant=False)
+            for i in range(0, am.shape[1], chunk)]
+    px = torch.cat([c[0] for c in cols], dim=2)  # [B, S, T]
+    py = torch.cat([c[1] for c in cols], dim=2)  # [B, S+1, T]
+    if rnnt_type == "regular":
+        px = _neg_inf_column(px)
+    px, py = _finish(px, py, rnnt_type, boundary)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients)
+
+
+def rnnt_loss_pruned(
+    logits: torch.Tensor,
+    symbols: torch.Tensor,
+    ranges: torch.Tensor,
+    termination_symbol: int,
+    boundary: Optional[torch.Tensor] = None,
+    rnnt_type: str = "regular",
+    delay_penalty: float = 0.0,
+    reduction: Optional[str] = "mean",
+) -> torch.Tensor:
+    """Pruned RNN-T loss from a pruned joiner output [B, T, s_range, C]
+    (reference rnnt_loss.py:1022-1130), the loss only; differentiable
+    w.r.t. ``logits``.  Under autograd the recursion runs the forward and
+    the occupancy backward kernels, or the fused kernel where
+    ``recursion._FUSE_SCORES_VJP`` is set."""
+    check_rnnt_inputs(
+        logits=logits, symbols=symbols,
+        termination_symbol=termination_symbol, boundary=boundary, ranges=ranges,
+    )
+    px, py = get_rnnt_logprobs_pruned(logits, symbols, ranges, termination_symbol, boundary,
+                                      rnnt_type)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, False)
+
+
 def rnnt_loss_pruned_simple(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -205,7 +326,8 @@ def rnnt_loss_simple_pruned(
 
     Returns (simple_loss, pruned_loss, ranges [B, T, s_range']); the losses
     are reduced per ``reduction``.  ``lattice_dtype`` stores the lattice in
-    a narrower float (the CUDA kernels take float32 only so far).
+    a narrower float (bfloat16 or float16 storage in the recursion
+    kernels; the build runs in float32 and is cast after).
     """
     check_rnnt_inputs(
         lm=lm, am=am, symbols=symbols,

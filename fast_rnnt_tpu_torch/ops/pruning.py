@@ -5,12 +5,15 @@ step-bounded (Pruned RNN-T paper, arXiv:2206.13236, section 3.2)."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .recursion import monotonic_lower_bound
 
 __all__ = [
     "adjust_pruning_lower_bound",
+    "do_rnnt_pruning",
     "get_rnnt_prune_ranges",
     "get_rnnt_prune_ranges_rows",
 ]
@@ -109,6 +112,25 @@ def get_rnnt_prune_ranges_rows(
         adjust_step,
     )
     return s_begin[:, :, None] + torch.arange(s_range, dtype=torch.int32, device=s_begin.device)
+
+
+def do_rnnt_pruning(
+    am: torch.Tensor, lm: torch.Tensor, ranges: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prune encoder/predictor outputs to the per-frame symbol windows:
+    ``am_pruned[b, t, k] = am[b, t]`` (a broadcast view) and ``lm_pruned[b,
+    t, k] = lm[b, ranges[b, t, k]]``, both [B, T, s_range, C] (reference
+    rnnt_loss.py:763-812).  A range outside [0, S] reads a row of zeros, as
+    the JAX package's one-hot product does."""
+    B, T, K = ranges.shape
+    S1, C = lm.shape[1], lm.shape[2]
+    am_pruned = am[:, :, None, :].expand(B, T, K, C)
+    # index S+1 is an appended zero row
+    lm_pad = torch.cat([lm, lm.new_zeros((B, 1, C))], dim=1)
+    rg = ranges.long()
+    rg = torch.where((rg >= 0) & (rg < S1), rg, S1)
+    lm_pruned = lm_pad[torch.arange(B, device=lm.device)[:, None, None], rg]
+    return am_pruned, lm_pruned
 
 
 def get_rnnt_prune_ranges(

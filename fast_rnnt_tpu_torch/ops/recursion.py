@@ -1,5 +1,6 @@
-"""Mutual-information lattice recursion, s-major rows (PyTorch port of the
-rows part of ``fast_rnnt_tpu/ops/recursion.py``).
+"""Mutual-information lattice recursion (PyTorch port of
+``fast_rnnt_tpu/ops/recursion.py``): the s-major rows ops and the
+(B, S, T)-major public ``mutual_information_recursion``.
 
     p[b, s_begin, t_begin] = 0
     regular:   p[b,s,t] = logadd(p[b,s-1,t]   + px[b,s-1,t],
@@ -8,26 +9,46 @@ rows part of ``fast_rnnt_tpu/ops/recursion.py``).
                                  p[b,s,t-1]   + py[b,s,t-1])
     scores[b] = p[b, s_end, t_end]
 
-Rows are (S, B, T)-major.  On a CUDA tensor the forward and the occupancy
-backward run the hand-written kernels of ``kernels/wavefront.py``; on a
-CPU tensor they run the plain versions below (S+1 sequential rows, each
-solved by a doubling scan over t, see ``numerics.py``).
+Rows are (S, B, T)-major.  On a CUDA tensor they run the hand-written
+kernels of ``kernels/wavefront.py``: the fused forward + occupancy-backward
+kernel where the occupancies are asked for (``calc_gradients=True``), the
+forward kernel for scores alone, and the backward kernel on demand under
+autograd (or the fused kernel, with ``_FUSE_SCORES_VJP``); on a CPU tensor
+they run the plain versions below (S+1 sequential rows, each solved by a
+doubling scan over t, see ``numerics.py``).
 
-Dtype policy: the CUDA kernels take float32 only.  float64 (and the bf16
-storage mode, not ported yet) on a CUDA tensor raises TypeError and is
-never sent to the plain path; on the CPU every float dtype runs the plain
-path, sub-f32 storage computing in float32.
+Dtype policy (the JAX package's, ``recursion.py:468-495``): float32 runs
+as it is; bfloat16 and float16 are storage, read and widened to float32 by
+the kernels (the plain path promotes), with p and the scores float32 and
+the occupancies returned in the storage dtype.  float64 on a CUDA tensor
+raises TypeError and is never sent to the plain path; on the CPU every
+float dtype runs the plain path.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .numerics import NEG_INF, log_linear_scan, logaddexp, reverse_linear_scan, safe_exp
 
-__all__ = ["mutual_information_rows", "cummin", "monotonic_lower_bound"]
+__all__ = [
+    "mutual_information_recursion",
+    "mutual_information_rows",
+    "occupancy_roundtrip_check",
+    "cummin",
+    "monotonic_lower_bound",
+]
+
+# The scores op under autograd (pipeline stage 2) keeps p and runs the
+# backward kernel when the gradient is asked for.  With this switch (the JAX
+# package's, recursion.py:646-647) it runs the fused kernel in the forward
+# and keeps the two occupancy tensors instead (twice p's bytes in
+# float32).  Off: on the H100 the recipe step gains no time from it
+# (PERF.md).
+_FUSE_SCORES_VJP = False
 
 
 def _normalize_boundary(
@@ -236,23 +257,17 @@ def _backward_rows_plain(
     return px_grad.to(store_dt), torch.stack(pyg).to(store_dt)
 
 
-def _rows_with_grads(px_rows, py_rows, boundary, lo, K):
-    from .kernels import wavefront
-
-    p_rows, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K)
-    ones = torch.ones_like(scores)
-    gx, gy = wavefront.backward_rows(px_rows, py_rows, p_rows, boundary, ones, lo, K)
-    return scores, gx, gy
-
-
 class _MIRowsWithGrads(torch.autograd.Function):
-    """calc_gradients=True: occupancies (seed 1) are computed in forward;
-    since the backward recursion is linear in its seed, the backward only
-    rescales them.  The occupancy outputs are not differentiable."""
+    """calc_gradients=True: occupancies (seed 1) are computed in forward, in
+    one fused launch on the card; since the backward recursion is linear in
+    its seed, the backward only rescales them.  The occupancy outputs are
+    not differentiable."""
 
     @staticmethod
     def forward(ctx, px_rows, py_rows, boundary, lo, K):
-        scores, gx, gy = _rows_with_grads(px_rows, py_rows, boundary, lo, K)
+        from .kernels import wavefront
+
+        scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K)
         ctx.save_for_backward(gx, gy)
         ctx.mark_non_differentiable(gx, gy)
         return scores, gx, gy
@@ -265,8 +280,10 @@ class _MIRowsWithGrads(torch.autograd.Function):
 
 
 class _MIRowsScores(torch.autograd.Function):
-    """Scores only: saves p when a gradient is needed and runs the backward
-    recursion, seeded with the incoming score gradient, on demand."""
+    """Scores only.  When a gradient is needed it saves p and runs the
+    backward recursion, seeded with the incoming score gradient, on demand;
+    or, with ``_FUSE_SCORES_VJP``, runs the fused kernel now, saves the
+    occupancies (seed 1) and only rescales them in the backward."""
 
     @staticmethod
     def forward(ctx, px_rows, py_rows, boundary, lo, K):
@@ -275,6 +292,11 @@ class _MIRowsScores(torch.autograd.Function):
             return _forward_scores_rows_plain(px_rows, py_rows, boundary, lo, K)
         from .kernels import wavefront
 
+        ctx.fused = needs_grad and _FUSE_SCORES_VJP
+        if ctx.fused:
+            scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K)
+            ctx.save_for_backward(gx, gy)
+            return scores
         p_rows, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K)
         if needs_grad:
             ctx.save_for_backward(px_rows, py_rows, boundary, lo, p_rows)
@@ -285,6 +307,10 @@ class _MIRowsScores(torch.autograd.Function):
     def backward(ctx, g_scores):
         from .kernels import wavefront
 
+        if ctx.fused:
+            gx, gy = ctx.saved_tensors
+            scale = g_scores[None, :, None].to(gx.dtype)
+            return scale * gx, scale * gy, None, None, None
         px_rows, py_rows, boundary, lo, p_rows = ctx.saved_tensors
         gx, gy = wavefront.backward_rows(
             px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K
@@ -317,6 +343,11 @@ def mutual_information_rows(
     if lo is not None and int(s_range) <= 0:
         raise ValueError("banded recursion needs a positive static s_range")
     K = int(s_range)
+    if px_rows.dtype != py_rows.dtype:
+        # one storage dtype for both (a joint lattice of bf16 logits has
+        # float32 px and bf16 py); the occupancies come back in it
+        dt = torch.promote_types(px_rows.dtype, py_rows.dtype)
+        px_rows, py_rows = px_rows.to(dt), py_rows.to(dt)
     # the kernels take contiguous int32 (``lo`` is usually a strided slice
     # ``ranges[:, :, 0]``)
     boundary = boundary.to(torch.int32).contiguous()
@@ -326,6 +357,109 @@ def mutual_information_rows(
         scores, gx, gy = _MIRowsWithGrads.apply(px_rows, py_rows, boundary, lo, K)
         return scores, (gx, gy)
     return _MIRowsScores.apply(px_rows, py_rows, boundary, lo, K)
+
+
+def occupancy_roundtrip_check(
+    px_grad: torch.Tensor,
+    py_grad: torch.Tensor,
+    boundary: torch.Tensor,
+    ans_grad: torch.Tensor,
+) -> torch.Tensor:
+    """Backward self-check: the total occupancy flowing out of the lattice
+    origin must equal the seeded score cotangent.  For every cell the
+    backward recursion has ``g[s, t] = px_grad[s, t] + py_grad[s, t] +
+    seed[s, t]``, so at (s_begin, t_begin) the round trip ``g == ans_grad``
+    holds when the backward is consistent with the forward.
+
+    (B, S, T)-major occupancies; returns the per-utterance absolute error
+    ``|g[sb, tb] - ans_grad|``."""
+    B, S, _ = px_grad.shape
+    T = py_grad.shape[2]
+    dev = px_grad.device
+    bidx = torch.arange(B, device=dev)
+    bnd = boundary.to(device=dev, dtype=torch.long)
+    sb, tb = bnd[:, 0], bnd[:, 1]
+    at_end = (sb == bnd[:, 2]) & (tb == bnd[:, 3])
+    ans_grad = ans_grad.to(dev)
+    # rows/cols past the array edge contribute 0 (no such arc)
+    px_part = (
+        torch.where(sb < S, px_grad[bidx, sb.clamp(max=S - 1), tb], 0.0)
+        if S else torch.zeros((B,), dtype=px_grad.dtype, device=dev)
+    )
+    py_part = (
+        torch.where(tb < T, py_grad[bidx, sb, tb.clamp(max=T - 1)], 0.0)
+        if T else torch.zeros((B,), dtype=py_grad.dtype, device=dev)
+    )
+    g0 = px_part + py_part + torch.where(at_end, ans_grad, 0.0)
+    return (g0 - ans_grad).abs()
+
+
+def mutual_information_recursion(
+    px: torch.Tensor,
+    py: torch.Tensor,
+    boundary: Optional[torch.Tensor] = None,
+    calc_gradients: bool = False,
+    debug_self_check: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+    """Mutual-information recursion between pairs of sequences, (B, S, T)-
+    major (the JAX package's public API; no ``impl`` argument: the port
+    dispatches on the tensor's device).
+
+    Args:
+      px: [B, S, T+1] (regular) or [B, S, T] (modified/constrained)
+        log-prob increments for extending the symbol sequence.
+      py: [B, S+1, T] log-prob increments for extending the frame sequence.
+      boundary: optional int [B, 4] rows [s_begin, t_begin, s_end, t_end];
+        defaults to [0, 0, S, T].
+      calc_gradients: also return the occupancies ``(px_grad, py_grad)``,
+        the gradients of ``scores.sum()`` w.r.t. (px, py), computed in the
+        same pass and reused by autograd.  The occupancy outputs are not
+        differentiable: only the scores propagate gradients.
+      debug_self_check: verify that the occupancy backward round-trips the
+        seed through the lattice origin and raise FloatingPointError if not.
+        Costs a backward pass when ``calc_gradients`` is False and reads a
+        value back to the host: a triage tool, not for hot loops.
+
+    Returns scores [B] (float32 for float32 and narrower storage), or
+    ``(scores, (px_grad, py_grad))`` if ``calc_gradients``.
+    """
+    B, S, T1 = px.shape
+    T = py.shape[2]
+    if tuple(py.shape) != (B, S + 1, T):
+        raise ValueError(f"py shape {tuple(py.shape)} != ({B}, {S + 1}, {T})")
+    if T1 not in (T, T + 1):
+        raise ValueError(f"px last dim {T1} must be T={T} or T+1={T + 1}")
+    if boundary is not None and tuple(boundary.shape) != (B, 4):
+        raise ValueError(f"boundary shape {tuple(boundary.shape)} != ({B}, 4)")
+    boundary = _normalize_boundary(boundary, B, S, T, device=px.device)
+    px_rows = px.movedim(1, 0).contiguous()
+    py_rows = py.movedim(1, 0).contiguous()
+    if not (calc_gradients or debug_self_check):
+        return mutual_information_rows(px_rows, py_rows, boundary)
+    scores, (gx_rows, gy_rows) = mutual_information_rows(
+        px_rows, py_rows, boundary, calc_gradients=True
+    )
+    px_grad, py_grad = gx_rows.movedim(0, 1), gy_rows.movedim(0, 1)
+    if debug_self_check:
+        err = occupancy_roundtrip_check(px_grad, py_grad, boundary, torch.ones_like(scores))
+        # tolerance keyed on storage precision: f64+ tight; fp32 occupancies
+        # of long lattices carry ~1e-3 of round-off; bf16/f16 storage the
+        # loosest (the JAX package's bounds, recursion.py:862-867)
+        bits = torch.finfo(px.dtype).bits
+        tol = 1e-8 if bits > 32 else (1e-2 if bits == 32 else 1e-1)
+        err = err.detach().float().cpu().numpy()
+        bad = ~(err <= tol)  # catches NaN too
+        if bad.any():
+            raise FloatingPointError(
+                "mutual_information_recursion debug_self_check failed: backward "
+                f"round-trip error {err.max()} > tol {tol} for utterances "
+                f"{np.nonzero(bad)[0].tolist()}: the occupancy backward is "
+                "inconsistent with the forward (numerical overflow or an "
+                "implementation bug)"
+            )
+    if calc_gradients:
+        return scores, (px_grad, py_grad)
+    return scores
 
 
 def cummin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

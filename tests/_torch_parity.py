@@ -14,6 +14,13 @@ with the tolerances stated here:
     (fast_rnnt_tpu/ops/kernels/latbuild.py:333);
   * pruning ranges: equal, or every differing window start a near-tie
     (ROADMAP Queue 3): window scores within 1e-3.
+  * occupancies stored in bfloat16 / float16 (the recursion computes in
+    float32 on both sides): atol 1e-5 and the lattice rtol plus one step
+    of the storage dtype (2^-7 relative for bf16, 2^-10 for f16), since
+    two float32 values within the lattice tolerance may round to
+    neighbouring steps (``storage_rtol``);
+  * bf16 losses against float32 losses: rtol 5e-2, atol 0.1, the JAX
+    package's own bf16 bound (tests/test_recursion.py:359-361).
 
 Tier-1 runs six test workers on eight cores, so torch is held to one
 thread.
@@ -28,6 +35,13 @@ LOSS_ATOL, LOSS_RTOL = 1e-4, 1e-5
 LAT_ATOL, LAT_RTOL = 1e-5, 1e-5
 SPLIT_ATOL, SPLIT_RTOL = 1e-4, 1e-4
 TIE_GAP = 1e-3
+BF16_LOSS_ATOL, BF16_LOSS_RTOL = 0.1, 5e-2
+
+
+def storage_rtol(dtype):
+    """Relative tolerance of occupancies stored in ``dtype``."""
+    step = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}.get(dtype, 0.0)
+    return LAT_RTOL + step
 
 
 def to_np(x):

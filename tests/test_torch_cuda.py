@@ -10,8 +10,9 @@ needs no JAX).
 chip_smoke.py compares every kernel with its plain version at small
 ragged shapes and at the headline shape, and drives the main path; the
 cases here are the ones it does not cover: random shapes, very long
-utterances, out-of-range symbols, the CUDA dtype and gradient rules, and
-the forward-only build's memory."""
+utterances (the fused kernel's too), out-of-range symbols, the storage
+dtypes at random shapes, the CUDA dtype, size and gradient rules, the fused
+kernel's launches in the recipe, and the forward-only build's memory."""
 
 import numpy as np
 import pytest
@@ -217,3 +218,114 @@ def test_wavefront_kernels_long_utterance(dev, modified):
     for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ones),
                     wavefront.backward_rows_plain(px, py, p_k, bnd, ones)):
         assert_close(a, b, 1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("modified", [False, True])
+def test_fused_kernel_long_utterance(dev, modified):
+    """T = 12000: the fused kernel keeps the split kernels' four rows of
+    shared memory, so it takes their longest utterances, and its p scratch
+    (13 rows of 12001 floats per utterance) round-trips through L2."""
+    px, py, bnd = from_numpy(*rows_inputs(10, B=2, S=12, T=12000, modified=modified), device=dev)
+    sc, gx, gy = wavefront.fused_rows(px, py, bnd)
+    p_k, s_k = wavefront.forward_rows(px, py, bnd)
+    ones = torch.ones(2, device=dev)
+    gx2, gy2 = wavefront.backward_rows(px, py, p_k, bnd, ones)
+    assert torch.equal(sc, s_k) and torch.equal(gx, gx2) and torch.equal(gy, gy2)
+    s_p, gx_p, gy_p = wavefront.fused_rows_plain(px, py, bnd)
+    assert_loss_close(sc, s_p)
+    assert_close(gx, gx_p, 1e-5, 1e-3)
+    assert_close(gy, gy_p, 1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("seed", range(3))
+def test_storage_dtypes_match_plain_on_random_shapes(dev, seed, dtype):
+    """bf16 / f16 storage in the split and fused kernels at random ragged
+    shapes: float32 p and scores, occupancies in the storage dtype within
+    one storage step of the plain version's."""
+    from ._torch_parity import storage_rtol
+
+    rng = np.random.default_rng(300 + seed)
+    B, S, T = int(rng.integers(1, 6)), int(rng.integers(0, 13)), int(rng.integers(1, 2200))
+    modified = bool(rng.integers(2))
+    px, py, bnd = rows_inputs(seed, B=B, S=S, T=T, modified=modified, offset=True)
+    K = int(rng.integers(1, S + 2)) if rng.integers(2) else 0
+    lo = band(seed, B, S, T, K) if K else None
+    px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
+    px, py = px.to(dtype), py.to(dtype)
+    rtol = 1e-4 + storage_rtol(dtype)
+    p_k, s_k = wavefront.forward_rows(px, py, bnd, lo, K)
+    p_p, s_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
+    assert p_k.dtype == torch.float32 and s_k.dtype == torch.float32
+    assert_loss_close(s_k, s_p)
+    assert_close(p_k, p_p, 1e-4, 1e-5)
+    ag = torch.rand(B, device=dev) + 0.5
+    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K),
+                    wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
+        assert a.dtype == dtype
+        assert_close(a, b, 1e-5, rtol)
+    # the fused plain version runs its own forward, whose p differs from the
+    # kernel's in the last bits: the long-utterance bound, 1e-3
+    out = wavefront.fused_rows(px, py, bnd, lo, K)
+    for a, b in zip(out, wavefront.fused_rows_plain(px, py, bnd, lo, K)):
+        assert_close(a, b, 1e-4, 1e-3 + storage_rtol(dtype))
+
+
+def test_recursion_dtype_and_size_rules_on_cuda(dev):
+    """float64 and mixed px/py dtypes raise TypeError in every recursion
+    wrapper; past the shared-memory limit the fused kernel raises
+    ValueError as the split kernels do, with no fallback."""
+    px, py, bnd = from_numpy(*rows_inputs(11, B=2, S=3, T=8), device=dev)
+    p, _ = wavefront.forward_rows(px, py, bnd)
+    ones = torch.ones(2, device=dev)
+    for x, y in ((px.double(), py.double()), (px, py.bfloat16()), (px.half(), py.bfloat16())):
+        with pytest.raises(TypeError):
+            wavefront.forward_rows(x, y, bnd)
+        with pytest.raises(TypeError):
+            wavefront.backward_rows(x, y, p, bnd, ones)
+        with pytest.raises(TypeError):
+            wavefront.fused_rows(x, y, bnd)
+    px, py, bnd = from_numpy(*rows_inputs(12, B=1, S=2, T=15000), device=dev)
+    for fn in (wavefront.forward_rows, wavefront.fused_rows):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(px, py, bnd)
+
+
+def test_fuse_switches_launch_the_fused_kernel(dev, monkeypatch):
+    """The recipe's stage 1 launches the fused kernel once and stage 2 the
+    split pair; with the scores op's switch set, stage 2 launches the fused
+    kernel too and neither split kernel, and the loss and gradients equal
+    the split stage 2's."""
+    from fast_rnnt_tpu_torch.ops import recursion as trec
+
+    am, lm, sym, b = from_numpy(*loss_inputs(13, B=3, T=60, S=8, C=16), device=dev)
+
+    def recipe():
+        am_l, lm_l = am.clone().requires_grad_(), lm.clone().requires_grad_()
+        s, (gx, gy) = ft.rnnt_loss_simple(lm_l, am_l, sym, 0, b, reduction="sum", calc_gradients=True)
+        r = ft.get_rnnt_prune_ranges(gx, gy, b, 3)
+        am_p, lm_p = ft.do_rnnt_pruning(am_l, lm_l, r)
+        loss = 0.5 * s + ft.rnnt_loss_pruned(am_p + lm_p, sym, r, 0, b, reduction="sum")
+        return (loss.detach(), *torch.autograd.grad(loss, (am_l, lm_l)))
+
+    before = dict(wavefront.LAUNCHES)
+    ref = recipe()
+    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {"fwd": 1, "bwd": 1, "fused": 1}
+    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
+    before = dict(wavefront.LAUNCHES)
+    got = recipe()
+    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {"fwd": 0, "bwd": 0, "fused": 2}
+    for a, w in zip(got, ref):
+        assert torch.equal(a, w)
+
+
+def test_rnnt_loss_bf16_logits_on_cuda(dev):
+    """bf16 full logits give a float32 px and a bf16 py: the recursion
+    stores both in float32 on the card, as on the CPU, with no TypeError."""
+    am, lm, sym, b = loss_inputs(14, B=2, T=30, S=5, C=12)
+    logits = torch.tensor(np.tanh(am[:, :, None, :] + lm[:, None, :, :]), dtype=torch.bfloat16)
+    sym_d, b_d = from_numpy(sym, b, device=dev)
+    got = ft.rnnt_loss(logits.to(dev), sym_d, 0, b_d, reduction="none")
+    sym_c, b_c = from_numpy(sym, b, device="cpu")
+    want = ft.rnnt_loss(logits, sym_c, 0, b_c, reduction="none")
+    assert_loss_close(got.cpu(), want)

@@ -9,6 +9,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 import fast_rnnt_tpu_torch as ft
 from fast_rnnt_tpu_torch.ops.kernels import _build, latbuild, ranges, wavefront
@@ -70,6 +72,27 @@ def test_cpu_training_launches_no_kernel():
         s, p, _ = loss_fn(tlm, tam, tt(sym), 0, 2, boundary=tt(bnd), reduction="sum")
         (0.5 * s + p).backward()
         assert tam.grad.isfinite().all() and tlm.grad.isfinite().all()
+    assert _all_launches() == before
+    assert _build._lib is None
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_cpu_recipe_launches_no_kernel(monkeypatch, fused):
+    """The real-joiner recipe and the full-logits loss on CPU tensors run
+    the plain versions only, with the scores op's fuse switch off and on."""
+    from fast_rnnt_tpu_torch.ops import recursion as trec
+
+    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", fused)
+    before = _all_launches()
+    am, lm, sym, bnd = tt(*loss_inputs(22, B=2, T=10, S=4, C=7))
+    am.requires_grad_(), lm.requires_grad_()
+    s, (gx, gy) = ft.rnnt_loss_simple(lm, am, sym, 0, bnd, reduction="sum", calc_gradients=True)
+    ranges = ft.get_rnnt_prune_ranges(gx, gy, bnd, 2)
+    am_p, lm_p = ft.do_rnnt_pruning(am, lm, ranges)
+    p = ft.rnnt_loss_pruned(torch.tanh(am_p + lm_p), sym, ranges, 0, bnd, reduction="sum")
+    full = ft.rnnt_loss(am[:, :, None, :] + lm[:, None, :, :], sym, 0, bnd, calc_gradients=True)[0]
+    (0.5 * s + p + full).backward()
+    assert am.grad.isfinite().all() and lm.grad.isfinite().all()
     assert _all_launches() == before
     assert _build._lib is None
 
