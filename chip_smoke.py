@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
 each kernel against its plain PyTorch version on the card (small ragged
-shapes, with the recursion kernels also in bfloat16 and float16 storage
-and the fused kernel also against the split pair; the golden
+shapes, with the recursion kernels also in bfloat16 and float16 storage,
+the build kernels also on bf16 lm and am, and the fused kernel also
+against the split pair; the golden
 path-enumeration vectors; the headline shape, with the fused kernel timed
 against the split pair), then drives these paths at B=30, T=1000, S=100,
 C=500, s_range=5, on inputs made exactly as ``bench.py`` makes them
@@ -18,6 +19,9 @@ after:
   * training: ``bench.py``'s step, the gradient of ``0.5*simple + pruned``
     w.r.t. (am, lm); the gradients agree with the plain recursion's
     occupancies fed through the plain build backward;
+  * the same step in the bf16-input mode (``bench.py``'s second row: bf16
+    am and lm, a bf16 lattice), held to the float32 step on the same
+    rounded inputs and ranges;
   * smoothed training: the same for ``rnnt_loss_smoothed_pruned``;
   * the real-joiner recipe (``rnnt_loss_simple`` with occupancies,
     ``get_rnnt_prune_ranges``, ``do_rnnt_pruning``, the joiner
@@ -60,8 +64,11 @@ B, T, S, C = 30, 1000, 100, 500
 S_RANGE = 5
 REPS = 10
 # the forward-only main path's peak device memory may not exceed the first
-# slice's 156.1 MiB by more than 1 MiB: it keeps no backward residual
+# slice's 156.1 MiB by more than 1 MiB, nor the memory allocated before it
+# (its inputs) by more than 60.7 MiB (59.7 measured since the lm side runs
+# in a kernel, + 1): it keeps no backward residual (D alone is 12 MB)
 FWD_PEAK_MIB = 157.1
+FWD_ABOVE_MIB = 60.7
 
 
 class Failed(Exception):
@@ -189,9 +196,11 @@ def worst(*errs):
 GRAD_TOL = 1e-4
 
 
-def grad_err(got, want, name, tol=GRAD_TOL):
+def grad_err(got, want, name, tol=GRAD_TOL, step=0.0):
     """(max abs err, max abs err / max |want|); fails above ``tol`` or on a
-    non-finite value."""
+    non-finite value.  With ``step``, each element may differ by ``step``
+    of its |want| more (an output rounded to a narrow dtype), and the
+    second number is the largest excess over that, over max |want|."""
     import torch
 
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
@@ -200,8 +209,9 @@ def grad_err(got, want, name, tol=GRAD_TOL):
         raise Failed(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if want.numel() == 0:
         return 0.0, 0.0
-    err = (got.double() - want.double()).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item()
+    rel = (diff - step * want.double().abs()).max().item() / max(want.abs().max().item(), 1e-30)
     if rel > tol:
         raise Failed(f"{name}: max abs err {err:.3e} is {rel:.3e} of max |plain| > {tol}")
     return err, rel
@@ -239,23 +249,36 @@ TRAIN_GRAD_TOL = 1e-2
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # fp32 FMA pipes, outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # tensor cores, dense
+BF16_FLOP_PER_S = 989e12
 
 
-def bound(nbytes, nflops):
+def bound(nbytes, nflops, rate=FP32_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the least time the card could take, the
-    larger of the bytes over the memory rate and the fp32 operations over
-    the fp32 peak."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOP_PER_S * 1e3
+    larger of the bytes over the memory rate and the operations over their
+    peak rate (fp32 FMAs unless ``rate`` says otherwise)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, nflops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def kernel_bounds(bnd):
+def kernel_bounds(bnd, build_rate=3, esize=4):
     """Bound of each kernel at this run's headline inputs: each input read
     once, each output written once, fp32 (4 bytes).  The build kernels need
-    every frame; the recursion and ranges kernels read only the cells inside
-    each utterance's boundary (s <= s_end, t <= t_end), and their per-cell
-    operation counts are taken from the code (log-add: 7, occupancy: 10,
-    window sum: 2)."""
+    every frame; their products run on the tensor cores, float32 operands
+    as three TF32 passes (``build_rate=3``, at the TF32 peak), bf16 operands
+    as one pass at the bf16 peak (``build_rate=1``, ``esize=2``: am and lm
+    read as bf16); ``build_rate=0`` gives the fp32-FMA bound of the earlier
+    design, for comparison.  The recursion and ranges kernels read only the
+    cells inside each utterance's boundary (s <= s_end, t <= t_end), and
+    their per-cell operation counts are taken from the code (log-add: 7,
+    occupancy: 10, window sum: 2)."""
+    if build_rate == 0:
+        mm = dict(rate=FP32_FLOP_PER_S)
+    elif esize == 2:
+        mm = dict(rate=BF16_FLOP_PER_S / build_rate)
+    else:
+        mm = dict(rate=TF32_FLOP_PER_S / build_rate)
+    x = esize / 4  # am and lm (and d_am, d_lm) bytes per element, over 4
     se = bnd[:, 2].double() - bnd[:, 0].double()
     te = bnd[:, 3].double() - bnd[:, 1].double()
     npx = float((se * (te + 1)).sum())
@@ -265,7 +288,7 @@ def kernel_bounds(bnd):
     am, lm, sym = B * T * C, B * (S + 1) * C, B * S
     gemm = 2 * B * T * (S + 1) * C
     return {
-        "latbuild_fwd": bound(4 * (am + lm + sym + B + px + py), gemm),
+        "latbuild_fwd": bound(4 * (x * (am + lm) + sym + B + px + py), gemm, **mm),
         "wavefront_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
         "wavefront_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
         # fwd + bwd with p kept in scratch: px, py and the boundary in, the
@@ -274,28 +297,52 @@ def kernel_bounds(bnd):
         "ranges": bound(4 * (npx + npy + 4 * B + B * T), 2 * npy),
         # inputs lm, am, symbols, t_end, the residuals D and amax, dpx, dpy;
         # outputs d_am, d_lm
-        "latbuild_bwd": bound(4 * (lm + am + sym + B + py + B * T + px + py + am + lm), 2 * gemm),
+        "latbuild_bwd": bound(4 * (x * (lm + am) + sym + B + py + B * T + px + py + x * (am + lm)),
+                              2 * gemm, **mm),
         "latbuild_fwd_parts": bound(4 * (am + lm + sym + B + C + px + 2 * py),
-                                    gemm + 2 * B * T * C),
+                                    gemm + 2 * B * T * C, **mm),
         # + uni, the residual duni and dnd in, d_uni out
         "latbuild_bwd_parts": bound(4 * (lm + am + sym + B + C + py + 2 * B * T + px + 2 * py
                                          + am + lm + C),
-                                    2 * 2 * B * T * (S + 2) * C),
+                                    2 * 2 * B * T * (S + 2) * C, **mm),
     }
 
 
-def build_checks(dev, rng, bnd, Sc, Tc, modified, offset):
+# the bf16 build backward against its plain version, lattice_rows_bwd_plain
+# on the same bf16 exps with everything after them float32 (the kernels'
+# contract; the plain build's own autograd in bf16 rounds each VJP step and
+# scatters with atomics, so it is neither exact nor repeatable): the kernel
+# splits w into two bf16 parts (~2^-17), so a float32 output is held to
+# BF16_CONTRACT_TOL of max and one written in bf16 to that plus one bf16
+# step (2^-7) of each element.  The sound kernel measured 2.9e-7 of max at
+# the headline shape on an H100; one that truncates w to a single bf16 part fails at
+# 1.1e-3 (d_lm, kernels-small).
+BF16_CONTRACT_TOL = 1e-5
+
+
+def bf16_contract_err(got, want, name):
+    """The bf16 build backward's (d_lm, d_am) against the plain VJP's."""
+    import torch
+
+    return worst(*(grad_err(g.float(), w, f"{name} {n}", BF16_CONTRACT_TOL,
+                            2.0**-7 if g.dtype == torch.bfloat16 else 0.0)
+                   for g, w, n in zip(got, want, ("d_lm", "d_am"))))
+
+
+def build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc):
     """The build kernels at a small ragged shape against their plain
     versions: the forward with its residuals, the backward through the
     autograd route for every rnnt_type (random cotangents, also on the -inf
-    columns, which both sides drop), and the smoothed build's forward and
-    backward.  A random blank; with ``offset`` out-of-range symbols.
+    columns, which both sides drop), the smoothed build's forward and
+    backward, and the plain build's forward and backward on bf16 lm and am.
+    A random blank; with ``offset`` out-of-range symbols; ``Cc`` = 17 reads
+    am from device memory, 32 stages whole am rows in shared memory.
     Returns {kernel: max abs err}."""
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import latbuild
 
-    Bc, Cc = bnd.shape[0], 17
+    Bc = bnd.shape[0]
     lm = torch.randn(Bc, Sc + 1, Cc, device=dev)
     am = torch.randn(Bc, Tc, Cc, device=dev) * 2
     sym = torch.randint(1, Cc, (Bc, Sc), device=dev, dtype=torch.int32)
@@ -343,6 +390,26 @@ def build_checks(dev, rng, bnd, Sc, Tc, modified, offset):
     err["latbuild_bwd_parts"] = max(
         grad_err(a, b, f"parts bwd {n}")[0] for a, b, n in zip(g_k, g_p, ("d_lm", "d_am", "d_uni"))
     )
+
+    # bf16 lm and am: the kernel rounds the exps as its plain version does,
+    # and their products are exact in float32
+    lm16, am16 = lm.bfloat16(), am.bfloat16()
+    px_k, py_k = latbuild.lattice_rows(lm16, am16, sym, blank, rt, bnd)
+    px_p, py_p = latbuild.lattice_rows_plain(lm16, am16, sym, blank, rt, bnd)
+    err["latbuild_fwd/bfloat16"] = max(finite_err(px_k, px_p, "bf16 build px", 1e-4, 1e-5)[0],
+                                       finite_err(py_k, py_p, "bf16 build py", 1e-4, 1e-5)[0])
+    # the backward: the kernel's float32 d_lm, and both gradients through the
+    # autograd route (in bf16), against the plain VJP
+    want = latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, blank, modified)
+    *_, res16 = latbuild.build_fwd(lm16, am16, sym, te, blank, modified, save=True)
+    e = [bf16_contract_err(latbuild.build_bwd(lm16, am16, sym, te, blank, modified, res16, dpx, dpy),
+                           want, "bf16 build bwd")[0]]
+    lm_l, am_l = lm16.clone().requires_grad_(), am16.clone().requires_grad_()
+    g = torch.autograd.grad(latbuild.lattice_rows(lm_l, am_l, sym, blank, rt, bnd), [lm_l, am_l], [dpx, dpy])
+    if g[0].dtype != torch.bfloat16 or g[1].dtype != torch.bfloat16:
+        raise Failed(f"bf16 build bwd: gradient dtypes {g[0].dtype} {g[1].dtype}")
+    e.append(bf16_contract_err(g, want, "bf16 build bwd (autograd)")[0])
+    err["latbuild_bwd/bfloat16"] = max(e)
     return err
 
 
@@ -561,6 +628,33 @@ def headline_kernels(am, lm, sym, bnd):
     )
     del g_k, g_p, res
 
+    # bf16 lm and am (the JAX package's bf16 mode): each build kernel against
+    # its plain version (the backward: the plain build's autograd in bf16),
+    # timed beside it and beside the same library calls on bf16 operands
+    lm16, am16 = lm.bfloat16(), am.bfloat16()
+    e16 = worst(*(finite_err(a, b, f"headline bf16 build {n}", 1e-4, 1e-5) for a, b, n in zip(
+        latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd),
+        latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd), ("px", "py"))))
+    lmp16, amp16, w16 = lmp.bfloat16(), amp.bfloat16(), w.bfloat16()
+    report["latbuild_fwd"]["bf16"] = dict(
+        err=e16[0], tol="1e-4 + 1e-5|x|",
+        ms=cuda_ms(lambda: latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd)),
+        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd)),
+        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp16, amp16)),
+    )
+    _, _, _, res16 = latbuild.build_fwd(lm16, am16, sym, te, 0, False, save=True)
+    e16 = bf16_contract_err(latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy),
+                            latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False),
+                            "headline bf16 build bwd")
+    report["latbuild_bwd"]["bf16"] = dict(
+        err=e16[0], tol=f"{BF16_CONTRACT_TOL} of max |plain| (d_am + one bf16 step), measured "
+                        f"{e16[1]:.3e}",
+        ms=cuda_ms(lambda: latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy)),
+        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False)),
+        library_ms=cuda_ms(lambda: (torch.bmm(w16.transpose(1, 2), lmp16), torch.bmm(w16, amp16))),
+    )
+    del res16, lm16, am16, lmp16, amp16, w16
+
     # the smoothed build, forward and backward, with the unigram LM that
     # lattice_rows_smoothed makes
     uni = (lmp / lmp.sum(2, keepdim=True)).mean((0, 1)) + float(np.finfo(np.float32).tiny)
@@ -729,6 +823,7 @@ def main():
         get_rnnt_prune_ranges,
         rnnt_loss,
         rnnt_loss_pruned,
+        rnnt_loss_pruned_simple,
         rnnt_loss_simple,
         rnnt_loss_simple_pruned,
         rnnt_loss_smoothed_pruned,
@@ -781,8 +876,9 @@ def main():
             st_k = ranges.window_starts(gy_k, gx_k, Kr, bnd, step)
             st_p = ranges.window_starts_plain(gy_k, gx_k, Kr, bnd, step)
             range_flips(st_k, st_p, _window_scores(gx_k, gy_k, Kr), "ranges (small)")
-        for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset).items():
-            small[name] = max(small.get(name, 0.0), err)
+        for Cc in (17, 32):
+            for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc).items():
+                small[name] = max(small.get(name, 0.0), err)
     # the recursion kernels in every storage dtype, and the fused kernel
     # against the split pair, on fresh draws of every case and on the
     # constrained lattice (banded and not)
@@ -798,7 +894,9 @@ def main():
           f"recursion kernels also in bfloat16 and float16 storage; max abs err {json.dumps(small)} "
           f"(tol: lattices 1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x| (fused against its plain version, "
           f"which runs its own forward: 1e-5 + 1e-3|x|), in bf16/f16 storage plus one step of it, build "
-          f"gradients {GRAD_TOL} of max |plain|, ranges flips near-ties); fused vs "
+          f"gradients {GRAD_TOL} of max |plain| (bf16 inputs {BF16_CONTRACT_TOL}, a bf16 output plus one "
+          f"bf16 step), ranges flips "
+          f"near-ties); fused vs "
           f"split pair max abs diff {vs_split:.3e} over {len(cases) + 2} cases")
 
     # golden path-enumeration vectors (float64 enumeration, tests/golden)
@@ -828,7 +926,23 @@ def main():
     am_np, lm_np, sym_np, bnd_np = make_inputs(seed=0)
     am, lm, sym, bnd = t(am_np, lm_np, sym_np, bnd_np)
     report, n_flip, cons = headline_kernels(am, lm, sym, bnd)
+    # the library yardsticks' cuBLAS workspaces (32 MiB for the float32
+    # calls, 32 more for the bf16 ones) stay allocated: freed here, they are
+    # no part of the paths' memory (the first slice's 156.1 MiB peak counted
+    # the float32 one; FWD_ABOVE_MIB holds the forward without them)
+    torch._C._cuda_clearCublasWorkspaces()
     bounds = kernel_bounds(bnd)  # of the inputs the kernels were timed on
+    fp32_bounds, bf16_bounds = kernel_bounds(bnd, 0), kernel_bounds(bnd, 1, 2)
+    for name in ("latbuild_fwd", "latbuild_bwd", "latbuild_fwd_parts", "latbuild_bwd_parts"):
+        v = report[name]
+        v["note"] = (f"(bound {bounds[name][0]:.4f} ms by {bounds[name][1]} in 3xTF32; with fp32 FMAs "
+                     f"{fp32_bounds[name][0]:.4f} ms")
+        if "bf16" in v:
+            x = v.pop("bf16")
+            v["note"] += (f"; bf16 lm and am: kernel {x['ms']:.4f} ms plain {x['plain_ms']:.4f} ms library "
+                          f"{x['library_ms']:.4f} ms bound {bf16_bounds[name][0]:.4f} ms by "
+                          f"{bf16_bounds[name][1]}, max abs err {x['err']:.3e} (tol {x['tol']})")
+        v["note"] += ")"
     phase("kernels-headline", f"B={B} T={T} S={S} C={C}: " + "; ".join(
         f"{k} max abs err {v['err']:.3e} rel {v['rel']:.3e} (tol {v['tol']}) "
         f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
@@ -886,8 +1000,10 @@ def main():
     )
     same_fwd = arm_diff(out_x, (simple, pruned, rng_k), "main path (split arm)")
     del out_x
-    if peak_mb > FWD_PEAK_MIB:
-        raise Failed(f"forward-only peak {peak_mb:.1f} MiB > {FWD_PEAK_MIB} MiB: a residual was kept")
+    if peak_mb > FWD_PEAK_MIB or peak_mb - base_mb > FWD_ABOVE_MIB:
+        raise Failed(f"forward-only peak {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above what was "
+                     f"allocated before it) > {FWD_PEAK_MIB} MiB or {FWD_ABOVE_MIB} MiB above: a residual "
+                     "was kept")
     if simple.shape != (B,) or pruned.shape != (B,) or tuple(rng_k.shape) != (B, T, S_RANGE):
         raise Failed(f"shapes {simple.shape} {pruned.shape} {tuple(rng_k.shape)}")
     if not (torch.isfinite(simple).all() and torch.isfinite(pruned).all()):
@@ -932,7 +1048,8 @@ def main():
           f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
           f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); step {step_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_ms:.1f} ms); peak "
-          f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs; bound {FWD_PEAK_MIB}); "
+          f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs; bounds {FWD_PEAK_MIB}, "
+          f"{FWD_ABOVE_MIB} above); "
           f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; split arm {same_fwd}, peak "
           f"{peak_x:.1f} MiB ({peak_x - base_x:.1f} MiB above what was allocated before it); in turns (split, shipped, shipped, split) "
           + ", ".join(f"{x:.4f}" for x in ab_fwd) + " ms")
@@ -982,6 +1099,62 @@ def main():
           f"split arm {same_train}, peak {peak_tx:.1f} MiB ({peak_tx - base_tx:.1f} MiB above what was "
           f"allocated before it); in turns (split, shipped, shipped, split) "
           + ", ".join(f"{x:.4f}" for x in ab_train) + " ms")
+
+    # the bf16-input mode (bench.py's second row, the JAX package's "production
+    # mixed precision"): bf16 am and lm, a bf16 lattice; held to the float32
+    # training step on the same bf16-rounded inputs.  The loss gap of a sound
+    # run is 1.5e-5 relative (three runs on an H100); a bf16 lattice cast
+    # that truncates in place of rounding is the fault the limit is set
+    # against.  The gradients carry the bf16 occupancies' round-off (~1.1e-2
+    # of max, as recipe-train-bf16's); the build backward's own precision is
+    # held by BF16_CONTRACT_TOL.
+    TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_TOL = 1e-4, 3e-2
+    am16_g, lm16_g = am.bfloat16().requires_grad_(), lm.bfloat16().requires_grad_()
+
+    def train_step_bf16():
+        s, p, r = rnnt_loss_simple_pruned(lm16_g, am16_g, sym, 0, S_RANGE, bnd, reduction="sum",
+                                          lattice_dtype=torch.bfloat16)
+        loss = 0.5 * s + p
+        return (loss.detach(), *torch.autograd.grad(loss, (am16_g, lm16_g)), r)
+
+    (loss_b, *g_b, r_b), launches_b, first_b, peak_b, base_b = counted(
+        train_step_bf16, "train-bf16",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+         "wavefront_bwd": 1, "ranges": 1},
+    )
+    if g_b[0].dtype != torch.bfloat16 or g_b[1].dtype != torch.bfloat16:
+        raise Failed(f"train-bf16: gradient dtypes {g_b[0].dtype} {g_b[1].dtype}")
+    # the float32 reference prunes with the bf16 step's ranges: where bf16
+    # occupancies move a window start (a near-tie), the pruned gradient moves
+    # with it, by O(1), and that is no precision loss of the step
+    am_r, lm_r = am16_g.detach().float().requires_grad_(), lm16_g.detach().float().requires_grad_()
+    r_own = rnnt_loss_simple_pruned(lm_r.detach(), am_r.detach(), sym, 0, S_RANGE, bnd, reduction="sum")[2]
+    n_moved = int((r_own != r_b).any(2).sum())
+    s_r = rnnt_loss_simple(lm_r, am_r, sym, 0, bnd, reduction="sum")
+    p_r = rnnt_loss_pruned_simple(lm_r, am_r, sym, r_b, 0, bnd, reduction="sum")
+    loss_r = 0.5 * s_r + p_r
+    g_r = torch.autograd.grad(loss_r, (am_r, lm_r))
+    rel_b = ((loss_b - loss_r).abs() / loss_r.abs()).item()
+    if not (torch.isfinite(loss_b) and rel_b <= TRAIN_BF16_LOSS_RTOL):
+        raise Failed(f"train-bf16: loss {loss_b.item()} vs float32 {loss_r.item()}: rel {rel_b:.3e}")
+    g_gap = worst(*(grad_err(a.float(), b, f"train-bf16 {n}", TRAIN_BF16_GRAD_TOL)
+                    for a, b, n in zip(g_b, g_r, ("d_am", "d_lm"))))
+    # the bf16 build kernel against its plain version on these inputs
+    lm16, am16 = lm16_g.detach(), am16_g.detach()
+    e_b = worst(*(finite_err(a, b, f"train-bf16 build {n}", 1e-4, 1e-5) for a, b, n in zip(
+        latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd),
+        latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd), ("px", "py"))))
+    del g_b, g_r, am_r, lm_r, lm16, am16
+    train_bf16_ms = cuda_ms(train_step_bf16)
+    phase("train-bf16", f"grad of 0.5*simple + pruned w.r.t. bf16 (am, lm), lattice_dtype bf16, B={B} T={T} "
+          f"S={S} C={C} s_range={S_RANGE}: launches {json.dumps(launches_b)}; loss {loss_b.item():.3f} vs "
+          f"float32 on the rounded inputs (pruned with these ranges; its own move {n_moved} frames) "
+          f"{loss_r.item():.3f}: rel {rel_b:.3e} (tol {TRAIN_BF16_LOSS_RTOL}); "
+          f"gradients (bf16) max abs diff {g_gap[0]:.3e} ({g_gap[1]:.3e} of max, tol {TRAIN_BF16_GRAD_TOL}); "
+          f"bf16 build vs plain max abs err {e_b[0]:.3e} (tol 1e-4 + 1e-5|x|); step {train_bf16_ms:.4f} ms "
+          f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
+    del loss_r, s_r, p_r
 
     # smoothed training: rnnt_loss_smoothed_pruned, default scales
     def smoothed_step():
@@ -1147,7 +1320,8 @@ def main():
     del joint
 
     # --- 5. where the steps' time goes (measurements) ----------------------
-    for name, fn in (("forward", step), ("train", train_step), ("smoothed-train", smoothed_step),
+    for name, fn in (("forward", step), ("train", train_step), ("train-bf16", train_step_bf16),
+                     ("smoothed-train", smoothed_step),
                      ("recipe-train", recipe_step), ("recipe-train (vjp arm)", armed("vjp", recipe_step))):
         prof = profile_step(fn)
         if prof is None:

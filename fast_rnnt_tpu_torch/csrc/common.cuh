@@ -1,5 +1,6 @@
 // Shared device helpers of the lattice kernels: -inf-safe log-add, the
-// safe exp of the occupancy backward, and a block-wide inclusive scan.
+// safe exp of the occupancy backward, a warp sum and a block-wide
+// inclusive scan.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,37 +41,6 @@ struct LinOp {
     return {l.a * r.a, fmaf(l.b, r.a, r.b)};
   }
 };
-
-// Register-tiled fp32 GEMM step of the lattice-build kernels: 256 threads
-// as 16 x 16, each owning a 4 x 4 tile of a 64 x 64 block output.  The
-// operands are staged K-major in shared memory, A[k][m] and B[k][n], rows
-// padded by kGemmPad floats so that each thread reads 4 consecutive m and
-// 4 consecutive n as two float4s, each feeding 16 FMAs.  Plain fp32 FMAs:
-// no TF32, no library GEMM.
-constexpr int kGemmM = 64;      // block rows
-constexpr int kGemmN = 64;      // block columns
-constexpr int kGemmK = 16;      // depth per staged step
-constexpr int kGemmPad = 4;     // row padding of the staged tiles (keeps float4 alignment)
-constexpr int kGemmThreads = 256;
-
-using GemmTileA = float[kGemmK][kGemmM + kGemmPad];
-using GemmTileB = float[kGemmK][kGemmN + kGemmPad];
-
-// acc[i][j] += sum_k A[k][ty*4 + i] * B[k][tx*4 + j] over one staged step.
-__device__ __forceinline__ void gemm_tile_step(const GemmTileA& As, const GemmTileB& Bs,
-                                               float (&acc)[4][4], int tx, int ty) {
-#pragma unroll
-  for (int k = 0; k < kGemmK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    const float4 v = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
 
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float warp_sum(float v) {

@@ -46,12 +46,15 @@ _SIGNATURES = {
     # px, py, boundary, lo, K, S, B, T, modified, p (scratch), scores, pxg,
     # pyg, threads, dtype, stream
     "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],
-    # lmp, pxlm, pylm, lmmax, symbols, te, am, uni, B, S, T, C, blank,
-    # modified, px, py, nd, d, amax, duni, stream
-    "frt_latbuild_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P],
+    # lm, symbols, te, am, uni, B, S, T, C, blank, modified, bf16, side,
+    # img_hi, img_lo, px, py, nd, d, amax, duni, stream
+    "frt_latbuild_fwd": [P] * 5 + [I] * 7 + [P] * 10,
     # lmp, symbols, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-    # modified, w, colsum, rsx, rsy, d_am, d_lm, duni_part, stream
-    "frt_latbuild_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, P],
+    # modified, bf16, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx,
+    # rsy, d_am, d_lm, duni_part, stream
+    "frt_latbuild_bwd": [P] * 10 + [I] * 7 + [P] * 12,
+    # B, S, T, C, bf16, smoothed, out (int64[5])
+    "frt_latbuild_sizes": [I] * 6 + [P],
     # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, out, threads, stream
     "frt_ranges": [P, P, P, I, I, I, I, I, I, P, I, P],
 }

@@ -6,21 +6,29 @@ versions.
 Replaces the Pallas TPU kernels ``fast_rnnt_tpu/ops/kernels/latbuild.py``
 ``_build_fwd_kernel`` (:207) and ``_build_bwd_kernel`` (:290), each with
 ``parts=False`` (entry ``lattice_rows_fused`` :713) and ``parts=True``
-(entry ``lattice_rows_fused_smoothed`` :968).  As there, the small
-lm-side work (``_lm_parts``, the unigram statistics, the three-way
-interpolation of the smoothed lattice) is plain tensor work outside the
-kernels, and the constrained variant is composed in plain torch: build
-"modified", add ``py[1:]`` to px.
+(entry ``lattice_rows_fused_smoothed`` :968).  As there, the unigram
+statistics and the three-way interpolation of the smoothed lattice are
+plain tensor work outside the kernels, and the constrained variant is
+composed in plain torch: build "modified", add ``py[1:]`` to px.
 
 A CPU tensor runs the plain versions, which are ordinary differentiable
 torch.  A CUDA tensor runs the kernels: the forward writes the backward's
 residuals (the normalizer denominator D, the frame maxima and, smoothed,
 the unigram denominator) only when autograd needs a gradient, and the
 backward launches the VJP kernels on them.
+
+The kernels take float32 lm and am (products in 3xTF32 on the tensor
+cores, see ``csrc/wgmma.cuh``), or bf16 lm and am for the plain build
+(bf16 products, float32 sums), the JAX package's bf16 mode: px and py come
+out float32, the gradients in the inputs' dtypes.  In that mode the
+backward keeps the forward's float32 residual D (the JAX package
+recomputes it).  The smoothed build takes float32 only.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -58,20 +66,24 @@ LAUNCHES = {"fwd": 0, "bwd": 0, "fwd_parts": 0, "bwd_parts": 0}
 lattice_rows_plain = _build_rows_plain
 lattice_rows_smoothed_plain = _build_smoothed_rows_plain
 
-_PREP_FRAMES = 128  # frames per block of the backward's prep pass (latbuild_bwd.cu)
+_KINDS = (torch.float32, torch.bfloat16)
 
 
-def _lm_parts(lm: torch.Tensor, symbols: torch.Tensor, blank: int):
-    """lm softmax parts and per-(b, s) gathers, B-major (the kernel's side
-    inputs): lmmax (B, S+1), lmp (B, S+1, C), pxlm (B, S), pylm (B, S+1)."""
-    lm32 = lm.float()
-    lmmax = lm32.amax(dim=2).detach()
-    lmp = torch.exp(lm32 - lmmax[:, :, None])
-    S = symbols.shape[1]
-    sym, valid = _symbol_index(symbols, lm.shape[2])
-    pxlm = torch.where(valid, torch.gather(lm32[:, :S, :], 2, sym[:, :, None])[:, :, 0], 0.0)
-    pylm = lm32[:, :, blank]
-    return lmmax.contiguous(), lmp.contiguous(), pxlm.contiguous(), pylm.contiguous()
+@functools.lru_cache(maxsize=64)
+def _scratch_sizes(B: int, S: int, T: int, C: int, bf16: bool, smoothed: bool):
+    """Scratch of the build kernels, from ``frt_latbuild_sizes``: bytes of
+    each part of the forward's lmp image, floats of wT, bytes of each part
+    of the w and lmp^T images, the number P of row-sum partials."""
+    out = (ctypes.c_longlong * 5)()
+    _build.load_library().frt_latbuild_sizes(B, S, T, C, int(bf16), int(smoothed), out)
+    return tuple(int(x) for x in out)
+
+
+def _lm_probs(lm: torch.Tensor) -> torch.Tensor:
+    """lmp = exp(lm - lmmax) (B, S+1, C) in lm's dtype, the backward's lm
+    operand.  For bf16 lm, in bf16 arithmetic, rounded as the plain build's
+    (and the JAX XLA build's) exps are."""
+    return torch.exp(lm - lm.amax(dim=2, keepdim=True).detach())
 
 
 def _check_inputs(lm, am, symbols, te_fix, blank, uni=None):
@@ -80,9 +92,11 @@ def _check_inputs(lm, am, symbols, te_fix, blank, uni=None):
     B, T, C = am.shape
     S = lm.shape[1] - 1
     dev = am.device
-    for name, x in (("lm", lm), ("am", am), ("uni", uni)):
-        if x is not None and (x.device != dev or x.dtype != torch.float32):
-            raise TypeError(f"{name} must be float32 on {dev}, got {x.dtype} on {x.device}")
+    if am.dtype not in _KINDS or lm.dtype != am.dtype or lm.device != dev:
+        raise TypeError(f"lm and am must both be float32 or both bfloat16 on {dev}, got "
+                        f"{lm.dtype} on {lm.device} and {am.dtype}")
+    if uni is not None and (uni.dtype != torch.float32 or am.dtype != torch.float32 or uni.device != dev):
+        raise TypeError(f"the smoothed build takes float32 lm, am and uni on {dev}")
     if tuple(lm.shape) != (B, S + 1, C):
         raise ValueError(f"lm {tuple(lm.shape)} must be ({B}, S+1, {C})")
     if tuple(symbols.shape) != (B, S) or symbols.device != dev:
@@ -116,7 +130,6 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
     dev = am.device
     am = am.contiguous()
     sym = symbols.to(torch.int32).contiguous()
-    lmmax, lmp, pxlm, pylm = _lm_parts(lm, sym, blank)
     f32 = dict(dtype=torch.float32, device=dev)
     px = torch.empty((S, B, T if modified else T + 1), **f32)
     py = torch.empty((S + 1, B, T), **f32)
@@ -128,12 +141,18 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
     if B == 0:
         return px, py, nd, res
     d, amax, duni = res if save else (None, None, None)
+    bf16 = am.dtype == torch.bfloat16
     lib = _build.load_library()
     p = _build.ptr
+    # the lm side (lmmax, pylm, pxlm) and exp(lm - lmmax) as the products' B
+    # operand, in the wgmma layout (csrc/wgmma.cuh), both made by the kernel
+    nbytes = _scratch_sizes(B, S, T, C, bf16, False)[0]
+    side = torch.empty(3 * B * (S + 1), **f32)
+    img_hi = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    img_lo = None if bf16 else torch.empty_like(img_hi)
     err = lib.frt_latbuild_fwd(
-        p(lmp), p(pxlm), p(pylm), p(lmmax), p(sym), p(te_fix), p(am),
-        p(None if uni is None else uni.contiguous()),
-        B, S, T, C, int(blank), int(modified),
+        p(lm.contiguous()), p(sym), p(te_fix), p(am), p(None if uni is None else uni.contiguous()),
+        B, S, T, C, int(blank), int(modified), int(bf16), p(side), p(img_hi), p(img_lo),
         p(px), p(py), p(nd), p(d), p(amax), p(duni), _build.stream_ptr(dev),
     )
     _build.check(err, "latbuild_fwd")
@@ -144,8 +163,10 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
 def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
               uni=None, dnd=None):
     """Launch the VJP kernels on the forward's ``residuals``.  Returns
-    ``(d_lm (B, S+1, C), d_am (B, T, C), d_uni (C,) or None)``; ``uni`` and
-    ``dnd`` together select the smoothed build's backward."""
+    ``(d_lm (B, S+1, C) float32, d_am (B, T, C) in am's dtype, d_uni (C,) or
+    None)``: d_lm as the kernel sums it (the autograd route casts it to lm's
+    dtype); ``uni`` and ``dnd`` together select the smoothed build's
+    backward."""
     if (uni is None) != (dnd is None):
         raise ValueError("uni and dnd go together (the smoothed build's backward)")
     B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
@@ -159,29 +180,34 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         dnd = _check_cotangent("dnd", dnd, (S + 1, B, T), dev)
         duni = _check_cotangent("duni", duni, (B, T), dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    d_am = torch.empty((B, T, C), **f32)
+    bf16 = am.dtype == torch.bfloat16
+    d_am = torch.empty((B, T, C), dtype=am.dtype, device=dev)
     d_lm = torch.empty((B, S + 1, C), **f32)
     d_uni_part = torch.zeros((B, C), **f32) if uni is not None else None
     if B == 0 or T == 0:
         d_lm.zero_()
     else:
         sym = symbols.to(torch.int32).contiguous()
-        _, lmp, _, _ = _lm_parts(lm, sym, blank)
-        if uni is not None:  # the unigram row S+1 of both GEMMs
-            lmp = torch.cat([lmp, uni.expand(B, 1, C)], dim=1).contiguous()
-        S1x = lmp.shape[1]
-        P = 4 * -(-T // _PREP_FRAMES)  # one row-sum partial per warp of the prep pass
-        w = torch.empty((B, S1x, T), **f32)
+        lmp = _lm_probs(lm)
+        if uni is not None:  # the unigram row S+1 of both products
+            lmp = torch.cat([lmp, uni.expand(B, 1, C)], dim=1)
+        lmp = lmp.contiguous()
+        lib = _build.load_library()
+        p = _build.ptr
+        _, n_wT, w_bytes, l_bytes, P = _scratch_sizes(B, S, T, C, bf16, uni is not None)
+        u8 = dict(dtype=torch.uint8, device=dev)
+        wT = torch.empty(n_wT, **f32)
+        wimg_hi, wimg_lo = torch.empty(w_bytes, **u8), torch.empty(w_bytes, **u8)
+        limg_hi = torch.empty(l_bytes, **u8)
+        limg_lo = None if bf16 else torch.empty(l_bytes, **u8)
         colsum = torch.empty((B, T), **f32)
         rsx = torch.empty((B, P, S + 1), **f32)
         rsy = torch.empty((B, P, S + 1), **f32)
-        lib = _build.load_library()
-        p = _build.ptr
         err = lib.frt_latbuild_bwd(
             p(lmp), p(sym), p(te_fix), p(am.contiguous()), p(amax), p(d), p(duni),
-            p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified),
-            p(w), p(colsum), p(rsx), p(rsy), p(d_am), p(d_lm), p(d_uni_part),
-            _build.stream_ptr(dev),
+            p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified), int(bf16),
+            p(wT), p(wimg_hi), p(wimg_lo), p(limg_hi), p(limg_lo), p(colsum), p(rsx), p(rsy),
+            p(d_am), p(d_lm), p(d_uni_part), _build.stream_ptr(dev),
         )
         _build.check(err, "latbuild_bwd")
         LAUNCHES["bwd" if uni is None else "bwd_parts"] += 1
@@ -206,7 +232,7 @@ class _BuildFn(torch.autograd.Function):
         d_lm, d_am, _ = build_bwd(
             lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy
         )
-        return d_lm, d_am, None, None, None, None
+        return d_lm.to(lm.dtype), d_am, None, None, None, None
 
 
 class _BuildPartsFn(torch.autograd.Function):
@@ -281,16 +307,21 @@ def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified:
 def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modified: bool,
                            uni=None, dnd=None):
     """The plain version of the VJP kernels, the formulas of
-    ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``
-    for cotangents (dpx, dpy) and, with the smoothed build's unigram row,
-    ``uni`` and dnd."""
+    ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``,
+    float32, for cotangents (dpx, dpy) and, with the smoothed build's
+    unigram row, ``uni`` and dnd.  For bf16 lm and am the exps are the
+    forward's bf16 values and everything after them float32, the kernels'
+    contract."""
     _assert_fp32_matmul(am)
     B, T, C = am.shape
     S = symbols.shape[1]
     blank %= C
-    lm32, am32 = lm.detach().float(), am.detach().float()
-    lmp = torch.exp(lm32 - lm32.amax(dim=2, keepdim=True))
-    amp = torch.exp(am32 - am32.amax(dim=2, keepdim=True))
+
+    def shifted_exp(x):
+        x = x.detach() if x.dtype == torch.bfloat16 else x.detach().float()
+        return torch.exp(x - x.amax(dim=2, keepdim=True)).float()
+
+    lmp, amp = shifted_exp(lm), shifted_exp(am)
     d = torch.einsum("bsc,btc->bst", lmp, amp) + _TINY
     # cotangents B-major; dpx zeroed on the constant -inf columns
     gx = dpx.float().permute(1, 0, 2)[:, :, :T]

@@ -49,6 +49,12 @@ def window_starts(
     if not 1 <= K <= S1:
         raise ValueError(f"K={K} out of range for S+1={S1}")
     dev = py_grad_rows.device
+    # occupancies stored in bf16 / f16 (a narrow lattice) are summed in
+    # float32, as the plain version and the JAX package sum them
+    if py_grad_rows.dtype in (torch.bfloat16, torch.float16):
+        py_grad_rows = py_grad_rows.float()
+    if px_grad_rows.dtype in (torch.bfloat16, torch.float16):
+        px_grad_rows = px_grad_rows.float()
     for name, x in (("py_grad_rows", py_grad_rows), ("px_grad_rows", px_grad_rows)):
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise TypeError(f"{name} must be contiguous float32 on {dev}")

@@ -5,7 +5,8 @@ full or pruned logits.
 
 Matmul precision: the JAX package contracts the normalizer at
 ``Precision.HIGHEST`` (fp32-faithful).  The port keeps that contract: the
-CUDA build kernel accumulates plain fp32 FMAs, and the plain build's einsum
+CUDA build kernel runs its float32 products as 3xTF32 on the tensor cores
+(~2^-21 relative, ``csrc/wgmma.cuh``), and the plain build's einsum
 on a CUDA tensor requires TF32 to be off (``torch.backends.cuda.matmul.
 allow_tf32`` False, PyTorch's default), which it asserts.  The joiner-logit
 lattices need no matmul: the JAX package's one-hot einsums there were TPU
@@ -87,7 +88,8 @@ def _build_rows_plain(
     modified = rnnt_type == "modified"
     normalizers = _normalizers_plain(lm, am)[0]
     px_am, px_lm = _px_gathers(lm, am, symbols)
-    px = _pad_px(px_am + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
+    # float32 px gathers (the JAX package's one-hot einsum emits float32)
+    px = _pad_px(px_am.float() + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
     py = _py_gathers(lm, am, termination_symbol) - normalizers
     if not modified and boundary is not None:
         px = _kill_t_end(px, boundary[:, 3])
@@ -97,14 +99,17 @@ def _build_rows_plain(
 def _normalizers_plain(lm: torch.Tensor, am: torch.Tensor):
     """(normalizers (S+1, B, T), am_max (B, T, 1), am_probs, lm_max (B, S+1,
     1), lm_probs): the joint normalizer log sum_c exp(lm + am) as one
-    [S+1, C] x [C, T] product per utterance, on max-shifted exps."""
+    [S+1, C] x [C, T] product per utterance, on max-shifted exps.  The exps
+    stay in the inputs' dtype (bf16 inputs: rounded as ``jnp.exp`` on bf16
+    rounds them) and the product and the normalizers are float32, as the
+    JAX package's ``preferred_element_type=float32`` contraction gives."""
     _assert_fp32_matmul(am)
     # stability shifts only: the normalizer is shift-invariant
     am_max = am.amax(dim=2, keepdim=True).detach()
     lm_max = lm.amax(dim=2, keepdim=True).detach()
     am_probs = torch.exp(am - am_max)
     lm_probs = torch.exp(lm - lm_max)
-    normalizers = torch.log(torch.einsum("bsc,btc->sbt", lm_probs, am_probs) + _TINY)
+    normalizers = torch.log(torch.einsum("bsc,btc->sbt", lm_probs.float(), am_probs.float()) + _TINY)
     normalizers = normalizers + lm_max.permute(1, 0, 2) + am_max.permute(2, 0, 1)
     return normalizers, am_max, am_probs, lm_max, lm_probs
 

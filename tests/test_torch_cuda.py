@@ -108,10 +108,21 @@ def _assert_grads(got, want):
             assert float((g - w).abs().max()) <= tol
 
 
+def _assert_bf16_contract(got, want):
+    """The bf16 build backward's (d_lm, d_am) against the plain VJP on the
+    same bf16 exps (float32): 1e-5 of max, an output in bf16 plus one bf16
+    step of each element (chip_smoke's BF16_CONTRACT_TOL)."""
+    for g, w in zip(got[:2], want[:2]):
+        step = 2.0**-7 if g.dtype == torch.bfloat16 else 0.0
+        excess = (g.double() - w.double()).abs() - step * w.double().abs()
+        assert float(excess.max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_build_backward_kernels_match_plain_on_random_shapes(dev, seed):
     """The build backward, plain and smoothed, at random shapes: S = 0,
-    C not a multiple of the 64-wide tile, T beyond a 128-frame prep block,
+    C not a multiple of the 128-column d_am tile, T beyond a 64-frame prep
+    block,
     random t_end, random (also negative) blanks, out-of-range symbols."""
     rng = np.random.default_rng(200 + seed)
     B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
@@ -131,6 +142,36 @@ def test_build_backward_kernels_match_plain_on_random_shapes(dev, seed):
     )
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_bf16_build_matches_plain_on_random_shapes(dev, seed):
+    """bf16 lm and am at random shapes (odd C included: the am rows are then
+    no 16-byte multiples and the kernels stage them another way): px and py
+    against the plain bf16 build to 1e-4 + 1e-5|x| (the exps rounded alike,
+    their products exact in float32); the backward kernel's float32 d_lm
+    and the bf16 gradients of the autograd route against the plain VJP."""
+    rng = np.random.default_rng(300 + seed)
+    B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
+    C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    lm, am = lm.bfloat16(), am.bfloat16()
+    rt = "modified" if modified else "regular"
+    zero = torch.zeros_like(te)
+    bnd = torch.stack([zero, zero, torch.full_like(te, S), te.clamp(min=0)], 1)
+    for a, b in zip(latbuild.lattice_rows(lm, am, sym, blank, rt, bnd),
+                    latbuild.lattice_rows_plain(lm, am, sym, blank, rt, bnd)):
+        assert a.dtype == torch.float32
+        assert_close(a, b, 1e-4, 1e-5)
+    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified)
+    lm_l, am_l = lm.clone().requires_grad_(), am.clone().requires_grad_()
+    got = torch.autograd.grad(latbuild.lattice_rows(lm_l, am_l, sym, blank, rt, bnd), [lm_l, am_l], [dpx, dpy])
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
+    _assert_bf16_contract(got, want)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, save=True)
+    got = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy)
+    assert got[0].dtype == torch.float32
+    _assert_bf16_contract(got, want)
+
+
 def test_build_backward_kernel_long_utterance(dev):
     """T = 12000: the d_lm GEMM walks all frames in-block (750 K steps) and
     sums 376 row-sum partials."""
@@ -139,6 +180,64 @@ def test_build_backward_kernel_long_utterance(dev):
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, save=True)
     _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy),
                   latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_kernels_wide_vocabulary_and_many_symbols(dev, dtype):
+    """C = 2100: the forward's 64-frame am tile no longer fits in shared
+    memory, so its fragments and gathers read device memory; S = 150: the
+    rows s span two 128-row N tiles in the forward (the residuals written
+    by the first) and in the d_lm product.  px and py to 1e-4 + 1e-5|x|,
+    the gradients (through the residuals) against the plain VJP as at the
+    smaller shapes; float32 also the smoothed build."""
+    rng = np.random.default_rng(41)
+    B, S, T, C = 2, 150, 130, 2100
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False)
+    lm, am = lm.to(dtype), am.to(dtype)
+    zero = torch.zeros_like(te)
+    bnd = torch.stack([zero, zero, torch.full_like(te, S), te], 1)
+    for a, b in zip(latbuild.lattice_rows(lm, am, sym, blank, "regular", bnd),
+                    latbuild.lattice_rows_plain(lm, am, sym, blank, "regular", bnd)):
+        assert_close(a, b, 1e-4, 1e-5)
+    lm_l, am_l = lm.clone().requires_grad_(), am.clone().requires_grad_()
+    got = torch.autograd.grad(latbuild.lattice_rows(lm_l, am_l, sym, blank, "regular", bnd), [lm_l, am_l],
+                              [dpx, dpy])
+    assert got[0].dtype == dtype and got[1].dtype == dtype
+    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False)
+    (_assert_grads if dtype == torch.float32 else _assert_bf16_contract)(got, want)
+    if dtype == torch.float32:
+        uni = torch.softmax(torch.randn(C, device=dev), 0)
+        dnd = torch.randn(S + 1, B, T, device=dev)
+        *out, res = latbuild.build_fwd(lm, am, sym, te, blank, False, uni, save=True)
+        for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, False)):
+            assert_close(a, b, 1e-4, 1e-5)
+        _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd),
+                      latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False, uni, dnd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_backward_many_symbols(dev, dtype):
+    """S = 2000 (any S runs): the prep forms w in passes of 256 rows s, and
+    with C = 5 more symbols fall in the one d_am block than its list of
+    1,024 holds (it walks the rest).  The gradients against the plain VJP:
+    float32 to 1e-4 of max, bf16 to its float32 contract; float32 also the
+    smoothed build, whose extra row S+1 falls in the last pass."""
+    rng = np.random.default_rng(43)
+    B, S, T, C = 2, 2000, 70, 5
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False)
+    lm, am = lm.to(dtype), am.to(dtype)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, save=True)
+    got = latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy)
+    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False)
+    if dtype == torch.bfloat16:
+        _assert_bf16_contract(got, want)
+        return
+    _assert_grads(got, want)
+    uni = torch.softmax(torch.randn(C, device=dev), 0)
+    dnd = torch.randn(S + 1, B, T, device=dev)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, uni, save=True)
+    _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd),
+                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False, uni, dnd))
 
 
 def test_forward_only_build_launches_no_backward_and_keeps_no_residual(dev):
