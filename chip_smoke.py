@@ -33,10 +33,13 @@ after:
   * the unpruned ``rnnt_loss`` of full logits at B=4.
 
 The occupancies of the ``calc_gradients`` calls come from the fused
-kernel.  For the A/B behind that choice, the forward, training, recipe and
-full-logits steps also run with the split pair in its place (``split``
-arm, swapped in here, not in the package): the results must be equal and
-both arms are timed in turns.
+kernel, a diagonal sweep.  For the A/B behind that choice, the forward,
+training, recipe and full-logits steps also run with the split pair (row
+scans) in its place (``split`` arm, swapped in here, not in the package),
+and both arms are timed in turns.  The two sum in another order, so stage
+1's occupancies differ in the last float32 bits: every raw window-argmax
+flip between them must be a near-tie, and the arms' losses and gradients
+agree on the utterances whose ranges agree.
 
 Last it measures where the steps' time goes: device
 time per kernel and the device's busy share under ``torch.profiler``, and
@@ -218,22 +221,38 @@ def grad_err(got, want, name, tol=GRAD_TOL, step=0.0):
 
 
 def arm_diff(got, want, name):
-    """One step's outputs in another arm against the shipped arm's:
-    bit-equal expected (the fused kernel runs the split pair's op
-    sequence).  Integer outputs (ranges) must be equal; a float difference
-    is reported and held to GRAD_TOL of max |shipped|."""
+    """One step's outputs in another arm against the shipped arm's.  The
+    split pair and the fused kernel sum in another order, so where a window
+    start flips at a near-tie (kernels-headline holds every raw flip
+    between them to the near-tie rule) the ranges and the pruned stage move
+    with it: the outputs are compared on the utterances whose ranges agree
+    (all, for a step without ranges), per-utterance outputs (the losses
+    among them) on their rows and a batch sum only when every utterance
+    agrees.  Losses (a scalar or one per
+    utterance) are held to GRAD_TOL of max |shipped|; occupancies and
+    gradients, which carry the two recursions' fp32 round-off as the plain
+    reference's do, to TRAIN_GRAD_TOL."""
     import torch
 
     if all(torch.equal(a, b) for a, b in zip(got, want)):
         return "bit-equal"
-    rel = 0.0
+    agree = None
+    if not got[-1].is_floating_point():  # the ranges, last
+        agree = (got[-1] == want[-1]).flatten(1).all(1)
+    rel, n_agree = 0.0, None if agree is None else int(agree.sum())
     for i, (a, b) in enumerate(zip(got, want)):
+        if agree is not None and a.dim() == 0 and not bool(agree.all()):
+            continue  # a batch sum over an utterance whose ranges moved
+        if agree is not None and a.dim() > 0:
+            a, b = a[agree], b[agree]
         if not b.is_floating_point():
             if not torch.equal(a, b):
                 raise Failed(f"{name}: output {i} (ranges) differs from the shipped arm's")
             continue
-        rel = max(rel, grad_err(a.reshape(-1), b.reshape(-1), f"{name} output {i}")[1])
-    return f"max diff {rel:.3e} of max"
+        tol = GRAD_TOL if b.dim() <= 1 else TRAIN_GRAD_TOL
+        rel = max(rel, grad_err(a.reshape(-1), b.reshape(-1), f"{name} output {i}", tol)[1])
+    where = "" if agree is None else f" on the {n_agree} of {len(agree)} utterances whose ranges agree"
+    return f"max diff {rel:.3e} of max{where}"
 
 
 # training gradients against the plain reference, which runs its own fp32
@@ -422,9 +441,11 @@ STORAGE_STEP = {"float32": 0.0, "bfloat16": 2.0**-7, "float16": 2.0**-10}
 
 def recursion_checks(px, py, bnd, lo, K):
     """On one small case, in float32, bfloat16 and float16 storage: the
-    fused kernel against its plain version and against the split pair, and
-    the split kernels against their plain versions.  Returns ({kernel or
-    kernel/dtype: max abs err}, max |fused - split|)."""
+    fused kernel against its plain version and against the split pair (both
+    to the same tolerance: the diagonal sweep sums in another order than
+    either), its determinism, and the split kernels against their plain
+    versions.  Returns ({kernel or kernel/dtype: max abs err}, max |fused -
+    split|)."""
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
@@ -438,6 +459,8 @@ def recursion_checks(px, py, bnd, lo, K):
         sc_f, gx_f, gy_f = wavefront.fused_rows(x, y, bnd, lo, K)
         if sc_f.dtype != torch.float32 or gx_f.dtype != dt or gy_f.dtype != dt:
             raise Failed(f"fused ({name}): dtypes {sc_f.dtype} {gx_f.dtype} {gy_f.dtype}")
+        if not all(torch.equal(a, b) for a, b in zip((sc_f, gx_f, gy_f), wavefront.fused_rows(x, y, bnd, lo, K))):
+            raise Failed(f"fused ({name}): a second run gives other bits")
         # the plain version runs its own forward, whose p differs from the
         # kernel's in the last bits (a float32 step is 1.2e-4 at |p| ~ 2e3,
         # T = 1200), and an occupancy is the exp of a difference of p
@@ -455,8 +478,8 @@ def recursion_checks(px, py, bnd, lo, K):
         vs_split = max(
             vs_split,
             finite_err(sc_f, sc_k, f"fused vs split scores ({name})", 1e-4, 1e-5)[0],
-            finite_err(gx_f, gx_k, f"fused vs split px_grad ({name})", 1e-5, occ_rtol)[0],
-            finite_err(gy_f, gy_k, f"fused vs split py_grad ({name})", 1e-5, occ_rtol)[0],
+            finite_err(gx_f, gx_k, f"fused vs split px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
+            finite_err(gy_f, gy_k, f"fused vs split py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
         )
         if dt == torch.float32:
             continue  # the float32 split kernels are checked by the caller
@@ -497,6 +520,61 @@ def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
     if gmax > gap_tol:
         raise Failed(f"{name}: {n} range flips, largest window-score gap {gmax:.3e} > {gap_tol}")
     return n, gmax
+
+
+def kernel_order_argmax(gy, gx, K):
+    """The ranges kernel's raw window argmax (``csrc/ranges.cu``), in its own
+    float32 order: a rolling window sum (add row i, then drop row i-K; at
+    K = 1 the row itself), minus px_grad[k-1], the first maximum kept.
+    (B, T) int32."""
+    import torch
+
+    S1, B, T = gy.shape
+    gy, gx = gy.float(), gx[:, :, :T].float()
+    acc = torch.zeros((B, T), device=gy.device)
+    best, arg = acc, torch.zeros((B, T), dtype=torch.int32, device=gy.device)
+    for i in range(S1):
+        a = gy[i] if K == 1 else acc + gy[i]
+        if K > 1 and i >= K:
+            a = a - gy[i - K]
+        acc = a
+        k = i - (K - 1)
+        if k == 0:
+            best = a
+        elif k > 0:
+            score = a - gx[k - 1]
+            take = score > best
+            best, arg = torch.where(take, score, best), torch.where(take, k, arg)
+    return arg
+
+
+def ranges_check(starts, gy, gx, K, bnd, step, name, gap_tol=1e-3):
+    """The ranges kernel's repaired window starts ``starts`` (B, T) on the
+    occupancies (gy, gx): they must be exactly the boundary padding and
+    monotone repair (the plain version's) of the kernel's raw argmax,
+    recomputed in its own summation order, and every frame where that raw
+    argmax differs from the plain cumsum-difference one must be a near-tie
+    (``range_flips``): the two searches sum in another order, and a raw flip
+    cascades through the repair into other frames.  Returns (raw flips,
+    largest gap, the first flips' (b, t))."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.pruning import (
+        _window_argmax,
+        _window_scores,
+        adjust_pruning_lower_bound,
+    )
+
+    raw = kernel_order_argmax(gy, gx, K)
+    t = torch.arange(raw.shape[1], device=raw.device)[None, :]
+    pad = (bnd[:, 2:3] - K + 1).clamp(min=0).to(torch.int32)
+    want = adjust_pruning_lower_bound(torch.where(t < bnd[:, 3:4] - 1, raw, pad), step)
+    if not torch.equal(starts, want):
+        n = int((starts != want).sum())
+        raise Failed(f"{name}: {n} frames differ from the repair of the kernel's own window argmax")
+    raw_p = _window_argmax(gx, gy, K)
+    n, gap = range_flips(raw, raw_p, _window_scores(gx, gy, K), f"{name} (raw argmax, kernel vs plain order)")
+    return n, gap, torch.nonzero(raw != raw_p)[:4].tolist()
 
 
 def rand_case(rng, Bc, Sc, Tc, modified, banded, offset, constrained=False):
@@ -586,7 +664,7 @@ def headline_kernels(am, lm, sym, bnd):
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
-    from fast_rnnt_tpu_torch.ops.pruning import _window_scores
+    from fast_rnnt_tpu_torch.ops.pruning import _window_argmax, _window_scores
 
     dev = am.device
     report = {}
@@ -706,7 +784,8 @@ def headline_kernels(am, lm, sym, bnd):
     )
 
     # the fused kernel: against its plain version and against the split
-    # pair (bit-equal expected: the same row bodies), and timed against the
+    # pair (to the same tolerance: the diagonal sweep sums in another order
+    # than the row scans), twice for its determinism, and timed against the
     # split pair in turns (split, fused, fused, split)
     def split_pair(x, y):
         p, _ = wavefront.forward_rows(x, y, bnd)
@@ -723,10 +802,15 @@ def headline_kernels(am, lm, sym, bnd):
               finite_err(gx_f, gx_fp, "headline fused px_grad", 1e-5, 1e-2),
               finite_err(gy_f, gy_fp, "headline fused py_grad", 1e-5, 1e-2))
     del sc_fp, gx_fp, gy_fp
-    bit_equal = torch.equal(sc_f, sc_k) and torch.equal(gx_f, gx_k) and torch.equal(gy_f, gy_k)
+    if not all(torch.equal(a, b) for a, b in zip((sc_f, gx_f, gy_f), wavefront.fused_rows(px_k, py_k, bnd))):
+        raise Failed("headline fused: a second run gives other bits")
     vs_split = worst(finite_err(sc_f, sc_k, "headline fused vs split scores", 1e-4, 1e-5),
-                     finite_err(gx_f, gx_k, "headline fused vs split px_grad", 1e-5, 1e-4),
-                     finite_err(gy_f, gy_k, "headline fused vs split py_grad", 1e-5, 1e-4))[0]
+                     finite_err(gx_f, gx_k, "headline fused vs split px_grad", 1e-5, 1e-2),
+                     finite_err(gy_f, gy_k, "headline fused vs split py_grad", 1e-5, 1e-2))
+    # the split arm swaps the split pair in for stage 1 on this lattice: every
+    # raw window-argmax flip between the two must be a near-tie
+    s1_flips = range_flips(_window_argmax(gx_f, gy_f, S_RANGE), _window_argmax(gx_k, gy_k, S_RANGE),
+                           _window_scores(gx_k, gy_k, S_RANGE), "stage 1 fused vs split raw window argmax")
     del sc_f, gx_f, gy_f
     ab = [cuda_ms(lambda: split_pair(px_k, py_k)), cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)),
           cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)), cuda_ms(lambda: split_pair(px_k, py_k))]
@@ -750,24 +834,22 @@ def headline_kernels(am, lm, sym, bnd):
     e16 = max(finite_err(o_k[0], o_p[0], "headline bf16 fused scores", 1e-4, 1e-5)[0],
               *(finite_err(a, b, f"headline bf16 fused {n}", 1e-5, 1e-2 + step16)[0]
                 for a, b, n in zip(o_k[1:], o_p[1:], ("px_grad", "py_grad"))))
-    bit16 = torch.equal(o_k[0], sc16) and all(torch.equal(a, b) for a, b in zip(o_k[1:], o_s))
-    if not bit16:
-        e16_vs = max(finite_err(o_k[0], sc16, "headline bf16 fused vs split scores", 1e-4, 1e-5)[0],
-                     *(finite_err(a, b, f"headline bf16 fused vs split {n}", 1e-5, 1e-4 + step16)[0]
-                       for a, b, n in zip(o_k[1:], o_s, ("px_grad", "py_grad"))))
+    e16_vs = max(finite_err(o_k[0], sc16, "headline bf16 fused vs split scores", 1e-4, 1e-5)[0],
+                 *(finite_err(a, b, f"headline bf16 fused vs split {n}", 1e-5, 1e-2 + step16)[0]
+                   for a, b, n in zip(o_k[1:], o_s, ("px_grad", "py_grad"))))
     del o_k, o_p, o_s, p16, sc16
     bf16_ms = (cuda_ms(lambda: split_pair(px16, py16)), cuda_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
     report["wavefront_fused"] = dict(
-        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies",
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies; deterministic",
         ms=(ab[1] + ab[2]) / 2,
         plain_ms=cuda_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
         note=(f"(split pair fwd+bwd {(ab[0] + ab[3]) / 2:.4f} ms; in turns split {ab[0]:.4f}, fused "
-              f"{ab[1]:.4f}, fused {ab[2]:.4f}, split {ab[3]:.4f}; fused vs split "
-              f"{'bit-equal' if bit_equal else f'max abs diff {vs_split:.3e}'}; bf16 storage: split "
+              f"{ab[1]:.4f}, fused {ab[2]:.4f}, split {ab[3]:.4f}; fused vs split max abs diff "
+              f"{vs_split[0]:.3e} (rel {vs_split[1]:.3e}, tol as vs plain), raw window-argmax flips "
+              f"{s1_flips[0]} (max score gap {s1_flips[1]:.3e}, tol 1e-3); bf16 storage: split "
               f"{bf16_ms[0]:.4f} ms, fused {bf16_ms[1]:.4f} ms; max abs err vs plain: fwd {e16_fwd:.3e} "
               f"(tol 1e-4 + 1e-5|x|), bwd {e16_bwd:.3e} (tol 1e-5 + (1e-4 + 2^-7)|x|), fused "
-              f"{e16:.3e} (tol 1e-5 + (1e-2 + 2^-7)|x|); fused vs split "
-              f"{'bit-equal' if bit16 else f'max abs diff {e16_vs:.3e}'})"),
+              f"{e16:.3e} (tol 1e-5 + (1e-2 + 2^-7)|x|); fused vs split max abs diff {e16_vs:.3e})"),
     )
     del px16, py16
     # occupancy conservation: the occupancies of one utterance sum to its
@@ -786,10 +868,10 @@ def headline_kernels(am, lm, sym, bnd):
         raise Failed(f"occupancy conservation off by {cons[0]:.3e} (rel)")
 
     st_k = ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
-    st_p = ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
-    n_flip, gap = range_flips(st_k, st_p, _window_scores(gx_k, gy_k, S_RANGE), "headline ranges")
+    n_flip, gap, _ = ranges_check(st_k, gy_k, gx_k, S_RANGE, bnd, S_RANGE, "headline ranges")
     report["ranges"] = dict(
-        err=gap, rel=0.0, tol="window-score gap <= 1e-3 at each flip",
+        err=gap, rel=0.0, tol="the repair of its own raw argmax exactly; window-score gap <= 1e-3 at "
+                              "each raw flip against the plain search",
         ms=cuda_ms(lambda: ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
         plain_ms=cuda_ms(lambda: ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
     )
@@ -874,8 +956,7 @@ def main():
             Kr = min(3, Sc + 1)
             step = 2 if modified else Kr
             st_k = ranges.window_starts(gy_k, gx_k, Kr, bnd, step)
-            st_p = ranges.window_starts_plain(gy_k, gx_k, Kr, bnd, step)
-            range_flips(st_k, st_p, _window_scores(gx_k, gy_k, Kr), "ranges (small)")
+            ranges_check(st_k, gy_k, gx_k, Kr, bnd, step, "ranges (small)")
         for Cc in (17, 32):
             for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc).items():
                 small[name] = max(small.get(name, 0.0), err)
@@ -895,9 +976,8 @@ def main():
           f"(tol: lattices 1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x| (fused against its plain version, "
           f"which runs its own forward: 1e-5 + 1e-3|x|), in bf16/f16 storage plus one step of it, build "
           f"gradients {GRAD_TOL} of max |plain| (bf16 inputs {BF16_CONTRACT_TOL}, a bf16 output plus one "
-          f"bf16 step), ranges flips "
-          f"near-ties); fused vs "
-          f"split pair max abs diff {vs_split:.3e} over {len(cases) + 2} cases")
+          f"bf16 step), ranges flips near-ties); fused vs split pair max abs diff {vs_split:.3e} over "
+          f"{len(cases) + 2} cases (tol as fused vs plain); fused deterministic")
 
     # golden path-enumeration vectors (float64 enumeration, tests/golden)
     gfiles = sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.npz")))
@@ -993,7 +1073,7 @@ def main():
         step, "main path (forward)",
         {"wavefront_fused": 1, "wavefront_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
-    # the split arm: stage 1 through the split pair, the same results
+    # the split arm: stage 1 through the split pair (near-tie rule, below)
     out_x, _, _, peak_x, base_x = counted(
         armed("split", step), "main path (forward, split arm)",
         {"wavefront_fwd": 2, "wavefront_bwd": 1, "latbuild_fwd": 1, "ranges": 1},
@@ -1022,15 +1102,16 @@ def main():
     px_k, py_k = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
     _, gx_k, gy_k = wavefront.fused_rows(px_k, py_k, bnd)
     del px_k, py_k
-    # ranges, by the near-tie rule: (a) the main path's ranges are the plain
-    # window search of its own occupancies; (b) where the two paths'
-    # occupancies (which differ in the last float32 bits) pick different raw
-    # window argmaxes, the two windows' scores are within 1e-3.  A raw flip
-    # cascades through the monotone repair into other frames, so the
-    # repaired ranges themselves are compared only on equal occupancies.
+    # ranges, by the near-tie rule: (a) the main path's ranges are the
+    # repair of the ranges kernel's raw argmax of its own occupancies, and
+    # that argmax differs from the plain search's only at near-ties
+    # (ranges_check); (b) where the two paths' occupancies (which differ in
+    # the last float32 bits) pick different raw window argmaxes, the two
+    # windows' scores are within 1e-3.  A raw flip cascades through the
+    # monotone repair into other frames, so repaired ranges are compared
+    # frame by frame only against the repair of the same raw argmax.
     lo_k = rng_k[:, :, 0].contiguous()
-    range_flips(lo_k, ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE),
-                _window_scores(gx_k, gy_k, S_RANGE), "main-path ranges")
+    n_tie, tie_gap, tie_at = ranges_check(lo_k, gy_k, gx_k, S_RANGE, bnd, S_RANGE, "main-path ranges")
     n_flip, gap = range_flips(
         _window_argmax(gx_k, gy_k, S_RANGE), _window_argmax(gx_p, gy_p, S_RANGE),
         _window_scores(gx_p, gy_p, S_RANGE), "main-path raw window argmax",
@@ -1046,23 +1127,28 @@ def main():
     ab_fwd = in_turns(armed("split", step), step)
     phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
           f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
-          f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); step {step_ms:.4f} ms "
+          f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); ranges = the "
+          f"repair of the ranges kernel's raw argmax, which flips against the plain search's at {n_tie} "
+          f"frames (max score gap {tie_gap:.3e}, tol 1e-3; first (b, t) {tie_at}); step {step_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_ms:.1f} ms); peak "
           f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the inputs; bounds {FWD_PEAK_MIB}, "
           f"{FWD_ABOVE_MIB} above); "
-          f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; split arm {same_fwd}, peak "
+          f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; "
+          f"split arm {same_fwd}, peak "
           f"{peak_x:.1f} MiB ({peak_x - base_x:.1f} MiB above what was allocated before it); in turns (split, shipped, shipped, split) "
           + ", ".join(f"{x:.4f}" for x in ab_fwd) + " ms")
 
     # training: bench.py's step, the gradient of 0.5 * simple + pruned
     am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
 
+    # (the loss, per-utterance losses for the arms' comparison, gradients,
+    # ranges); the loss is reduction="sum"'s, bit for bit
     def train_step():
-        s, p, r = rnnt_loss_simple_pruned(lm_g, am_g, sym, 0, S_RANGE, bnd, reduction="sum")
-        loss = 0.5 * s + p
-        return (loss.detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
+        s, p, r = rnnt_loss_simple_pruned(lm_g, am_g, sym, 0, S_RANGE, bnd, reduction="none")
+        loss = 0.5 * s.sum() + p.sum()
+        return (loss.detach(), (0.5 * s + p).detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
 
-    (loss_t, g_am, g_lm, r_t), launches_t, first_t, peak_t, base_t = counted(
+    (loss_t, l_t, g_am, g_lm, r_t), launches_t, first_t, peak_t, base_t = counted(
         train_step, "training",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
          "wavefront_bwd": 1, "ranges": 1},
@@ -1071,7 +1157,7 @@ def main():
         armed("split", train_step), "training (split arm)",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
     )
-    same_train = arm_diff(out_x, (loss_t, g_am, g_lm, r_t), "training (split arm)")
+    same_train = arm_diff(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (split arm)")
     del out_x
     loss_f = 0.5 * simple.sum() + pruned.sum()
     rel_l = ((loss_t - loss_f).abs() / loss_f.abs()).item()
@@ -1202,16 +1288,16 @@ def main():
     # the real-joiner recipe, with the joiner am_p + lm_p: the training
     # step's function computed through the pruned logits
     def recipe_step(logits_dtype=None):
-        simple, (gx, gy) = rnnt_loss_simple(lm_g, am_g, sym, 0, bnd, reduction="sum",
+        simple, (gx, gy) = rnnt_loss_simple(lm_g, am_g, sym, 0, bnd, reduction="none",
                                             calc_gradients=True)
         r = get_rnnt_prune_ranges(gx, gy, bnd, S_RANGE)
         am_p, lm_p = do_rnnt_pruning(am_g, lm_g, r)
         logits = am_p + lm_p
         if logits_dtype is not None:
             logits = logits.to(logits_dtype)
-        pruned = rnnt_loss_pruned(logits, sym, r, 0, bnd, reduction="sum")
-        loss = 0.5 * simple + pruned
-        return (loss.detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
+        pruned = rnnt_loss_pruned(logits, sym, r, 0, bnd, reduction="none")
+        loss = 0.5 * simple.sum() + pruned.sum()
+        return (loss.detach(), (0.5 * simple + pruned).detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
 
     # shipped: stage 1 fused, stage 2 the split pair; vjp: stage 2 fused too
     # (_FUSE_SCORES_VJP); split: both stages through the split pair
@@ -1222,24 +1308,31 @@ def main():
     }
     recipe = {}
     for name, want in recipe_arms.items():
-        (loss_r, *g_r, r_r), n_r, first_r, peak_r, base_r = counted(
+        (loss_r, l_r, *g_r, r_r), n_r, first_r, peak_r, base_r = counted(
             armed(name, recipe_step), f"recipe-train ({name})",
             {"latbuild_fwd": 1, "latbuild_bwd": 1, "ranges": 1, **want})
-        # stage 1 is the training step's: the same kernels, so the ranges
-        # must be the training step's
-        if not torch.equal(r_r, r_t):
+        # stage 1 is the training step's: the same kernel, so the ranges
+        # must be the training step's; the split arm's stage 1 is the split
+        # pair, whose raw flips are near-ties (kernels-headline), and it is
+        # held to train's on the utterances whose ranges agree: their losses
+        # each to rel 1e-4, the batch sum too when all agree
+        agree = (r_r == r_t).flatten(1).all(1)
+        if name != "split" and not bool(agree.all()):
             n = int((r_r != r_t).any(2).sum())
             raise Failed(f"recipe-train ({name}): ranges differ from train's at {n} frames")
-        rel_r = ((loss_r - loss_t).abs() / loss_t.abs()).item()
+        rel_r = ((l_r - l_t).abs() / l_t.abs())[agree].max().item()
+        if bool(agree.all()):
+            rel_r = max(rel_r, ((loss_r - loss_t).abs() / loss_t.abs()).item())
         if rel_r > 1e-4:
             raise Failed(f"recipe-train ({name}): loss rel err vs train {rel_r:.3e} > 1e-4")
-        e_r = worst(*(grad_err(a, b, f"recipe-train ({name}) {n}", TRAIN_GRAD_TOL)
+        e_r = worst(*(grad_err(a[agree], b[agree], f"recipe-train ({name}) {n}", TRAIN_GRAD_TOL)
                       for a, b, n in zip(g_r, g_train, ("d_am", "d_lm"))))
-        held = (f"ranges equal to train's; loss rel err vs train {rel_r:.3e} (tol 1e-4); gradients "
-                f"vs train max abs err {e_r[0]:.3e} ({e_r[1]:.3e} of max, tol {TRAIN_GRAD_TOL})")
+        held = (f"ranges equal to train's on {int(agree.sum())} of {B} utterances; on those, loss rel err "
+                f"vs train {rel_r:.3e} (tol 1e-4, each and, when all agree, the sum); gradients max abs "
+                f"err {e_r[0]:.3e} ({e_r[1]:.3e} of max, tol {TRAIN_GRAD_TOL})")
         if name != "shipped":
-            held += f"; vs the shipped arm {arm_diff((loss_r, *g_r, r_r), recipe['shipped'][0], name)}"
-        recipe[name] = ((loss_r, *g_r, r_r), n_r)
+            held += f"; vs the shipped arm {arm_diff((loss_r, l_r, *g_r, r_r), recipe['shipped'][0], name)}"
+        recipe[name] = ((loss_r, l_r, *g_r, r_r), n_r)
         ms_r = cuda_ms(armed(name, recipe_step))
         phase("recipe-train", f"{name} arm: rnnt_loss_simple (calc_gradients) -> get_rnnt_prune_ranges "
               f"-> do_rnnt_pruning -> am_p + lm_p -> rnnt_loss_pruned (reduction sum), grad of 0.5*simple "
@@ -1249,7 +1342,7 @@ def main():
               f"({peak_r - base_r:.1f} MiB above the inputs)")
     del g_r
     launches_recipe = recipe["vjp"][1]
-    (loss_f32, *g_f32, r_f32), _ = recipe["shipped"]
+    (loss_f32, _, *g_f32, r_f32), _ = recipe["shipped"]
     del recipe
     # the arms in turns, in one process
     ab_recipe = in_turns(*(armed(name, recipe_step) for name in ("split", "shipped", "vjp")))
@@ -1265,7 +1358,7 @@ def main():
     def recipe_step_bf16():
         return recipe_step(torch.bfloat16)
 
-    (loss_b, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
+    (loss_b, _, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
         recipe_step_bf16, "recipe-train-bf16",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
          "wavefront_bwd": 1, "ranges": 1})

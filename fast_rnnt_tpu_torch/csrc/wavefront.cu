@@ -9,8 +9,7 @@
 // Design.  One thread block per utterance walks the rows s in order (the
 // Pallas grid's sequential s axis becomes a loop inside the block); the
 // previous row (forward: p[s-1]; backward: g[s+1]) stays in shared memory.
-// The row bodies live in wavefront_rows.cuh, shared with the fused kernel
-// (wavefront_fused.cu).  The boundary rectangle and the pruning band
+// The row bodies live in wavefront_rows.cuh.  The boundary rectangle and the pruning band
 // (lo <= s < lo + K, lo edge-padded to T+1 columns) are masked in registers,
 // so no masked copy of the lattice is ever made.  S == 0 needs no special
 // case: the loop runs row 0 only.
@@ -49,7 +48,7 @@ wavefront_bwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
                      St* __restrict__ pyg) {
   extern __shared__ float sm[];
   __shared__ Pair warp_tot[32];
-  bwd_rows<false>(px, py, p, load_bnd(bnd, blockIdx.x), lo, K, ans_grad[blockIdx.x], S, B, T,
+  bwd_rows(px, py, p, load_bnd(bnd, blockIdx.x), lo, K, ans_grad[blockIdx.x], S, B, T,
                   modified, sm, warp_tot, pxg, pyg);
 }
 

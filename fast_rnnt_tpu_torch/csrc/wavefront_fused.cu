@@ -1,28 +1,45 @@
 // Fused two-phase lattice recursion kernel for Hopper (sm_90a): the forward
 // recursion and the occupancy backward seeded with ones in one launch,
-// s-major rows, px/py stored as float, bfloat16 or float16.
+// s-major rows, px/py stored as float, bfloat16 or float16 (the recursion
+// computes in float; p, the scores and the hand-off rows are float).
 //
 // Replaces the Pallas TPU kernel of fast_rnnt_tpu/ops/kernels/wavefront.py:
 //   wavefront_fused_kernel  <- _fused_kernel (:623, pallas_call :765)
 //
-// Design.  One thread block per utterance runs the ascending forward rows
-// and then the descending backward rows with the row bodies of the split
-// kernels (wavefront_rows.cuh), so it runs their op sequence: its results
-// are meant to be bit-equal to wavefront_fwd_kernel followed by
-// wavefront_bwd_kernel with ans_grad = 1.  Where p lives: one utterance's p
-// is (S+1)(T+1) floats, 404 KB at S=100, T=1000, beyond the 227 KB of
-// shared memory a block may have, so the forward phase writes p to a scratch
-// tensor the wrapper allocates (12.1 MB at B=30, well inside the 50 MB L2)
-// and the backward phase reads it back through L2 (ld.global.cg).  Shared
-// memory holds four rows, as in the split kernels, so the fused kernel takes
-// every shape they take (T <= 14,271) and has no cap of its own.
+// Design: one warp per utterance sweeps anti-diagonals d = s + t.
+//   forward   p[s,t] = logadd(p[s-1, t-dt] + px[s-1, t-dt], p[s,t-1] + py[s,t-1])
+//   backward  g[s,t] = term2[s,t] g[s,t+1] + term1[s,t] g[s+1,t+dt]  (+1 at the seed)
+// with dt = 0 regular, 1 modified.  Every cell of a diagonal depends only on
+// the two diagonals before it, so a diagonal is computed cell by cell with no
+// scan.  A strip of kStrip = 32*kR rows is swept at a time, row i by lane
+// i % 32 (slot i / 32); a row keeps its own last two cells in registers and
+// gets its neighbour row's (i-1 in the forward, i+1 in the backward) by one
+// warp shuffle per slot.  No recursion value ever leaves the sweeping warp.
+// The sweep covers only the utterance's rectangle [s_begin, s_end] x
+// [t_begin, t_end]; taller utterances run strip after strip.  The forward's
+// strip k reads its row s0-1 back from p (written by strip k-1); the backward
+// (strips top down) hands the first row's g of a strip to the next one
+// through two (B, T+1) float rows after p in the scratch (rows S+1 and S+2,
+// alternating).  No atomics: the result is the same from run to run, and T
+// has no cap.
 //
-// What bounds it.  The same chain of 2(S+1) dependent rows as the split
-// pair, on 30 of 132 SMs: latency, not bandwidth.  It saves one launch and
-// the p round trip's trip to device memory (p stays in L2); px/py are read
-// once per phase as in the split pair.  Keeping p in the distributed shared
-// memory of a thread-block cluster (2 CTAs x 227 KB hold 404 KB) is later
-// work.
+// Memory.  The cells of a diagonal lie in 32 different rows, so the sweeping
+// warp never touches device memory itself: each row streams through a ring
+// of four 16-column tiles in shared memory.  The block's other seven warps
+// load every row's next tile of px and py (the backward: p, px, py) one block
+// of 16 steps ahead, coalesced, and store the finished tiles of p (px_grad,
+// py_grad) back, then write the zeros of px_grad and py_grad outside the
+// rectangle.  The warps meet at one block barrier every 16 steps; a sweep
+// that also issued its own loads and stores was issue-bound at ~850
+// instructions a step (2.1 ms at the headline shape on an H100, PERF.md).
+//
+// What bounds it.  A chain of (rows + columns) steps per phase (1,100 at
+// S=100, T=1000), each kR cells of a log-add (forward) or two exps
+// (backward) and kR shuffles: ~130 (forward) and ~200 (backward)
+// instructions a step from one warp, whose dependent chain (a shuffle, two
+// SFU ops, a few FP ops) leaves it at under half an instruction a cycle.
+// Latency / issue bound on 30 of 132 SMs, not bandwidth bound (~37 MB
+// moved).  Several warps sweeping strips with a lag is later work.
 
 #include <cuda_runtime.h>
 
@@ -32,39 +49,514 @@ using namespace frt;
 
 namespace {
 
+constexpr int kR = 4;  // rows per lane: row i of a strip is lane i % 32, slot i / 32
+constexpr int kStrip = 32 * kR;  // rows per strip
+constexpr int kTile = 16;  // columns of a tile, steps of a block
+constexpr int kRing = 4 * kTile;  // columns of a row's ring: four tiles
+constexpr int kThreads = 256;  // the sweeping warp and kHelp helper warps
+constexpr int kHelp = kThreads / 32 - 1;
+constexpr int kPer = (kStrip * kTile + kHelp * 32 - 1) / (kHelp * 32);  // tile cells per helper
+constexpr int kRingFloats = kStrip * kRing;
+// five rings (the backward's p, px, py, px_grad, py_grad; the forward uses
+// three) and two hand-off rings: 160.5 KB
+constexpr int kSmem = (5 * kRingFloats + 2 * kRing) * (int)sizeof(float);
+constexpr unsigned kFull = 0xffffffffu;
+
+// 2^x and log2(x) by the SFU, denormals flushed
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// log(exp(x) + exp(y)) and safe_exp (common.cuh) by the SFU: as close to a
+// float64 reference as the row scans' accurate ones (PERF.md)
+__device__ __forceinline__ float log_add_fast(float x, float y) {
+  const float m = fmaxf(x, y);
+  const float r = fmaf(lg2(1.f + ex2(-fabsf(x - y) * kLog2e)), kLn2, m);
+  return m == kNegInf ? kNegInf : r;
+}
+__device__ __forceinline__ float safe_exp_fast(float x) {
+  const float e = ex2(x * kLog2e);
+  return x <= 88.6f ? e : 0.f;  // false for NaN too
+}
+
+__device__ __forceinline__ bool band_ok(int l, int s, int K) { return l <= s && s < l + K; }
+__device__ __forceinline__ int ring_at(int i, int v) { return i * kRing + (v & (kRing - 1)); }
+// ring_at(r * 32 + lane, c + r * 32) for each slot r: lane * kRing + r * 32 *
+// kRing plus (c & 63), with bit 5 flipped on the odd slots (32 r mod 64)
+__device__ __forceinline__ int ring_slot(int lane, int r, int c) {
+  return (lane + r * 32) * kRing + ((c & (kRing - 1)) ^ ((r & 1) * 32));
+}
+// first tile of the row of rank q in the sweep order
+__device__ __forceinline__ int tile0(int q) { return -((q + kTile - 1) / kTile); }
+
+__device__ __forceinline__ int lo_at(const int* lo, int b, int T, int t) {
+  return T > 0 ? __ldg(lo + b * T + min(t, T - 1)) : 0;
+}
+
+// One strip: rows s0 .. s0 + imax, columns t_begin .. t_begin + span.  Step x
+// of the forward holds row i at v = x - i (t = t_begin + v); step x of the
+// backward holds row i at w = x - (imax - i) (t = t_end - w).  A row's rank
+// in the sweep order is i (forward) or imax - i (backward): a row of rank q
+// uses tiles m + tile0(q) and m + tile0(q) + 1 in block m, so the helpers
+// load tile m + tile0(q) + 2 during block m and store tile m + tile0(q) - 1.
+struct Strip {
+  int B, T, S, K, b;
+  Bnd q;
+  int s0, imax, span, dt, t_hi, T1, W;
+  int n, nb;  // steps, blocks
+  bool below_hand;  // forward: row s0-1 exists (strip k > 0)
+  bool above_hand;  // backward: row s0+imax+1 exists (not the top strip)
+  int ohg_in, ohg_out;  // backward hand-off rows
+};
+
+__device__ __forceinline__ Strip make_strip(int B, int T, int S, int K, int b, const Bnd& q,
+                                            bool modified, int k, int nk) {
+  Strip g;
+  g.B = B, g.T = T, g.S = S, g.K = K, g.b = b, g.q = q;
+  g.s0 = q.sb + k * kStrip;
+  g.imax = min(kStrip - 1, q.se - g.s0);
+  g.span = q.te - q.tb;
+  g.dt = modified ? 1 : 0;
+  g.t_hi = q.te - g.dt;
+  g.T1 = modified ? T : T + 1;
+  g.W = T + 1;
+  g.n = g.imax + g.span + 1;
+  g.nb = (g.n + kTile - 1) / kTile;
+  g.below_hand = k > 0;
+  g.above_hand = k < nk - 1;
+  g.ohg_in = ((S + 1 + ((k + 1) & 1)) * B + b) * g.W;
+  g.ohg_out = ((S + 1 + (k & 1)) * B + b) * g.W;
+  return g;
+}
+
 template <class St>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ float ld_masked(const St* a, bool ok) {
+  return ok ? to_f(__ldg(a)) : kNegInf;
+}
+
+// --- helper warps (h: thread index among them) ------------------------------
+
+// forward: tile m + tile0(i) + 1 of px and py of every row into the rings,
+// and row s0-1's p for row 0
+template <class St>
+__device__ void fwd_load(const Strip& g, const St* px, const St* py, const float* p, float* sm,
+                         int h, int m) {
+  float* rpx = sm;
+  float* rpy = sm + kRingFloats;
+  float* hand = sm + 5 * kRingFloats;
+  float x[kPer], y[kPer];
+  int at[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = h + k * kHelp * 32, i = e / kTile;
+    const int v = (m + tile0(i) + 1) * kTile + e % kTile;
+    const int s = g.s0 + i, t = g.q.tb + v, tp = t - g.dt;
+    const bool row = i <= g.imax;
+    at[k] = row ? ring_at(i, v) : -1;
+    x[k] = ld_masked(px + ((s - 1) * g.B + g.b) * g.T1 + tp,
+                     row && s > g.q.sb && tp >= g.q.tb && tp <= g.t_hi);
+    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t - 1, row && t - 1 >= g.q.tb && t - 1 < g.q.te);
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (at[k] >= 0) {
+      rpx[at[k]] = x[k];
+      rpy[at[k]] = y[k];
+    }
+  if (h < kTile) {
+    const int v = (m + 1) * kTile + h, tp = g.q.tb + v - g.dt;
+    float hv = kNegInf;
+    if (g.below_hand && tp >= g.q.tb && tp <= g.t_hi)
+      hv = __ldcg(p + ((g.s0 - 1) * g.B + g.b) * g.W + tp);
+    hand[v & (kRing - 1)] = hv;
+  }
+}
+
+// forward: tile m + tile0(i) - 1 of p of every row to the scratch
+__device__ void fwd_store(const Strip& g, float* p, const float* sm, int h, int m) {
+  const float* rp = sm + 2 * kRingFloats;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = h + k * kHelp * 32, i = e / kTile;
+    const int v = (m + tile0(i) - 1) * kTile + e % kTile;
+    if (i <= g.imax && v >= 0 && v <= g.span)
+      p[((g.s0 + i) * g.B + g.b) * g.W + g.q.tb + v] = rp[ring_at(i, v)];
+  }
+}
+
+// backward: tile m + tile0(imax - i) + 1 of p, px and py of every row, and
+// row s0+imax+1's p and g for the top row
+template <class St>
+__device__ void bwd_load(const Strip& g, const St* px, const St* py, const float* p, float* sm,
+                         int h, int m) {
+  float* rpp = sm;
+  float* rpx = sm + kRingFloats;
+  float* rpy = sm + 2 * kRingFloats;
+  float* hand = sm + 5 * kRingFloats;
+  float pv[kPer], x[kPer], y[kPer];
+  int at[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = h + k * kHelp * 32, qk = e / kTile, i = g.imax - qk;
+    const int w = (m + tile0(qk) + 1) * kTile + e % kTile;
+    const int s = g.s0 + i, t = g.q.te - w;
+    const bool in = i >= 0 && t >= g.q.tb && t <= g.q.te;
+    at[k] = i >= 0 ? ring_at(i, w) : -1;
+    pv[k] = in ? __ldcg(p + (s * g.B + g.b) * g.W + t) : kNegInf;
+    x[k] = ld_masked(px + (s * g.B + g.b) * g.T1 + t, in && s < g.q.se && t <= g.t_hi);
+    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t, in && t < g.q.te);
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (at[k] >= 0) {
+      rpp[at[k]] = pv[k];
+      rpx[at[k]] = x[k];
+      rpy[at[k]] = y[k];
+    }
+  if (h < kTile) {
+    const int w = (m + 1) * kTile + h, tn = g.q.te - w + g.dt;  // the top row's w is the step
+    float hp = kNegInf, hg = 0.f;
+    if (g.above_hand && tn >= g.q.tb && tn <= g.q.te) {
+      hp = __ldcg(p + ((g.s0 + g.imax + 1) * g.B + g.b) * g.W + tn);
+      hg = __ldcg(p + g.ohg_in + tn);
+    }
+    hand[w & (kRing - 1)] = hp;
+    hand[kRing + (w & (kRing - 1))] = hg;
+  }
+}
+
+// backward: tile m + tile0(imax - i) - 1 of px_grad and py_grad to the outputs
+template <class St>
+__device__ void bwd_store(const Strip& g, St* pxg, St* pyg, const float* sm, int h, int m) {
+  const float* rgx = sm + 3 * kRingFloats;
+  const float* rgy = sm + 4 * kRingFloats;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = h + k * kHelp * 32, qk = e / kTile, i = g.imax - qk;
+    const int w = (m + tile0(qk) - 1) * kTile + e % kTile;
+    if (i >= 0 && w >= 0 && w <= g.span) {
+      const int s = g.s0 + i, t = g.q.te - w;
+      if (t < g.T) pyg[(s * g.B + g.b) * g.T + t] = from_f<St>(rgy[ring_at(i, w)]);
+      if (s < g.S && t < g.T1) pxg[(s * g.B + g.b) * g.T1 + t] = from_f<St>(rgx[ring_at(i, w)]);
+    }
+  }
+}
+
+// zeros of px_grad (unit odd) or py_grad (even) in row unit / 2 outside the
+// rectangle, by one helper warp
+template <class St>
+__device__ void zero_row(const Strip& g, St* pxg, St* pyg, int unit, int lane) {
+  const int s = unit >> 1, out = unit & 1;
+  if (out == 1 && s == g.S) return;
+  const int n = out ? g.T1 : g.T;
+  St* o = (out ? pxg : pyg) + (s * g.B + g.b) * n;
+  const bool in_s = s >= g.q.sb && s <= g.q.se;
+  const int a = in_s ? min(g.q.tb, n) : n, c = in_s ? g.q.te + 1 : n;  // [0, a) and [c, n)
+  const St z = from_f<St>(0.f);
+  for (int t = lane; t < a; t += 32) o[t] = z;
+  for (int t = c + lane; t < n; t += 32) o[t] = z;
+}
+
+// --- the sweeping warp ----------------------------------------------------
+
+// Per-slot constants of the sweeping warp's rows in one strip.
+struct Rows {
+  int i[kR];  // row in the strip
+  int s[kR];  // lattice row
+  bool row[kR];  // i <= imax
+  bool first[kR];  // s == s_begin (the origin row)
+  bool last[kR];  // s == s_end (the score / seed row)
+
+  __device__ __forceinline__ void init(const Strip& g, int lane) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      i[r] = r * 32 + lane;
+      s[r] = g.s0 + i[r];
+      row[r] = i[r] <= g.imax;
+      first[r] = s[r] == g.q.sb;
+      last[r] = s[r] == g.q.se;
+    }
+  }
+};
+
+// A step of the sweep reads all its ring cells first (the next step's before
+// this one's stores), then shuffles, computes and stores: the kR cells of a
+// step are independent, and reading after a store into the same shared
+// array would serialize them.
+template <bool kMod, bool kBand>
+struct FwdSweep {
+  Rows rw;
+  float v1[kR], v2[kR];  // p of the row on the last two steps
+  int lprev[kR];  // lo[b, t-1]
+  float xa[kR], ya[kR], hv;  // ring cells of the coming step
+
+  __device__ __forceinline__ void read(const float* sm, int lane, int x) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int at = ring_slot(lane, r, x - lane);  // row i at v = x - i
+      xa[r] = sm[at];
+      ya[r] = sm[kRingFloats + at];
+    }
+    hv = sm[5 * kRingFloats + (x & (kRing - 1))];
+  }
+
+  __device__ __forceinline__ void init(const Strip& g, int lane) {
+    rw.init(g, lane);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      v1[r] = v2[r] = kNegInf;
+      lprev[r] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void step(const Strip& g, const int* lo, float* sm, int lane, int x) {
+    float nv[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float src = lane == 31 ? (r > 0 ? (kMod ? v2[r - 1] : v1[r - 1]) : 0.f)
+                                   : (kMod ? v2[r] : v1[r]);
+      nv[r] = __shfl_sync(kFull, src, (lane + 31) & 31);  // row i-1
+    }
+    if (lane == 0) nv[0] = hv;  // row s0-1
+    bool act[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int v = x - rw.i[r];
+      act[r] = rw.row[r] && (unsigned)v <= (unsigned)g.span;
+      float x_ = xa[r], y_ = ya[r];
+      if (kBand) {
+        const int lt = act[r] ? lo_at(lo, g.b, g.T, g.q.tb + v) : 0;
+        if (!band_ok(kMod ? lprev[r] : lt, rw.s[r] - 1, g.K)) x_ = kNegInf;
+        if (!band_ok(lprev[r], rw.s[r], g.K)) y_ = kNegInf;
+        lprev[r] = lt;
+      }
+      float a = nv[r] + x_;
+      if (r == 0 && x == 0 && rw.first[0]) a = 0.f;  // origin p[s_begin, t_begin] = 0 (row 0, step 0)
+      const float val = log_add_fast(a, v1[r] + y_);
+      nv[r] = act[r] ? val : kNegInf;
+    }
+    read(sm, lane, x + 1);
+    // every slot stores, active or not: the slot a cell maps to does not
+    // depend on it, and the helpers store only cells inside the rectangle
+    float* rp = sm + 2 * kRingFloats;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      rp[ring_slot(lane, r, x - lane)] = nv[r];
+      v2[r] = v1[r];
+      v1[r] = nv[r];
+    }
+  }
+
+  // after the top strip's last step, p[s_end, t_end] is its row's last cell
+  __device__ __forceinline__ void score(const Strip& g, float* scores) const {
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (rw.last[r]) scores[g.b] = v1[r];
+  }
+};
+
+template <bool kMod, bool kBand>
+struct BwdSweep {
+  Rows rw;
+  float pc1[kR];  // p[s, t+1]
+  float g1[kR], g2[kR];  // g[s, t+1], g[s, t+2]
+  float pa[kR], pn[kR], xa[kR], ya[kR], hp, hg;  // ring cells of the coming step
+
+  __device__ __forceinline__ void read(const Strip& g, const float* sm, int lane, int x) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int at = ring_slot(lane, r, x - g.imax + lane);  // row i at w = x - imax + i
+      pa[r] = sm[at];
+      // p[s+1, t+dt], row i+1's cell dt steps back, still in its ring (the
+      // top slot of lane 31 reads past the ring; the hand-off ring serves it)
+      pn[r] = sm[ring_slot(lane, r, x - g.imax + lane - g.dt) + kRing];
+      xa[r] = sm[kRingFloats + at];
+      ya[r] = sm[2 * kRingFloats + at];
+    }
+    hp = sm[5 * kRingFloats + (x & (kRing - 1))];
+    hg = sm[5 * kRingFloats + kRing + (x & (kRing - 1))];
+  }
+
+  __device__ __forceinline__ void init(const Strip& g, int lane) {
+    rw.init(g, lane);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      pc1[r] = kNegInf;
+      g1[r] = g2[r] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void step(const Strip& g, const int* lo, float* sm, float* p, int lane,
+                                       int x) {
+    float ap[kR], ag[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      // g of row i+1 at t+dt: lane+1 of this slot, or lane 0 of the next slot
+      const float sg = lane == 0 ? (r < kR - 1 ? (kMod ? g2[r + 1] : g1[r + 1]) : 0.f)
+                                 : (kMod ? g2[r] : g1[r]);
+      ag[r] = __shfl_sync(kFull, sg, (lane + 1) & 31);
+      ap[r] = pn[r];
+    }
+    if (lane == 31) {  // row s0+kStrip, the strip above
+      ap[kR - 1] = hp;
+      ag[kR - 1] = hg;
+    }
+    bool act[kR];
+    float npc[kR], ng[kR], gy[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int w = x - g.imax + rw.i[r];
+      act[r] = rw.row[r] && (unsigned)w <= (unsigned)g.span;
+      float x_ = xa[r], y_ = ya[r];
+      if (kBand && !(act[r] && band_ok(lo_at(lo, g.b, g.T, g.q.te - w), rw.s[r], g.K)))
+        x_ = y_ = kNegInf;
+      const float h = safe_exp_fast(pa[r] + x_ - ap[r]) * ag[r];
+      const float c = safe_exp_fast(pa[r] + y_ - pc1[r]);
+      const float seed = (rw.last[r] && x == 0) ? 1.f : 0.f;  // (s_end, t_end): row imax, step 0
+      ng[r] = act[r] ? fmaf(c, g1[r], h + seed) : 0.f;
+      npc[r] = act[r] ? pa[r] : kNegInf;
+      gy[r] = c * g1[r];
+      ap[r] = h;  // px_grad
+    }
+    read(g, sm, lane, x + 1);
+    // row 0's g to the hand-off row for the strip below: every lane stores
+    // lane 0's value, under a condition the whole warp shares
+    const float g0 = __shfl_sync(kFull, ng[0], 0);
+    const int w0 = x - g.imax;
+    if (g.below_hand && (unsigned)w0 <= (unsigned)g.span) p[g.ohg_out + g.q.te - w0] = g0;
+    float* rgx = sm + 3 * kRingFloats;
+    float* rgy = sm + 4 * kRingFloats;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int at = ring_slot(lane, r, x - g.imax + lane);
+      rgy[at] = gy[r];
+      rgx[at] = ap[r];
+      pc1[r] = npc[r];
+      g2[r] = g1[r];
+      g1[r] = ng[r];
+    }
+  }
+};
+
+template <class St, bool kMod, bool kBand>
+__global__ void __launch_bounds__(kThreads)
 wavefront_fused_kernel(const St* __restrict__ px, const St* __restrict__ py,
                        const int* __restrict__ bnd, const int* __restrict__ lo, int K, int S,
-                       int B, int T, int modified, float* p, float* __restrict__ scores,
+                       int B, int T, float* p, float* __restrict__ scores,
                        St* __restrict__ pxg, St* __restrict__ pyg) {
   extern __shared__ float sm[];
-  __shared__ Pair warp_tot[32];
-  const Bnd q = load_bnd(bnd, blockIdx.x);
-  fwd_rows(px, py, q, lo, K, S, B, T, modified, sm, warp_tot, p, scores);
-  __syncthreads();  // every p row of this utterance is written before it is read
-  bwd_rows<true>(px, py, p, q, lo, K, 1.f, S, B, T, modified, sm, warp_tot, pxg, pyg);
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = threadIdx.x - 32;  // thread index among the helper warps
+  const Bnd q = load_bnd(bnd, b);
+  const int nr = q.se - q.sb + 1;
+  const int nk = nr > 0 && q.te >= q.tb ? (nr + kStrip - 1) / kStrip : 0;
+  if (nk == 0 && threadIdx.x == 0) scores[b] = kNegInf;
+  // zero units (row, output): one per helper warp and block of the forward,
+  // the rest after it
+  const int nunits = 2 * (S + 1);
+  int unit = warp - 1;
+
+  for (int k = 0; k < nk; ++k) {
+    const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
+    FwdSweep<kMod, kBand> f;
+    if (warp == 0) {
+      f.init(g, lane);
+    } else {
+      fwd_load(g, px, py, p, sm, h, -1);
+      fwd_load(g, px, py, p, sm, h, 0);
+    }
+    __syncthreads();
+    if (warp == 0) f.read(sm, lane, 0);  // the prologue's tiles are in
+    for (int m = 0; m < g.nb; ++m) {
+      if (warp == 0) {
+        for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x)
+          f.step(g, lo, sm, lane, x);
+        if (m == g.nb - 1 && k == nk - 1) f.score(g, scores);
+      } else {
+        if (m + 1 < g.nb) fwd_load(g, px, py, p, sm, h, m + 1);
+        fwd_store(g, p, sm, h, m);
+        if (unit < nunits) zero_row(g, pxg, pyg, unit, lane);
+        unit += kHelp;
+      }
+      __syncthreads();  // tiles of block m+1 in, block m's cells written
+    }
+    if (warp > 0) {
+      fwd_store(g, p, sm, h, g.nb);
+      fwd_store(g, p, sm, h, g.nb + 1);
+    }
+    __syncthreads();  // the strip's p is stored before the next strip (or the backward) reads it
+  }
+  if (warp > 0) {
+    const Strip g = make_strip(B, T, S, K, b, q, kMod, 0, 1);
+    for (; unit < nunits; unit += kHelp) zero_row(g, pxg, pyg, unit, lane);
+  }
+  for (int k = nk - 1; k >= 0; --k) {
+    const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
+    BwdSweep<kMod, kBand> f;
+    if (warp == 0) {
+      f.init(g, lane);
+    } else {
+      bwd_load(g, px, py, p, sm, h, -1);
+      bwd_load(g, px, py, p, sm, h, 0);
+    }
+    __syncthreads();
+    if (warp == 0) f.read(g, sm, lane, 0);  // the prologue's tiles are in
+    for (int m = 0; m < g.nb; ++m) {
+      if (warp == 0) {
+        for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x) f.step(g, lo, sm, p, lane, x);
+      } else {
+        if (m + 1 < g.nb) bwd_load(g, px, py, p, sm, h, m + 1);
+        bwd_store(g, pxg, pyg, sm, h, m);
+      }
+      __syncthreads();
+    }
+    if (warp > 0) {
+      bwd_store(g, pxg, pyg, sm, h, g.nb);
+      bwd_store(g, pxg, pyg, sm, h, g.nb + 1);
+    }
+    __syncthreads();  // the hand-off row is stored before the strip below reads it
+  }
+}
+
+template <class St, bool kMod, bool kBand>
+int launch(const void* px, const void* py, const void* bnd, const void* lo, int K, int S, int B,
+           int T, void* p, void* scores, void* pxg, void* pyg, cudaStream_t stream) {
+  cudaFuncSetAttribute(wavefront_fused_kernel<St, kMod, kBand>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  wavefront_fused_kernel<St, kMod, kBand><<<B, kThreads, kSmem, stream>>>(
+      static_cast<const St*>(px), static_cast<const St*>(py), static_cast<const int*>(bnd),
+      static_cast<const int*>(lo), K, S, B, T, static_cast<float*>(p),
+      static_cast<float*>(scores), static_cast<St*>(pxg), static_cast<St*>(pyg));
+  return (int)cudaGetLastError();
 }
 
 template <class St>
 int launch_fused(const void* px, const void* py, const void* bnd, const void* lo, int K, int S,
                  int B, int T, int modified, void* p, void* scores, void* pxg, void* pyg,
                  int threads, cudaStream_t stream) {
-  const size_t smem = wavefront_smem(T, threads);
-  cudaFuncSetAttribute(wavefront_fused_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  wavefront_fused_kernel<St><<<B, threads, smem, stream>>>(
-      static_cast<const St*>(px), static_cast<const St*>(py), static_cast<const int*>(bnd),
-      static_cast<const int*>(lo), K, S, B, T, modified, static_cast<float*>(p),
-      static_cast<float*>(scores), static_cast<St*>(pxg), static_cast<St*>(pyg));
-  return (int)cudaGetLastError();
+  if (threads != kThreads) return (int)cudaErrorInvalidValue;
+  if (modified)
+    return lo ? launch<St, true, true>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream)
+              : launch<St, true, false>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream);
+  return lo ? launch<St, false, true>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream)
+            : launch<St, false, false>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream);
 }
 
 }  // namespace
 
-// p: (S+1, B, T+1) f32 scratch; scores: (B,) f32 out; pxg (S, B, T') and pyg
-// (S+1, B, T) out in the storage type named by `dtype` (StorageCode); lo may
-// be NULL (no band).
+// p: (S+3, B, T+1) f32 scratch (rows 0..S the forward lattice, S+1 and S+2
+// the backward's hand-off rows); scores: (B,) f32 out; pxg (S, B, T') and
+// pyg (S+1, B, T) out in the storage type named by `dtype` (StorageCode); lo
+// may be NULL (no band); `threads` must be 256 (one sweeping warp, seven
+// helpers).
 extern "C" int frt_wavefront_fused(const void* px, const void* py, const void* bnd,
                                    const void* lo, int K, int S, int B, int T, int modified,
                                    void* p, void* scores, void* pxg, void* pyg, int threads,

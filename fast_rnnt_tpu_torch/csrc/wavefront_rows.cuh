@@ -1,7 +1,7 @@
-// Row bodies of the lattice recursion kernels (wavefront.cu, wavefront_fused.cu):
-// the forward sweep over rows s = 0..S and the occupancy backward sweep over
-// s = S..0, shared so that the split kernels and the fused kernel run the
-// same op sequence.
+// Row bodies of the split lattice recursion kernels (wavefront.cu): the
+// forward sweep over rows s = 0..S and the occupancy backward sweep over
+// s = S..0; the boundary, band and storage-type helpers are shared with the
+// fused diagonal-sweep kernel (wavefront_fused.cu).
 //
 // Storage dtypes.  px/py (and the occupancies written back) are stored as
 // St = float, __nv_bfloat16 or __half; every value is widened to float as
@@ -128,10 +128,8 @@ __device__ __forceinline__ void fwd_rows(const St* __restrict__ px, const St* __
 // (s_end, t_end): px_grad (S, B, T') and py_grad (S+1, B, T) in St.  The
 // scan runs over u = T - t in ordinary algebra.  p rows s and s+1 are read
 // from global memory (row s+1 was read in the previous step), which keeps
-// shared memory at four rows and so T up to ~14k.  kL2: read p through L2
-// only (ld.global.cg), for a p written earlier by the same kernel, which the
-// read-only cache path would not see coherently.
-template <bool kL2, class St>
+// shared memory at four rows and so T up to ~14k.
+template <class St>
 __device__ __forceinline__ void bwd_rows(const St* __restrict__ px, const St* __restrict__ py,
                                          const float* p, const Bnd& q,
                                          const int* __restrict__ lo, int K, float ag, int S,
@@ -148,27 +146,26 @@ __device__ __forceinline__ void bwd_rows(const St* __restrict__ px, const St* __
   float* xend = sm + 4 * W;
   const int E = (W + nt - 1) / nt;
   const int u0 = min(tid * E, W), u1 = min(u0 + E, W);
-  auto ldp = [](const float* a) { return kL2 ? __ldcg(a) : *a; };
   for (int t = tid; t < W; t += nt) gnext[t] = 0.f;
 
   for (int s = S; s >= 0; --s) {
     const float* pcur = p + ((size_t)s * B + b) * W;
     const float* pnext = p + ((size_t)(s + 1) * B + b) * W;  // read only when s < S
     for (int t = tid; t < W; t += nt) {
-      const float pc = ldp(pcur + t);
+      const float pc = pcur[t];
       float h = 0.f;
       if (s < S && t < T1) {
         const int tn = modified ? t + 1 : t;  // cell the arc enters in row s+1
         float hv = 0.f;
         if (px_ok(q, s, t, modified, lo, b, T, K))
-          hv = safe_exp(pc + to_f(px[((size_t)s * B + b) * T1 + t]) - ldp(pnext + tn)) * gnext[tn];
+          hv = safe_exp(pc + to_f(px[((size_t)s * B + b) * T1 + t]) - pnext[tn]) * gnext[tn];
         pxg[((size_t)s * B + b) * T1 + t] = from_f<St>(hv);
         h = hv;
       }
       if (s == q.se && t == q.te) h += ag;
       float c = 0.f;
       if (t < T && py_ok(q, s, t, lo, b, T, K))
-        c = safe_exp(pc + to_f(py[((size_t)s * B + b) * T + t]) - ldp(pcur + t + 1));
+        c = safe_exp(pc + to_f(py[((size_t)s * B + b) * T + t]) - pcur[t + 1]);
       ca[T - t] = c;
       cb[T - t] = h;
     }

@@ -43,8 +43,8 @@ _SIGNATURES = {
     # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, pxg, pyg,
     # threads, dtype, stream
     "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
-    # px, py, boundary, lo, K, S, B, T, modified, p (scratch), scores, pxg,
-    # pyg, threads, dtype, stream
+    # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+3 rows),
+    # scores, pxg, pyg, threads, dtype, stream
     "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],
     # lm, symbols, te, am, uni, B, S, T, C, blank, modified, bf16, side,
     # img_hi, img_lo, px, py, nd, d, amax, duni, stream

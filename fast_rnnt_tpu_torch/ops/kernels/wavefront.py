@@ -44,6 +44,9 @@ backward_rows_plain = _backward_rows_plain
 _MAX_SMEM = 232_448  # bytes of shared memory one Hopper block may use
 # storage dtype -> the kernels' StorageCode (csrc/wavefront_rows.cuh)
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the fused kernel's block: one warp sweeps an utterance's diagonals, seven
+# move its tiles between device and shared memory
+_FUSED_THREADS = 256
 
 
 def _threads(width: int) -> int:
@@ -54,7 +57,7 @@ def _threads(width: int) -> int:
 
 def _check_cuda(px_rows, py_rows, boundary, lo, extra=()):
     """Device, dtype, shape and contiguity checks; returns (S, B, T', T,
-    threads, storage code).  ``extra`` tensors must be float32."""
+    storage code).  ``extra`` tensors must be float32."""
     S, B, T1 = px_rows.shape
     if py_rows.dim() != 3 or py_rows.shape[:2] != (S + 1, B):
         raise ValueError(f"py_rows {tuple(py_rows.shape)} != ({S + 1}, {B}, T)")
@@ -82,11 +85,18 @@ def _check_cuda(px_rows, py_rows, boundary, lo, extra=()):
             raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+    return S, B, T1, T, _STORAGE[px_rows.dtype]
+
+
+def _check_split(px_rows, py_rows, boundary, lo, extra=()):
+    """``_check_cuda`` plus the split kernels' shared-memory cap (four
+    (T+1)-float rows); returns (S, B, T', T, threads, storage code)."""
+    S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo, extra)
     nt = _threads(T + 1)
     smem = (4 * (T + 1) + nt) * 4
     if smem > _MAX_SMEM:
         raise ValueError(f"T={T} needs {smem} B of shared memory (> {_MAX_SMEM})")
-    return S, B, T1, T, nt, _STORAGE[px_rows.dtype]
+    return S, B, T1, T, nt, code
 
 
 def forward_rows(
@@ -101,7 +111,7 @@ def forward_rows(
     and the optional band ``lo <= s < lo + K`` are masked inside."""
     if not px_rows.is_cuda:
         return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
-    S, B, T1, T, nt, code = _check_cuda(px_rows, py_rows, boundary, lo)
+    S, B, T1, T, nt, code = _check_split(px_rows, py_rows, boundary, lo)
     p_rows = torch.empty((S + 1, B, T + 1), dtype=torch.float32, device=px_rows.device)
     scores = torch.empty((B,), dtype=torch.float32, device=px_rows.device)
     if B == 0:
@@ -132,7 +142,7 @@ def backward_rows(
     the storage dtype of px/py."""
     if not px_rows.is_cuda:
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
-    S, B, T1, T, nt, code = _check_cuda(
+    S, B, T1, T, nt, code = _check_split(
         px_rows, py_rows, boundary, lo,
         extra=(("p_rows", p_rows), ("ans_grad", ans_grad)),
     )
@@ -183,25 +193,28 @@ def fused_rows(
     """Forward and occupancy backward (seed 1) in one launch, s-major:
     returns (scores [B] float32, px_grad [S, B, T'], py_grad [S+1, B, T])
     as :func:`forward_rows` then :func:`backward_rows` with ``ans_grad = 1``
-    do.  p goes to a float32 scratch tensor that is not returned; the
-    kernel takes every shape the split kernels take and raises past their
-    shared-memory limit, as they do."""
+    do, to float32 round-off (the kernel sweeps anti-diagonals, not rows).
+    p and the backward's two hand-off rows go to a float32 scratch tensor
+    (S+3, B, T+1) that is not returned; the kernel keeps no row in shared
+    memory, so T has no cap beyond the scratch's int32 indexing."""
     if not px_rows.is_cuda:
         return fused_rows_plain(px_rows, py_rows, boundary, lo, K)
-    S, B, T1, T, nt, code = _check_cuda(px_rows, py_rows, boundary, lo)
+    S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
+    if (S + 3) * B * (T + 1) >= 2**31:
+        raise ValueError(f"S={S} B={B} T={T}: the scratch (S+3, B, T+1) exceeds int32 indexing")
     dev = px_rows.device
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     px_grad = torch.empty_like(px_rows)
     py_grad = torch.empty_like(py_rows)
     if B == 0:
         return scores, px_grad, py_grad
-    p_scratch = torch.empty((S + 1, B, T + 1), dtype=torch.float32, device=dev)
+    p_scratch = torch.empty((S + 3, B, T + 1), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     err = lib.frt_wavefront_fused(
         _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(boundary),
         _build.ptr(lo), int(K), S, B, T, int(T1 == T),
         _build.ptr(p_scratch), _build.ptr(scores), _build.ptr(px_grad),
-        _build.ptr(py_grad), nt, code, _build.stream_ptr(dev),
+        _build.ptr(py_grad), _FUSED_THREADS, code, _build.stream_ptr(dev),
     )
     _build.check(err, "wavefront_fused")
     LAUNCHES["fused"] += 1

@@ -176,11 +176,17 @@ def _build_smoothed_rows_plain(
     # included, as the reference does
     lmonly_norm = lm_probs.sum(dim=2, keepdim=True)  # (B, S+1, 1)
     unigram = (lm_probs / lmonly_norm).mean(dim=(0, 1)) + _TINY  # (C,)
-    amonly_norm = torch.log(torch.einsum("btc,c->bt", am_probs, unigram))[None] + am_max_r
+    # the am-only normalizer contracts into float32, as the JAX package's
+    # preferred_element_type=float32 einsum does (bf16 exps stay bf16)
+    amonly_norm = torch.log(torch.einsum("btc,c->bt", am_probs.float(), unigram.float()))[None]
+    amonly_norm = amonly_norm + am_max_r
     uni_log = torch.log(unigram)
     lmonly_norm = torch.log(lmonly_norm).permute(1, 0, 2) + lm_max_r  # (S+1, B, 1)
 
     px_am, px_lm = _px_gathers(lm, am, symbols)
+    # px_am is float32 in the JAX package (a one-hot contraction), so the
+    # sums px_am + px_lm and px_am + px_uni are formed in float32
+    px_am = px_am.float()
     sym, valid = _symbol_index(symbols, am.shape[2])
     px_uni = torch.where(valid, uni_log[sym], 0.0).t()[:, :, None]  # (S, B, 1)
     px =_pad_px(px_am + px_lm, modified) - _pad_px(normalizers[:S], modified, 0.0)
@@ -195,6 +201,9 @@ def _build_smoothed_rows_plain(
     py_lmonly = lm[:, :, termination_symbol].t()[:, :, None] - lmonly_norm
 
     c, l, a = _smoothing_scales(lm_only_scale, am_only_scale)
+    # the lm-only terms stay in lm's dtype; a Python scale takes that dtype
+    # first, as in JAX (a bf16 term times bf16(0.2), not float32 0.2)
+    l = torch.tensor(l, dtype=px_lmonly.dtype)
     px = px * c + px_lmonly * l + px_amonly * a
     py = py * c + py_lmonly * l + py_amonly * a
     if rnnt_type == "regular" and boundary is not None:

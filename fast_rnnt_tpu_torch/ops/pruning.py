@@ -121,10 +121,13 @@ def do_rnnt_pruning(
     ``am_pruned[b, t, k] = am[b, t]`` (a broadcast view) and ``lm_pruned[b,
     t, k] = lm[b, ranges[b, t, k]]``, both [B, T, s_range, C] (reference
     rnnt_loss.py:763-812).  A range outside [0, S] reads a row of zeros, as
-    the JAX package's one-hot product does."""
+    the JAX package's one-hot product does.  ``am_pruned`` keeps am's dtype;
+    ``lm_pruned`` is at least float32 (a bf16 or f16 lm comes back float32),
+    as the JAX package's ``preferred_element_type=float32`` product gives."""
     B, T, K = ranges.shape
     S1, C = lm.shape[1], lm.shape[2]
     am_pruned = am[:, :, None, :].expand(B, T, K, C)
+    lm = lm.to(torch.promote_types(lm.dtype, torch.float32))
     # index S+1 is an appended zero row
     lm_pad = torch.cat([lm, lm.new_zeros((B, 1, C))], dim=1)
     rg = ranges.long()

@@ -92,6 +92,99 @@ def test_float32_plain_build_unchanged_by_the_bf16_contract():
     assert px.dtype == torch.float32
 
 
+@pytest.mark.parametrize("seed", [14, 15, 21])
+@pytest.mark.parametrize("rnnt_type", TYPES)
+def test_bf16_smoothed_losses_match_jax(rnnt_type, seed):
+    """The smoothed losses on bf16 lm and am against the JAX package's eager
+    XLA pipeline, to relative 1e-4 (the pruned one where the ranges agree).
+    The JAX build contracts the am-only normalizer and the px gathers into
+    float32, so px_am + px_lm and px_am + px_uni are float32 sums there."""
+    am, lm, sym, bnd = loss_inputs(seed, B=2, T=16, S=5, C=9)
+    am_t, lm_t = _bf16(am, lm)
+    am_j, lm_j = jnp.asarray(am).astype(jnp.bfloat16), jnp.asarray(lm).astype(jnp.bfloat16)
+    got = ft.rnnt_loss_smoothed(lm_t, am_t, tt(sym), 0, 0.2, 0.1, tt(bnd), rnnt_type,
+                                reduction="none")
+    want = frt.rnnt_loss_smoothed(lm_j, am_j, jj(sym), 0, 0.2, 0.1, jj(bnd), rnnt_type,
+                                  reduction="none", impl="xla")
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, err_msg="smoothed")
+    s_t, p_t, r_t = ft.rnnt_loss_smoothed_pruned(lm_t, am_t, tt(sym), 0, 3, 0.2, 0.1, tt(bnd),
+                                                 rnnt_type, reduction="none")
+    s_j, p_j, r_j = frt.rnnt_loss_smoothed_pruned(lm_j, am_j, jj(sym), 0, 3, 0.2, 0.1, jj(bnd),
+                                                  rnnt_type, reduction="none", impl="xla")
+    np.testing.assert_allclose(to_np(s_t), np.asarray(s_j), rtol=1e-4, err_msg="smoothed stage")
+    agree = _agree(r_t, r_j)
+    np.testing.assert_allclose(to_np(p_t)[agree], np.asarray(p_j)[agree], rtol=1e-4, err_msg="pruned")
+
+
+def test_float32_smoothed_build_unchanged_by_the_bf16_contract():
+    """float32 inputs take the same ops as before the bf16 repair: the
+    plain smoothed build equals the interpolation written out on float32
+    tensors, bit for bit."""
+    from fast_rnnt_tpu_torch.ops import lattice as tlat
+
+    am, lm, sym, bnd = loss_inputs(24, B=2, T=9, S=4, C=7)
+    lm_t, am_t, sym_t, bnd_t = tt(lm, am, sym, bnd)
+    px, py = tlat.get_rnnt_logprobs_smoothed_rows(lm_t, am_t, sym_t, 0, 0.2, 0.1, bnd_t)
+    norm, amx, amp, lmx, lmp = tlat._normalizers_plain(lm_t, am_t)
+    lsum = lmp.sum(dim=2, keepdim=True)
+    uni = (lmp / lsum).mean(dim=(0, 1)) + float(np.finfo(np.float32).tiny)
+    amonly = torch.log(torch.einsum("btc,c->bt", amp, uni))[None] + amx.permute(2, 0, 1)
+    lmonly = torch.log(lsum).permute(1, 0, 2) + lmx.permute(1, 0, 2)
+    px_am, px_lm = tlat._px_gathers(lm_t, am_t, sym_t)
+    px_uni = torch.log(uni)[sym_t.long()].t()[:, :, None]
+    pad = tlat._pad_px
+    c, l, a = tlat._smoothing_scales(0.2, 0.1)
+    want_px = (pad(px_am + px_lm, False) - pad(norm[:4], False, 0.0)) * c + (px_lm - lmonly[:4]) * l
+    want_px = want_px + (pad(px_am + px_uni, False) - pad(amonly.expand(4, -1, -1), False, 0.0)) * a
+    want_px = tlat._kill_t_end(want_px, bnd_t[:, 3])
+    want_py = (am_t[:, :, 0][None] + lm_t[:, :, 0].t()[:, :, None] - norm) * c
+    want_py = want_py + (lm_t[:, :, 0].t()[:, :, None] - lmonly) * l
+    want_py = want_py + (am_t[:, :, 0][None] + torch.log(uni)[0] - amonly) * a
+    assert px.dtype == torch.float32 and torch.equal(px, want_px)
+    assert torch.equal(py, want_py)
+
+
+def test_do_rnnt_pruning_bf16_lm_returns_float32():
+    """lm_pruned is float32 for a bf16 or f16 lm, as the JAX package's
+    float32 one-hot product gives, with the same values; am_pruned keeps
+    am's dtype."""
+    am, lm, sym, bnd = loss_inputs(25, B=2, T=8, S=4, C=6)
+    ranges = np.minimum(np.arange(8)[None, :, None] // 2 + np.arange(3), 4).repeat(2, 0).astype(np.int32)
+    am_j, lm_j = jnp.asarray(am).astype(jnp.bfloat16), jnp.asarray(lm).astype(jnp.bfloat16)
+    jam_p, jlm_p = frt.do_rnnt_pruning(am_j, lm_j, jj(ranges))
+    for dt in (torch.bfloat16, torch.float16):
+        am_t, lm_t = torch.from_numpy(am).to(dt), torch.from_numpy(lm).to(dt)
+        am_p, lm_p = ft.do_rnnt_pruning(am_t, lm_t, tt(ranges))
+        assert am_p.dtype == dt and lm_p.dtype == torch.float32
+        if dt == torch.bfloat16:
+            assert jam_p.dtype == jnp.bfloat16 and jlm_p.dtype == jnp.float32
+            np.testing.assert_array_equal(to_np(lm_p), np.asarray(jlm_p))
+            np.testing.assert_array_equal(to_np(am_p), np.asarray(jam_p.astype(jnp.float32)))
+    lm_p = ft.do_rnnt_pruning(*tt(am, lm, ranges))[1]
+    assert lm_p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rnnt_type", TYPES)
+def test_bf16_recipe_with_tanh_joiner_matches_jax(rnnt_type):
+    """The recipe on bf16 am and lm: do_rnnt_pruning, the joiner
+    tanh(am_p + lm_p) (summed in float32, as the JAX package's float32
+    lm_p makes it; not cast), rnnt_loss_pruned with the JAX ranges; losses
+    to relative 1e-4."""
+    am, lm, sym, bnd = loss_inputs(26, B=3, T=12, S=5, C=10)
+    am_j, lm_j = jnp.asarray(am).astype(jnp.bfloat16), jnp.asarray(lm).astype(jnp.bfloat16)
+    _, (gx, gy) = frt.rnnt_loss_simple(lm_j, am_j, jj(sym), 0, jj(bnd), rnnt_type, reduction="sum",
+                                       calc_gradients=True, impl="xla")
+    ranges = np.asarray(frt.get_rnnt_prune_ranges(gx, gy, jj(bnd), 3))
+    jam_p, jlm_p = frt.do_rnnt_pruning(am_j, lm_j, jj(ranges))
+    want = frt.rnnt_loss_pruned(jnp.tanh(jam_p + jlm_p), jj(sym), jj(ranges), 0, jj(bnd), rnnt_type,
+                                reduction="none", impl="xla")
+    am_t, lm_t = _bf16(am, lm)
+    am_p, lm_p = ft.do_rnnt_pruning(am_t, lm_t, tt(ranges))
+    got = ft.rnnt_loss_pruned(torch.tanh(am_p + lm_p), tt(sym), tt(ranges), 0, tt(bnd), rnnt_type,
+                              reduction="none")
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, err_msg="pruned")
+
+
 def _tf32(x):
     """Round float32 to TF32 (10 explicit mantissa bits), to nearest, ties
     away from zero: cvt.rna.tf32.f32."""
