@@ -6,10 +6,11 @@
 Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
 each kernel against its plain PyTorch version on the card (small ragged
 shapes, with the recursion kernels also in bfloat16 and float16 storage,
-the build kernels also on bf16 lm and am, and the fused kernel also
-against the split pair; the golden
-path-enumeration vectors; the headline shape, with the fused kernel timed
-against the split pair), then drives these paths at B=30, T=1000, S=100,
+the build kernels also on bf16 and f16 lm and am, the sweep pair seeded
+with ones against the fused kernel bit for bit, and the row-scan pair;
+the golden path-enumeration vectors; the headline shape, with the sweep
+pair timed against the row scans, unbanded and banded), then drives these
+paths at B=30, T=1000, S=100,
 C=500, s_range=5, on inputs made exactly as ``bench.py`` makes them
 (seed 0), each with every launch count set to 0 just before and read just
 after:
@@ -33,13 +34,14 @@ after:
   * the unpruned ``rnnt_loss`` of full logits at B=4.
 
 The occupancies of the ``calc_gradients`` calls come from the fused
-kernel, a diagonal sweep.  For the A/B behind that choice, the forward,
-training, recipe and full-logits steps also run with the split pair (row
-scans) in its place (``split`` arm, swapped in here, not in the package),
-and both arms are timed in turns.  The two sum in another order, so stage
-1's occupancies differ in the last float32 bits: every raw window-argmax
-flip between them must be a near-tie, and the arms' losses and gradients
-agree on the utterances whose ranges agree.
+kernel, a diagonal sweep, and stage 2 (the scores op and its backward)
+runs the same kernel's forward and backward phases launched apart.  Two
+A/B arms are swapped in here, not in the package: ``split`` runs the
+phases apart in the fused kernel's place, and must give the shipped
+arm's bits; ``scan`` runs stage 2 through the row-scan pair, the
+recursion before the sweep pair (stage 1 and the ranges are the same in
+both), and is held to the shipped arm's losses and gradients at the train
+tolerances.  Each arm is timed in turns against the shipped one.
 
 Last it measures where the steps' time goes: device
 time per kernel and the device's busy share under ``torch.profiler``, and
@@ -126,7 +128,7 @@ def in_turns(*steps):
 
 
 def _split_rows(px_rows, py_rows, boundary, lo=None, K=0):
-    """The split pair (forward, then the backward seeded with ones), in the
+    """The sweep pair (forward, then the backward seeded with ones), in the
     fused kernel's place for the ``split`` arm."""
     import torch
 
@@ -140,19 +142,23 @@ def _split_rows(px_rows, py_rows, boundary, lo=None, K=0):
 @contextlib.contextmanager
 def arm(name):
     """``"shipped"``: the package as it is; ``"split"``: the calc_gradients
-    calls run the split pair in place of the fused kernel; ``"vjp"``: the
-    scores op's ``_FUSE_SCORES_VJP`` switch on."""
+    calls run the sweep pair in place of the fused kernel; ``"scan"``: the
+    scores op (stage 2) runs the row-scan pair in place of the sweep pair;
+    ``"vjp"``: the scores op's ``_FUSE_SCORES_VJP`` switch on."""
     from fast_rnnt_tpu_torch.ops import recursion as trec
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
 
-    fused_rows = wavefront.fused_rows
+    saved = (wavefront.fused_rows, wavefront.forward_rows, wavefront.backward_rows)
     if name == "split":
         wavefront.fused_rows = _split_rows
+    if name == "scan":
+        wavefront.forward_rows = wavefront.forward_rows_scan
+        wavefront.backward_rows = wavefront.backward_rows_scan
     trec._FUSE_SCORES_VJP = name == "vjp"
     try:
         yield
     finally:
-        wavefront.fused_rows = fused_rows
+        wavefront.fused_rows, wavefront.forward_rows, wavefront.backward_rows = saved
         trec._FUSE_SCORES_VJP = False
 
 
@@ -221,17 +227,15 @@ def grad_err(got, want, name, tol=GRAD_TOL, step=0.0):
 
 
 def arm_diff(got, want, name):
-    """One step's outputs in another arm against the shipped arm's.  The
-    split pair and the fused kernel sum in another order, so where a window
-    start flips at a near-tie (kernels-headline holds every raw flip
-    between them to the near-tie rule) the ranges and the pruned stage move
-    with it: the outputs are compared on the utterances whose ranges agree
-    (all, for a step without ranges), per-utterance outputs (the losses
-    among them) on their rows and a batch sum only when every utterance
-    agrees.  Losses (a scalar or one per
-    utterance) are held to GRAD_TOL of max |shipped|; occupancies and
-    gradients, which carry the two recursions' fp32 round-off as the plain
-    reference's do, to TRAIN_GRAD_TOL."""
+    """One step's outputs in another arm against the shipped arm's.  Where
+    the two arms' stage 1 sums in another order, a window start may flip
+    at a near-tie and the ranges and the pruned stage move with it: the
+    outputs are compared on the utterances whose ranges agree (all, for a
+    step without ranges), per-utterance outputs (the losses among them) on
+    their rows and a batch sum only when every utterance agrees.  Losses (a
+    scalar or one per utterance) are held to GRAD_TOL of max |shipped|;
+    occupancies and gradients, which carry the two recursions' fp32
+    round-off as the plain reference's do, to TRAIN_GRAD_TOL."""
     import torch
 
     if all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -280,6 +284,27 @@ def bound(nbytes, nflops, rate=FP32_FLOP_PER_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def same_bits(got, want, name):
+    """The ``split`` arm runs the fused kernel's own phases: its outputs must
+    be the shipped arm's bits."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise Failed(f"{name}: the sweep pair's outputs differ from the fused kernel's")
+    return "bit-equal"
+
+
+def scan_diff(got, want, name):
+    """The ``scan`` arm against the shipped one: the same stage 1, so the
+    ranges (last) must be equal, and the losses and gradients within
+    arm_diff's tolerances on every utterance."""
+    import torch
+
+    if not torch.equal(got[-1], want[-1]):
+        raise Failed(f"{name}: ranges differ from the shipped arm's (stage 1 is the same)")
+    return arm_diff(got, want, name)
+
+
 def kernel_bounds(bnd, build_rate=3, esize=4):
     """Bound of each kernel at this run's headline inputs: each input read
     once, each output written once, fp32 (4 bytes).  The build kernels need
@@ -310,6 +335,9 @@ def kernel_bounds(bnd, build_rate=3, esize=4):
         "latbuild_fwd": bound(4 * (x * (am + lm) + sym + B + px + py), gemm, **mm),
         "wavefront_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
         "wavefront_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
+        # the row scans compute the same functions
+        "wavefront_scan_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
+        "wavefront_scan_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
         # fwd + bwd with p kept in scratch: px, py and the boundary in, the
         # scores and both occupancies out
         "wavefront_fused": bound(4 * (npx + npy + 4 * B + B + px + py), 17 * ncell),
@@ -429,6 +457,21 @@ def build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc):
         raise Failed(f"bf16 build bwd: gradient dtypes {g[0].dtype} {g[1].dtype}")
     e.append(bf16_contract_err(g, want, "bf16 build bwd (autograd)")[0])
     err["latbuild_bwd/bfloat16"] = max(e)
+
+    # f16 lm and am run the float32 kernels on their casts (as the Pallas
+    # build contracts them), the gradients cast back to f16
+    lmh_l, amh_l = lm.half().requires_grad_(), am.half().requires_grad_()
+    out = latbuild.lattice_rows(lmh_l, amh_l, sym, blank, rt, bnd)
+    lm32, am32 = lmh_l.detach().float(), amh_l.detach().float()
+    err["latbuild_fwd/float16"] = max(
+        finite_err(a, b, f"f16 build {n}", 1e-4, 1e-5)[0]
+        for a, b, n in zip(out, latbuild.lattice_rows_plain(lm32, am32, sym, blank, rt, bnd), ("px", "py")))
+    g = torch.autograd.grad(out, [lmh_l, amh_l], [dpx, dpy])
+    if g[0].dtype != torch.float16 or g[1].dtype != torch.float16:
+        raise Failed(f"f16 build bwd: gradient dtypes {g[0].dtype} {g[1].dtype}")
+    w_lm, w_am, _ = latbuild.lattice_rows_bwd_plain(lm32, am32, sym, te, dpx, dpy, blank, modified)
+    err["latbuild_bwd/float16"] = max(grad_err(a.float(), b, f"f16 build bwd {n}", GRAD_TOL, 2.0**-10)[0]
+                                      for a, b, n in zip(g, (w_lm, w_am), ("d_lm", "d_am")))
     return err
 
 
@@ -441,19 +484,26 @@ STORAGE_STEP = {"float32": 0.0, "bfloat16": 2.0**-7, "float16": 2.0**-10}
 
 def recursion_checks(px, py, bnd, lo, K):
     """On one small case, in float32, bfloat16 and float16 storage: the
-    fused kernel against its plain version and against the split pair (both
-    to the same tolerance: the diagonal sweep sums in another order than
-    either), its determinism, and the split kernels against their plain
-    versions.  Returns ({kernel or kernel/dtype: max abs err}, max |fused -
-    split|)."""
+    sweep pair against its plain versions (p in every cell, a random seed
+    per utterance holding 0 and a negative value), the pair seeded with
+    ones against the fused kernel bit for bit, the fused kernel against its
+    plain version, both deterministic, and the row-scan pair against its
+    plain versions and the fused kernel (to the fused kernel's plain
+    tolerance: a diagonal sweep sums in another order than the row scans).
+    Returns ({kernel or kernel/dtype: max abs err}, max |fused - scan|)."""
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
 
-    err, vs_split = {}, 0.0
-    ones = torch.ones(px.shape[1], device=px.device)
+    err, vs_scan = {}, 0.0
+    Bc = px.shape[1]
+    ones = torch.ones(Bc, device=px.device)
+    ag = torch.randn(Bc, device=px.device) * 2
+    ag[0] = 0.0
+    ag[-1] = -abs(ag[-1].item()) - 0.5
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dt).split(".")[1]
+        sfx = "" if dt == torch.float32 else f"/{name}"
         occ_rtol = 1e-4 + STORAGE_STEP[name]
         x, y = px.to(dt), py.to(dt)
         sc_f, gx_f, gy_f = wavefront.fused_rows(x, y, bnd, lo, K)
@@ -467,38 +517,50 @@ def recursion_checks(px, py, bnd, lo, K):
         # values: its occupancies are held to 1e-3 relative (the bound of
         # the long-utterance GPU tests)
         sc_p, gx_p, gy_p = wavefront.fused_rows_plain(x, y, bnd, lo, K)
-        key = "wavefront_fused" + ("" if dt == torch.float32 else f"/{name}")
-        err[key] = max(
+        err["wavefront_fused" + sfx] = max(
             finite_err(sc_f, sc_p, f"fused scores ({name})", 1e-4, 1e-5)[0],
             finite_err(gx_f, gx_p, f"fused px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
             finite_err(gy_f, gy_p, f"fused py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
         )
+        # the sweep pair: the forward against its plain version in every
+        # cell of p, the backward on the kernel's p with random seeds
         p_k, sc_k = wavefront.forward_rows(x, y, bnd, lo, K)
-        gx_k, gy_k = wavefront.backward_rows(x, y, p_k, bnd, ones, lo, K)
-        vs_split = max(
-            vs_split,
-            finite_err(sc_f, sc_k, f"fused vs split scores ({name})", 1e-4, 1e-5)[0],
-            finite_err(gx_f, gx_k, f"fused vs split px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
-            finite_err(gy_f, gy_k, f"fused vs split py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
-        )
-        if dt == torch.float32:
-            continue  # the float32 split kernels are checked by the caller
         p_p, sc_p = wavefront.forward_rows_plain(x, y, bnd, lo, K)
-        err[f"wavefront_fwd/{name}"] = max(
-            finite_err(p_k, p_p, f"fwd p ({name})", 1e-4, 1e-5)[0],
-            finite_err(sc_k, sc_p, f"fwd scores ({name})", 1e-4, 1e-5)[0],
+        err["wavefront_fwd" + sfx] = max(
+            finite_err(p_k, p_p, f"sweep fwd p ({name})", 1e-4, 1e-5)[0],
+            finite_err(sc_k, sc_p, f"sweep fwd scores ({name})", 1e-4, 1e-5)[0],
         )
-        # the backward kernel against its plain version on the same p
-        ag = torch.rand(px.shape[1], device=px.device) + 0.5
-        gx_k, gy_k = wavefront.backward_rows(x, y, p_k, bnd, ag, lo, K)
-        gx_p, gy_p = wavefront.backward_rows_plain(x, y, p_k, bnd, ag, lo, K)
-        if gx_k.dtype != dt or gy_k.dtype != dt:
-            raise Failed(f"bwd ({name}): dtypes {gx_k.dtype} {gy_k.dtype}")
-        err[f"wavefront_bwd/{name}"] = max(
-            finite_err(gx_k, gx_p, f"bwd px_grad ({name})", 1e-5, occ_rtol)[0],
-            finite_err(gy_k, gy_p, f"bwd py_grad ({name})", 1e-5, occ_rtol)[0],
+        g_k = wavefront.backward_rows(x, y, p_k, bnd, ag, lo, K)
+        if g_k[0].dtype != dt or g_k[1].dtype != dt:
+            raise Failed(f"sweep bwd ({name}): dtypes {g_k[0].dtype} {g_k[1].dtype}")
+        err["wavefront_bwd" + sfx] = max(
+            finite_err(a, b, f"sweep bwd {n} ({name})", 1e-5, occ_rtol)[0]
+            for a, b, n in zip(g_k, wavefront.backward_rows_plain(x, y, p_k, bnd, ag, lo, K),
+                               ("px_grad", "py_grad")))
+        again = (*wavefront.forward_rows(x, y, bnd, lo, K), *wavefront.backward_rows(x, y, p_k, bnd, ag, lo, K))
+        if not all(torch.equal(a, b) for a, b in zip((p_k, sc_k, *g_k), again)):
+            raise Failed(f"sweep pair ({name}): a second run gives other bits")
+        pair = (sc_k, *wavefront.backward_rows(x, y, p_k, bnd, ones, lo, K))
+        same_bits(pair, (sc_f, gx_f, gy_f), f"sweep pair vs fused ({name})")
+        # the row scans against their plain versions and the fused kernel
+        p_s, sc_s = wavefront.forward_rows_scan(x, y, bnd, lo, K)
+        err["wavefront_scan_fwd" + sfx] = max(
+            finite_err(p_s, p_p, f"scan fwd p ({name})", 1e-4, 1e-5)[0],
+            finite_err(sc_s, sc_p, f"scan fwd scores ({name})", 1e-4, 1e-5)[0],
         )
-    return err, vs_split
+        err["wavefront_scan_bwd" + sfx] = max(
+            finite_err(a, b, f"scan bwd {n} ({name})", 1e-5, occ_rtol)[0]
+            for a, b, n in zip(wavefront.backward_rows_scan(x, y, p_s, bnd, ag, lo, K),
+                               wavefront.backward_rows_plain(x, y, p_s, bnd, ag, lo, K),
+                               ("px_grad", "py_grad")))
+        gx_s, gy_s = wavefront.backward_rows_scan(x, y, p_s, bnd, ones, lo, K)
+        vs_scan = max(
+            vs_scan,
+            finite_err(sc_f, sc_s, f"fused vs scan scores ({name})", 1e-4, 1e-5)[0],
+            finite_err(gx_f, gx_s, f"fused vs scan px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
+            finite_err(gy_f, gy_s, f"fused vs scan py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
+        )
+    return err, vs_scan
 
 
 def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
@@ -664,7 +726,6 @@ def headline_kernels(am, lm, sym, bnd):
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
-    from fast_rnnt_tpu_torch.ops.pruning import _window_argmax, _window_scores
 
     dev = am.device
     report = {}
@@ -762,40 +823,57 @@ def headline_kernels(am, lm, sym, bnd):
     )
     del g_k, g_p, res, w, dpx, dpy, dnd
 
+    # the sweep pair (stage 2) and the row-scan pair against their plain
+    # versions: p in every cell, the backward seeded with ones (the
+    # occupancies the ranges and stage 1 use) and with random seeds
     p_k, sc_k = wavefront.forward_rows(px_k, py_k, bnd)
     p_p, sc_p = wavefront.forward_rows_plain(px_k, py_k, bnd)
     e = worst(finite_err(p_k, p_p, "headline fwd p", 1e-4, 1e-5),
               finite_err(sc_k, sc_p, "headline fwd scores", 1e-4, 1e-5))
+    fwd_plain_ms = cuda_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1)
     report["wavefront_fwd"] = dict(
-        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
-        ms=cuda_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)),
-        plain_ms=cuda_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1),
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
+        ms=cuda_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
     )
-
     ones = torch.ones(B, device=dev)
+    ag = torch.rand(B, device=dev, generator=gen) * 4 - 2  # seeds in [-2, 2)
     gx_k, gy_k = wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)
     gx_p, gy_p = wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones)
     e = worst(finite_err(gx_k, gx_p, "headline bwd px_grad", 1e-5, 1e-4),
-              finite_err(gy_k, gy_p, "headline bwd py_grad", 1e-5, 1e-4))
+              finite_err(gy_k, gy_p, "headline bwd py_grad", 1e-5, 1e-4),
+              *(finite_err(a, b, f"headline bwd {n} (random seeds)", 1e-5, 1e-4) for a, b, n in zip(
+                  wavefront.backward_rows(px_k, py_k, p_k, bnd, ag),
+                  wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ag), ("px_grad", "py_grad"))))
+    bwd_plain_ms = cuda_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1)
     report["wavefront_bwd"] = dict(
-        err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|",
-        ms=cuda_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)),
-        plain_ms=cuda_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1),
+        err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|, seeds 1 and random",
+        ms=cuda_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)), plain_ms=bwd_plain_ms,
     )
+    p_s, sc_s = wavefront.forward_rows_scan(px_k, py_k, bnd)
+    e = worst(finite_err(p_s, p_p, "headline scan fwd p", 1e-4, 1e-5),
+              finite_err(sc_s, sc_p, "headline scan fwd scores", 1e-4, 1e-5))
+    report["wavefront_scan_fwd"] = dict(
+        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
+        ms=cuda_ms(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
+    )
+    gx_s, gy_s = wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)
+    e = worst(*(finite_err(a, b, f"headline scan bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
+        (gx_s, gy_s), wavefront.backward_rows_plain(px_k, py_k, p_s, bnd, ones), ("px_grad", "py_grad"))))
+    report["wavefront_scan_bwd"] = dict(
+        err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|",
+        ms=cuda_ms(lambda: wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)), plain_ms=bwd_plain_ms,
+    )
+    del p_p
 
-    # the fused kernel: against its plain version and against the split
-    # pair (to the same tolerance: the diagonal sweep sums in another order
-    # than the row scans), twice for its determinism, and timed against the
-    # split pair in turns (split, fused, fused, split)
-    def split_pair(x, y):
-        p, _ = wavefront.forward_rows(x, y, bnd)
-        return wavefront.backward_rows(x, y, p, bnd, ones)
-
-    # the plain version runs its own forward: its p differs from the
-    # kernel's by up to ~5e-3 at |p| ~ 4e3 (the fwd check above), and an
-    # occupancy is the exp of a difference of three p values, so the
-    # occupancies are held to the JAX package's fp32 occupancy bound, 1e-2
-    # relative (fast_rnnt_tpu/ops/recursion.py:867)
+    # the fused kernel: against its plain version, twice for its
+    # determinism, bit for bit against the sweep pair (its own phases), and
+    # against the row scans to the plain version's tolerance (a diagonal
+    # sweep sums in another order than the row scans).  The plain version
+    # runs its own forward: its p differs from the kernel's by up to ~5e-3
+    # at |p| ~ 4e3 (the fwd check above), and an occupancy is the exp of a
+    # difference of three p values, so the occupancies are held to the JAX
+    # package's fp32 occupancy bound, 1e-2 relative
+    # (fast_rnnt_tpu/ops/recursion.py:867)
     sc_f, gx_f, gy_f = wavefront.fused_rows(px_k, py_k, bnd)
     sc_fp, gx_fp, gy_fp = wavefront.fused_rows_plain(px_k, py_k, bnd)
     e = worst(finite_err(sc_f, sc_fp, "headline fused scores", 1e-4, 1e-5),
@@ -804,54 +882,111 @@ def headline_kernels(am, lm, sym, bnd):
     del sc_fp, gx_fp, gy_fp
     if not all(torch.equal(a, b) for a, b in zip((sc_f, gx_f, gy_f), wavefront.fused_rows(px_k, py_k, bnd))):
         raise Failed("headline fused: a second run gives other bits")
-    vs_split = worst(finite_err(sc_f, sc_k, "headline fused vs split scores", 1e-4, 1e-5),
-                     finite_err(gx_f, gx_k, "headline fused vs split px_grad", 1e-5, 1e-2),
-                     finite_err(gy_f, gy_k, "headline fused vs split py_grad", 1e-5, 1e-2))
-    # the split arm swaps the split pair in for stage 1 on this lattice: every
-    # raw window-argmax flip between the two must be a near-tie
-    s1_flips = range_flips(_window_argmax(gx_f, gy_f, S_RANGE), _window_argmax(gx_k, gy_k, S_RANGE),
-                           _window_scores(gx_k, gy_k, S_RANGE), "stage 1 fused vs split raw window argmax")
-    del sc_f, gx_f, gy_f
-    ab = [cuda_ms(lambda: split_pair(px_k, py_k)), cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)),
-          cuda_ms(lambda: wavefront.fused_rows(px_k, py_k, bnd)), cuda_ms(lambda: split_pair(px_k, py_k))]
-    # bf16 storage at the headline shape (the recipe's stage 2 runs the split
-    # pair in it): the split kernels against their plain versions as the
-    # float32 ones are held, the fused kernel against its plain version and
-    # against the split pair, and both arms' times
+    same_bits((sc_k, gx_k, gy_k), (sc_f, gx_f, gy_f), "headline sweep pair vs fused")
+    vs_scan = worst(finite_err(sc_f, sc_s, "headline fused vs scan scores", 1e-4, 1e-5),
+                    finite_err(gx_f, gx_s, "headline fused vs scan px_grad", 1e-5, 1e-2),
+                    finite_err(gy_f, gy_s, "headline fused vs scan py_grad", 1e-5, 1e-2))
+    del sc_f, gx_f, gy_f, gx_s, gy_s
+
+    # under the main path's own stage-2 band: the ranges of these
+    # occupancies, as the main path computes them
+    lo = ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
+    bd = (lo, S_RANGE)
+    pb, scb = wavefront.forward_rows(px_k, py_k, bnd, *bd)
+    pb_p, scb_p = wavefront.forward_rows_plain(px_k, py_k, bnd, *bd)
+    ps_b, scs_b = wavefront.forward_rows_scan(px_k, py_k, bnd, *bd)
+    e_band = worst(finite_err(pb, pb_p, "headline banded fwd p", 1e-4, 1e-5),
+                   finite_err(scb, scb_p, "headline banded fwd scores", 1e-4, 1e-5),
+                   finite_err(ps_b, pb_p, "headline banded scan fwd p", 1e-4, 1e-5),
+                   finite_err(scs_b, scb_p, "headline banded scan fwd scores", 1e-4, 1e-5),
+                   *(finite_err(a, b, f"headline banded bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
+                       wavefront.backward_rows(px_k, py_k, pb, bnd, ag, *bd),
+                       wavefront.backward_rows_plain(px_k, py_k, pb, bnd, ag, *bd), ("px_grad", "py_grad"))),
+                   *(finite_err(a, b, f"headline banded scan bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
+                       wavefront.backward_rows_scan(px_k, py_k, ps_b, bnd, ag, *bd),
+                       wavefront.backward_rows_plain(px_k, py_k, ps_b, bnd, ag, *bd), ("px_grad", "py_grad"))))
+    del pb_p, scb_p
+
+    # the sweep pair against the row scans in turns (scan, sweep, sweep,
+    # scan), unbanded and banded
+    turns = {}
+    for name, (pp, ps, lb) in (("full", (p_k, p_s, ())), ("band", (pb, ps_b, bd))):
+        turns[name] = (
+            in_turns(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd, *lb),
+                     lambda: wavefront.forward_rows(px_k, py_k, bnd, *lb)),
+            in_turns(lambda: wavefront.backward_rows_scan(px_k, py_k, ps, bnd, ones, *lb),
+                     lambda: wavefront.backward_rows(px_k, py_k, pp, bnd, ones, *lb)),
+        )
+    del pb, ps_b, p_s
+
+    # the pair seeded with ones against the fused kernel bit for bit, in
+    # every storage dtype, unbanded and banded
+    n_bits = 0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        x, y = px_k.to(dt), py_k.to(dt)
+        for lb in ((), bd):
+            pq, sq = wavefront.forward_rows(x, y, bnd, *lb)
+            same_bits((sq, *wavefront.backward_rows(x, y, pq, bnd, ones, *lb)),
+                      wavefront.fused_rows(x, y, bnd, *lb), f"headline sweep pair vs fused ({dt}, band {bool(lb)})")
+            n_bits += 1
+    del pq, sq, x, y
+
+    # bf16 storage (the recipe's stage 2 runs in it): the sweep pair and the
+    # row scans against their plain versions as the float32 ones are held,
+    # the fused kernel against its plain version, and the times
     px16, py16 = px_k.bfloat16(), py_k.bfloat16()
     step16 = STORAGE_STEP["bfloat16"]
-    p16, sc16 = wavefront.forward_rows(px16, py16, bnd)
     p16_p, sc16_p = wavefront.forward_rows_plain(px16, py16, bnd)
-    e16_fwd = max(finite_err(p16, p16_p, "headline bf16 fwd p", 1e-4, 1e-5)[0],
-                  finite_err(sc16, sc16_p, "headline bf16 fwd scores", 1e-4, 1e-5)[0])
-    del p16_p, sc16_p
-    o_s = wavefront.backward_rows(px16, py16, p16, bnd, ones)
-    e16_bwd = max(finite_err(a, b, f"headline bf16 bwd {n}", 1e-5, 1e-4 + step16)[0]
-                  for a, b, n in zip(o_s, wavefront.backward_rows_plain(px16, py16, p16, bnd, ones),
-                                     ("px_grad", "py_grad")))
+    e16 = {}
+    for pname, fwd, bwd in (("sweep", wavefront.forward_rows, wavefront.backward_rows),
+                            ("scan", wavefront.forward_rows_scan, wavefront.backward_rows_scan)):
+        p16, sc16 = fwd(px16, py16, bnd)
+        e16[pname] = max(
+            finite_err(p16, p16_p, f"headline bf16 {pname} fwd p", 1e-4, 1e-5)[0],
+            finite_err(sc16, sc16_p, f"headline bf16 {pname} fwd scores", 1e-4, 1e-5)[0],
+            *(finite_err(a, b, f"headline bf16 {pname} bwd {n}", 1e-5, 1e-4 + step16)[0]
+              for a, b, n in zip(bwd(px16, py16, p16, bnd, ones),
+                                 wavefront.backward_rows_plain(px16, py16, p16, bnd, ones),
+                                 ("px_grad", "py_grad"))))
+    del p16_p, sc16_p, p16, sc16
     o_k = wavefront.fused_rows(px16, py16, bnd)
     o_p = wavefront.fused_rows_plain(px16, py16, bnd)
-    e16 = max(finite_err(o_k[0], o_p[0], "headline bf16 fused scores", 1e-4, 1e-5)[0],
-              *(finite_err(a, b, f"headline bf16 fused {n}", 1e-5, 1e-2 + step16)[0]
-                for a, b, n in zip(o_k[1:], o_p[1:], ("px_grad", "py_grad"))))
-    e16_vs = max(finite_err(o_k[0], sc16, "headline bf16 fused vs split scores", 1e-4, 1e-5)[0],
-                 *(finite_err(a, b, f"headline bf16 fused vs split {n}", 1e-5, 1e-2 + step16)[0]
-                   for a, b, n in zip(o_k[1:], o_s, ("px_grad", "py_grad"))))
-    del o_k, o_p, o_s, p16, sc16
-    bf16_ms = (cuda_ms(lambda: split_pair(px16, py16)), cuda_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
+    e16["fused"] = max(finite_err(o_k[0], o_p[0], "headline bf16 fused scores", 1e-4, 1e-5)[0],
+                       *(finite_err(a, b, f"headline bf16 fused {n}", 1e-5, 1e-2 + step16)[0]
+                         for a, b, n in zip(o_k[1:], o_p[1:], ("px_grad", "py_grad"))))
+    del o_k, o_p
+
+    def pair_ms(fwd, bwd, x, y):
+        return cuda_ms(lambda: bwd(x, y, fwd(x, y, bnd)[0], bnd, ones))
+
+    bf16_ms = (pair_ms(wavefront.forward_rows_scan, wavefront.backward_rows_scan, px16, py16),
+               pair_ms(wavefront.forward_rows, wavefront.backward_rows, px16, py16),
+               cuda_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
+    del px16, py16
+    fused_ab = in_turns(lambda: wavefront.fused_rows(px_k, py_k, bnd),
+                        lambda: wavefront.backward_rows(px_k, py_k, wavefront.forward_rows(px_k, py_k, bnd)[0],
+                                                        bnd, ones))
+
+    def fmt(xs):
+        return ", ".join(f"{x:.4f}" for x in xs)
+
+    for k, i in (("wavefront_fwd", 0), ("wavefront_bwd", 1)):
+        report[k]["note"] = (f"(in turns scan, sweep, sweep, scan: full {fmt(turns['full'][i])} ms, under "
+                             f"the main path's stage-2 band {fmt(turns['band'][i])} ms)")
+    report["wavefront_scan_fwd"]["note"] = (
+        f"(banded, the main path's band K={S_RANGE}: sweep and scan pairs vs plain max abs err "
+        f"{e_band[0]:.3e}, random seeds in the backward; sweep pair seeded with ones == fused bit for bit "
+        f"in {n_bits} runs, f32/bf16/f16, full and banded)")
     report["wavefront_fused"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies; deterministic",
-        ms=(ab[1] + ab[2]) / 2,
+        ms=(fused_ab[0] + fused_ab[3]) / 2,
         plain_ms=cuda_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
-        note=(f"(split pair fwd+bwd {(ab[0] + ab[3]) / 2:.4f} ms; in turns split {ab[0]:.4f}, fused "
-              f"{ab[1]:.4f}, fused {ab[2]:.4f}, split {ab[3]:.4f}; fused vs split max abs diff "
-              f"{vs_split[0]:.3e} (rel {vs_split[1]:.3e}, tol as vs plain), raw window-argmax flips "
-              f"{s1_flips[0]} (max score gap {s1_flips[1]:.3e}, tol 1e-3); bf16 storage: split "
-              f"{bf16_ms[0]:.4f} ms, fused {bf16_ms[1]:.4f} ms; max abs err vs plain: fwd {e16_fwd:.3e} "
-              f"(tol 1e-4 + 1e-5|x|), bwd {e16_bwd:.3e} (tol 1e-5 + (1e-4 + 2^-7)|x|), fused "
-              f"{e16:.3e} (tol 1e-5 + (1e-2 + 2^-7)|x|); fused vs split max abs diff {e16_vs:.3e})"),
+        note=(f"(in turns fused, sweep pair, sweep pair, fused {fmt(fused_ab)} ms; fused vs scan pair max "
+              f"abs diff {vs_scan[0]:.3e} (rel {vs_scan[1]:.3e}, tol as vs plain); bf16 storage: scan pair "
+              f"{bf16_ms[0]:.4f} ms, sweep pair {bf16_ms[1]:.4f} ms, fused {bf16_ms[2]:.4f} ms; max abs err "
+              f"vs plain: sweep pair {e16['sweep']:.3e}, scan pair {e16['scan']:.3e} (tol 1e-4 + 1e-5|x| p, "
+              f"1e-5 + (1e-4 + 2^-7)|x| occupancies), fused {e16['fused']:.3e} (1e-5 + (1e-2 + 2^-7)|x|))"),
     )
-    del px16, py16
     # occupancy conservation: the occupancies of one utterance sum to its
     # path length.  fp32 occupancies of a long lattice carry ~1e-3 of
     # round-off in that sum, for the plain version as much as the kernel, so
@@ -867,8 +1002,7 @@ def headline_kernels(am, lm, sym, bnd):
     if cons[0] > 1e-2:
         raise Failed(f"occupancy conservation off by {cons[0]:.3e} (rel)")
 
-    st_k = ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)
-    n_flip, gap, _ = ranges_check(st_k, gy_k, gx_k, S_RANGE, bnd, S_RANGE, "headline ranges")
+    n_flip, gap, _ = ranges_check(lo, gy_k, gx_k, S_RANGE, bnd, S_RANGE, "headline ranges")
     report["ranges"] = dict(
         err=gap, rel=0.0, tol="the repair of its own raw argmax exactly; window-score gap <= 1e-3 at "
                               "each raw flip against the plain search",
@@ -960,14 +1094,16 @@ def main():
         for Cc in (17, 32):
             for name, err in build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc).items():
                 small[name] = max(small.get(name, 0.0), err)
-    # the recursion kernels in every storage dtype, and the fused kernel
-    # against the split pair, on fresh draws of every case and on the
-    # constrained lattice (banded and not)
-    vs_split = 0.0
-    for case in cases + [(3, 6, 40, True, False, True, True), (3, 6, 40, True, True, True, True)]:
+    # the recursion kernels in every storage dtype on fresh draws of every
+    # case, on the constrained lattice (banded and not) and over two
+    # 128-row strips of the sweep (banded and not)
+    vs_scan = 0.0
+    rec_cases = cases + [(3, 6, 40, True, False, True, True), (3, 6, 40, True, True, True, True),
+                         (2, 140, 60, False, False, True), (2, 140, 60, True, True, True)]
+    for case in rec_cases:
         px, py, bnd, lo, K = t(*rand_case(rng, *case))
         errs, d = recursion_checks(px, py, bnd, lo, K)
-        vs_split = max(vs_split, d)
+        vs_scan = max(vs_scan, d)
         for name, err in errs.items():
             small[name] = max(small.get(name, 0.0), err)
     phase("kernels-small", f"{len(cases)} ragged cases (regular/modified/constrained, banded, "
@@ -976,8 +1112,10 @@ def main():
           f"(tol: lattices 1e-4 + 1e-5|x|, occupancies 1e-5 + 1e-4|x| (fused against its plain version, "
           f"which runs its own forward: 1e-5 + 1e-3|x|), in bf16/f16 storage plus one step of it, build "
           f"gradients {GRAD_TOL} of max |plain| (bf16 inputs {BF16_CONTRACT_TOL}, a bf16 output plus one "
-          f"bf16 step), ranges flips near-ties); fused vs split pair max abs diff {vs_split:.3e} over "
-          f"{len(cases) + 2} cases (tol as fused vs plain); fused deterministic")
+          f"bf16 step), ranges flips near-ties); the sweep pair's p in every cell, its backward on random "
+          f"seeds with 0 and a negative one; sweep pair seeded with ones == fused bit for bit, both "
+          f"deterministic, in {len(rec_cases)} cases x 3 storage dtypes; fused vs scan pair max abs diff "
+          f"{vs_scan:.3e} (tol as fused vs plain)")
 
     # golden path-enumeration vectors (float64 enumeration, tests/golden)
     gfiles = sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.npz")))
@@ -1043,6 +1181,8 @@ def main():
         "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
         "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
         "wavefront_fused": (wavefront.LAUNCHES, "fused"),
+        "wavefront_scan_fwd": (wavefront.LAUNCHES, "scan_fwd"),
+        "wavefront_scan_bwd": (wavefront.LAUNCHES, "scan_bwd"),
     }
 
     def counted(fn, path, want):
@@ -1073,12 +1213,18 @@ def main():
         step, "main path (forward)",
         {"wavefront_fused": 1, "wavefront_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
-    # the split arm: stage 1 through the split pair (near-tie rule, below)
+    # the split arm: stage 1 through the sweep pair, the same bits; the
+    # scan arm: stage 2 through the row scans
     out_x, _, _, peak_x, base_x = counted(
         armed("split", step), "main path (forward, split arm)",
         {"wavefront_fwd": 2, "wavefront_bwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
-    same_fwd = arm_diff(out_x, (simple, pruned, rng_k), "main path (split arm)")
+    same_fwd = same_bits(out_x, (simple, pruned, rng_k), "main path (split arm)")
+    out_x, _, _, peak_sc, base_sc = counted(
+        armed("scan", step), "main path (forward, scan arm)",
+        {"wavefront_fused": 1, "wavefront_scan_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
+    )
+    scan_fwd = scan_diff(out_x, (simple, pruned, rng_k), "main path (scan arm)")
     del out_x
     if peak_mb > FWD_PEAK_MIB or peak_mb - base_mb > FWD_ABOVE_MIB:
         raise Failed(f"forward-only peak {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above what was "
@@ -1125,6 +1271,7 @@ def main():
         raise Failed(f"losses vs plain path: rel err simple {rel_s:.3e} pruned {rel_p:.3e} > 1e-4")
     step_ms = cuda_ms(step)
     ab_fwd = in_turns(armed("split", step), step)
+    ab_fwd_scan = in_turns(armed("scan", step), step)
     phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
           f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
           f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); ranges = the "
@@ -1136,7 +1283,9 @@ def main():
           f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; "
           f"split arm {same_fwd}, peak "
           f"{peak_x:.1f} MiB ({peak_x - base_x:.1f} MiB above what was allocated before it); in turns (split, shipped, shipped, split) "
-          + ", ".join(f"{x:.4f}" for x in ab_fwd) + " ms")
+          + ", ".join(f"{x:.4f}" for x in ab_fwd) + f" ms; scan arm (stage 2 by the row scans) {scan_fwd}, "
+          f"peak {peak_sc:.1f} MiB ({peak_sc - base_sc:.1f} above); in turns (scan, shipped, shipped, scan) "
+          + ", ".join(f"{x:.4f}" for x in ab_fwd_scan) + " ms")
 
     # training: bench.py's step, the gradient of 0.5 * simple + pruned
     am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
@@ -1157,7 +1306,13 @@ def main():
         armed("split", train_step), "training (split arm)",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
     )
-    same_train = arm_diff(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (split arm)")
+    same_train = same_bits(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (split arm)")
+    out_x, launches_scan, _, _, _ = counted(
+        armed("scan", train_step), "training (scan arm)",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
+         "wavefront_scan_bwd": 1, "ranges": 1},
+    )
+    scan_train = scan_diff(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (scan arm)")
     del out_x
     loss_f = 0.5 * simple.sum() + pruned.sum()
     rel_l = ((loss_t - loss_f).abs() / loss_f.abs()).item()
@@ -1176,6 +1331,7 @@ def main():
     del g_am, g_lm, w_am, w_lm, g2x, g2y, gx_p, gy_p, px_p, py_p
     train_ms = cuda_ms(train_step)
     ab_train = in_turns(armed("split", train_step), train_step)
+    ab_train_scan = in_turns(armed("scan", train_step), train_step)
     phase("train", f"grad of 0.5*simple + pruned (reduction sum) w.r.t. (am, lm), B={B} T={T} "
           f"S={S} C={C} s_range={S_RANGE} fp32: launches {json.dumps(launches_t)}; loss "
           f"{loss_t.item():.3f} (rel {rel_l:.1e} from the forward path's); gradients vs plain "
@@ -1184,7 +1340,8 @@ def main():
           f"{first_t:.1f} ms); peak {peak_t:.1f} MiB ({peak_t - base_t:.1f} MiB above the inputs); "
           f"split arm {same_train}, peak {peak_tx:.1f} MiB ({peak_tx - base_tx:.1f} MiB above what was "
           f"allocated before it); in turns (split, shipped, shipped, split) "
-          + ", ".join(f"{x:.4f}" for x in ab_train) + " ms")
+          + ", ".join(f"{x:.4f}" for x in ab_train) + f" ms; scan arm {scan_train}; in turns (scan, shipped, "
+          f"shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_train_scan) + " ms")
 
     # the bf16-input mode (bench.py's second row, the JAX package's "production
     # mixed precision"): bf16 am and lm, a bf16 lattice; held to the float32
@@ -1210,6 +1367,13 @@ def main():
     )
     if g_b[0].dtype != torch.bfloat16 or g_b[1].dtype != torch.bfloat16:
         raise Failed(f"train-bf16: gradient dtypes {g_b[0].dtype} {g_b[1].dtype}")
+    out_x, _, _, _, _ = counted(
+        armed("scan", train_step_bf16), "train-bf16 (scan arm)",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
+         "wavefront_scan_bwd": 1, "ranges": 1},
+    )
+    scan_b = scan_diff(out_x, (loss_b, *g_b, r_b), "train-bf16 (scan arm)")
+    del out_x
     # the float32 reference prunes with the bf16 step's ranges: where bf16
     # occupancies move a window start (a near-tie), the pruned gradient moves
     # with it, by O(1), and that is no precision loss of the step
@@ -1232,6 +1396,7 @@ def main():
         latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd), ("px", "py"))))
     del g_b, g_r, am_r, lm_r, lm16, am16
     train_bf16_ms = cuda_ms(train_step_bf16)
+    ab_b = in_turns(armed("scan", train_step_bf16), train_step_bf16)
     phase("train-bf16", f"grad of 0.5*simple + pruned w.r.t. bf16 (am, lm), lattice_dtype bf16, B={B} T={T} "
           f"S={S} C={C} s_range={S_RANGE}: launches {json.dumps(launches_b)}; loss {loss_b.item():.3f} vs "
           f"float32 on the rounded inputs (pruned with these ranges; its own move {n_moved} frames) "
@@ -1239,7 +1404,8 @@ def main():
           f"gradients (bf16) max abs diff {g_gap[0]:.3e} ({g_gap[1]:.3e} of max, tol {TRAIN_BF16_GRAD_TOL}); "
           f"bf16 build vs plain max abs err {e_b[0]:.3e} (tol 1e-4 + 1e-5|x|); step {train_bf16_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
-          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs); scan arm {scan_b}; in turns "
+          f"(scan, shipped, shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_b) + " ms")
     del loss_r, s_r, p_r
 
     # smoothed training: rnnt_loss_smoothed_pruned, default scales
@@ -1299,25 +1465,25 @@ def main():
         loss = 0.5 * simple.sum() + pruned.sum()
         return (loss.detach(), (0.5 * simple + pruned).detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
 
-    # shipped: stage 1 fused, stage 2 the split pair; vjp: stage 2 fused too
-    # (_FUSE_SCORES_VJP); split: both stages through the split pair
+    # shipped: stage 1 fused, stage 2 the sweep pair; vjp: stage 2 fused too
+    # (_FUSE_SCORES_VJP); split: both stages through the sweep pair (the
+    # shipped arm's bits); scan: stage 2 through the row scans
     recipe_arms = {
         "shipped": {"wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1},
         "vjp": {"wavefront_fused": 2},
         "split": {"wavefront_fwd": 2, "wavefront_bwd": 2},
+        "scan": {"wavefront_fused": 1, "wavefront_scan_fwd": 1, "wavefront_scan_bwd": 1},
     }
     recipe = {}
     for name, want in recipe_arms.items():
         (loss_r, l_r, *g_r, r_r), n_r, first_r, peak_r, base_r = counted(
             armed(name, recipe_step), f"recipe-train ({name})",
             {"latbuild_fwd": 1, "latbuild_bwd": 1, "ranges": 1, **want})
-        # stage 1 is the training step's: the same kernel, so the ranges
-        # must be the training step's; the split arm's stage 1 is the split
-        # pair, whose raw flips are near-ties (kernels-headline), and it is
-        # held to train's on the utterances whose ranges agree: their losses
-        # each to rel 1e-4, the batch sum too when all agree
+        # stage 1 is the training step's (the split arm's gives the same
+        # bits), so the ranges must be the training step's; the losses each
+        # to rel 1e-4, and the batch sum
         agree = (r_r == r_t).flatten(1).all(1)
-        if name != "split" and not bool(agree.all()):
+        if not bool(agree.all()):
             n = int((r_r != r_t).any(2).sum())
             raise Failed(f"recipe-train ({name}): ranges differ from train's at {n} frames")
         rel_r = ((l_r - l_t).abs() / l_t.abs())[agree].max().item()
@@ -1331,7 +1497,8 @@ def main():
                 f"vs train {rel_r:.3e} (tol 1e-4, each and, when all agree, the sum); gradients max abs "
                 f"err {e_r[0]:.3e} ({e_r[1]:.3e} of max, tol {TRAIN_GRAD_TOL})")
         if name != "shipped":
-            held += f"; vs the shipped arm {arm_diff((loss_r, l_r, *g_r, r_r), recipe['shipped'][0], name)}"
+            cmp = {"split": same_bits, "scan": scan_diff}.get(name, arm_diff)
+            held += f"; vs the shipped arm {cmp((loss_r, l_r, *g_r, r_r), recipe['shipped'][0], name)}"
         recipe[name] = ((loss_r, l_r, *g_r, r_r), n_r)
         ms_r = cuda_ms(armed(name, recipe_step))
         phase("recipe-train", f"{name} arm: rnnt_loss_simple (calc_gradients) -> get_rnnt_prune_ranges "
@@ -1345,8 +1512,8 @@ def main():
     (loss_f32, _, *g_f32, r_f32), _ = recipe["shipped"]
     del recipe
     # the arms in turns, in one process
-    ab_recipe = in_turns(*(armed(name, recipe_step) for name in ("split", "shipped", "vjp")))
-    phase("recipe-train", "in turns (split, shipped, vjp, vjp, shipped, split): "
+    ab_recipe = in_turns(*(armed(name, recipe_step) for name in ("scan", "split", "shipped", "vjp")))
+    phase("recipe-train", "in turns (scan, split, shipped, vjp, vjp, shipped, split, scan): "
           + ", ".join(f"{x:.4f}" for x in ab_recipe) + " ms")
 
     # the mixed-precision form: bf16 pruned logits, so a bf16 lattice in the
@@ -1358,12 +1525,18 @@ def main():
     def recipe_step_bf16():
         return recipe_step(torch.bfloat16)
 
-    (loss_b, _, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
+    (loss_b, l_b, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
         recipe_step_bf16, "recipe-train-bf16",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
          "wavefront_bwd": 1, "ranges": 1})
     if not (torch.isfinite(loss_b) and all(torch.isfinite(g).all() for g in g_b)):
         raise Failed("recipe-train-bf16: non-finite loss or gradient")
+    out_x, _, _, _, _ = counted(
+        armed("scan", recipe_step_bf16), "recipe-train-bf16 (scan arm)",
+        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
+         "wavefront_scan_bwd": 1, "ranges": 1})
+    scan_rb = scan_diff(out_x, (loss_b, l_b, *g_b, r_b), "recipe-train-bf16 (scan arm)")
+    del out_x
     if not torch.equal(r_b, r_f32):
         raise Failed("recipe-train-bf16: ranges differ from the float32 recipe's (same stage 1)")
     gap = (loss_b - loss_f32).abs().item()
@@ -1374,12 +1547,14 @@ def main():
         raise Failed(f"recipe-train-bf16: gradients {g_gap:.3e} of max from float32's > {BF16_GRAD_TOL}")
     del g_b, g_f32
     ms_b = cuda_ms(recipe_step_bf16)
-    phase("recipe-train-bf16", f"the recipe with bf16 pruned logits (a bf16 lattice in wavefront_fwd/bwd): "
+    ab_rb = in_turns(armed("scan", recipe_step_bf16), recipe_step_bf16)
+    phase("recipe-train-bf16", f"the recipe with bf16 pruned logits (a bf16 lattice in the sweep pair): "
           f"launches {json.dumps(n_b)}; loss {loss_b.item():.3f} vs float32 {loss_f32.item():.3f}: gap "
           f"{gap:.3e} ({gap / loss_f32.abs().item():.3e} rel; tol 0.1 + 5e-2|x| and {BF16_LOSS_RTOL}|x|); "
           f"gradients vs float32 max abs diff {g_gap:.3e} of max (tol {BF16_GRAD_TOL}); step {ms_b:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
-          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs); scan arm {scan_rb}; in turns "
+          f"(scan, shipped, shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_rb) + " ms")
 
     # the unpruned loss of full logits [BJ, T, S+1, C] (808 MB at BJ = 4),
     # with occupancies and a backward, shipped (fused) and split; with the
@@ -1397,7 +1572,7 @@ def main():
     for name, want in (("shipped", {"wavefront_fused": 1}), ("split", {"wavefront_fwd": 1, "wavefront_bwd": 1})):
         out, n_j, first_j, peak_j, base_j = counted(armed(name, joint_step), f"joint ({name})", want)
         joint[name] = (out, n_j, first_j, peak_j - base_j)
-    same_j = arm_diff(joint["split"][0], joint["shipped"][0], "joint (split arm)")
+    same_j = same_bits(joint["split"][0], joint["shipped"][0], "joint (split arm)")
     loss_j = joint["shipped"][0][0]
     simple_j = rnnt_loss_simple(lm[:BJ], am[:BJ], sym_j, 0, bnd_j, reduction="sum")
     rel_j = ((loss_j - simple_j).abs() / simple_j.abs()).item()
@@ -1413,7 +1588,8 @@ def main():
     del joint
 
     # --- 5. where the steps' time goes (measurements) ----------------------
-    for name, fn in (("forward", step), ("train", train_step), ("train-bf16", train_step_bf16),
+    for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
+                     ("train-bf16", train_step_bf16),
                      ("smoothed-train", smoothed_step),
                      ("recipe-train", recipe_step), ("recipe-train (vjp arm)", armed("vjp", recipe_step))):
         prof = profile_step(fn)
@@ -1436,9 +1612,9 @@ def main():
 
     # --- 6. results -----------------------------------------------------------
     sources = {
-        "wavefront_fwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+        "wavefront_fwd": ("fast_rnnt_tpu_torch/csrc/wavefront_fused.cu",
                           "fast_rnnt_tpu/ops/kernels/wavefront.py:224"),
-        "wavefront_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+        "wavefront_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront_fused.cu",
                           "fast_rnnt_tpu/ops/kernels/wavefront.py:420"),
         "latbuild_fwd": ("fast_rnnt_tpu_torch/csrc/latbuild.cu",
                          "fast_rnnt_tpu/ops/kernels/latbuild.py:207"),
@@ -1452,10 +1628,16 @@ def main():
                                "fast_rnnt_tpu/ops/kernels/latbuild.py:920"),
         "wavefront_fused": ("fast_rnnt_tpu_torch/csrc/wavefront_fused.cu",
                             "fast_rnnt_tpu/ops/kernels/wavefront.py:623"),
+        # the row scans, which no package path runs: launches from the
+        # training step's scan arm
+        "wavefront_scan_fwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+                               "fast_rnnt_tpu/ops/kernels/wavefront.py:224"),
+        "wavefront_scan_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
+                               "fast_rnnt_tpu/ops/kernels/wavefront.py:420"),
     }
     # each kernel's launches from the first path that runs it
     path_launches = {}
-    for counts in (launches, launches_t, launches_s, launches_recipe):
+    for counts in (launches, launches_t, launches_s, launches_recipe, launches_scan):
         for k, n in counts.items():
             if n:
                 path_launches.setdefault(k, n)

@@ -1,10 +1,15 @@
-// Lattice recursion kernels for Hopper (sm_90a): the forward recursion and
-// the occupancy backward, s-major rows, px/py stored as float, bfloat16 or
-// float16 (the recursion computes in float; p and scores are float).
+// Row-scan lattice recursion kernels for Hopper (sm_90a): the forward
+// recursion and the occupancy backward, s-major rows, px/py stored as float,
+// bfloat16 or float16 (the recursion computes in float; p and scores are
+// float).
 //
-// Replace the Pallas TPU kernels of fast_rnnt_tpu/ops/kernels/wavefront.py:
-//   wavefront_fwd_kernel  <- _fwd_kernel (:224, pallas_call :321)
-//   wavefront_bwd_kernel  <- _bwd_kernel (:420, pallas_call :517)
+// The first port of the Pallas TPU kernels of
+// fast_rnnt_tpu/ops/kernels/wavefront.py:
+//   scan_fwd_kernel  <- _fwd_kernel (:224, pallas_call :321)
+//   scan_bwd_kernel  <- _bwd_kernel (:420, pallas_call :517)
+// The package runs the diagonal sweep's phases (wavefront_fused.cu) in their
+// place; these stay as the yardstick they are timed against
+// (forward_rows_scan / backward_rows_scan in ops/kernels/wavefront.py).
 //
 // Design.  One thread block per utterance walks the rows s in order (the
 // Pallas grid's sequential s axis becomes a loop inside the block); the
@@ -30,7 +35,7 @@ namespace {
 
 template <class St>
 __global__ void __launch_bounds__(1024)
-wavefront_fwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
+scan_fwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
                      const int* __restrict__ bnd, const int* __restrict__ lo, int K, int S,
                      int B, int T, int modified, float* __restrict__ p,
                      float* __restrict__ scores) {
@@ -41,7 +46,7 @@ wavefront_fwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
 
 template <class St>
 __global__ void __launch_bounds__(1024)
-wavefront_bwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
+scan_bwd_kernel(const St* __restrict__ px, const St* __restrict__ py,
                      const float* __restrict__ p, const int* __restrict__ bnd,
                      const int* __restrict__ lo, int K, const float* __restrict__ ans_grad,
                      int S, int B, int T, int modified, St* __restrict__ pxg,
@@ -57,9 +62,9 @@ int launch_fwd(const void* px, const void* py, const void* bnd, const void* lo, 
                int B, int T, int modified, void* p, void* scores, int threads,
                cudaStream_t stream) {
   const size_t smem = wavefront_smem(T, threads);
-  cudaFuncSetAttribute(wavefront_fwd_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(scan_fwd_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  wavefront_fwd_kernel<St><<<B, threads, smem, stream>>>(
+  scan_fwd_kernel<St><<<B, threads, smem, stream>>>(
       static_cast<const St*>(px), static_cast<const St*>(py), static_cast<const int*>(bnd),
       static_cast<const int*>(lo), K, S, B, T, modified, static_cast<float*>(p),
       static_cast<float*>(scores));
@@ -71,9 +76,9 @@ int launch_bwd(const void* px, const void* py, const void* p, const void* bnd, c
                int K, const void* ans_grad, int S, int B, int T, int modified, void* pxg,
                void* pyg, int threads, cudaStream_t stream) {
   const size_t smem = wavefront_smem(T, threads);
-  cudaFuncSetAttribute(wavefront_bwd_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(scan_bwd_kernel<St>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  wavefront_bwd_kernel<St><<<B, threads, smem, stream>>>(
+  scan_bwd_kernel<St><<<B, threads, smem, stream>>>(
       static_cast<const St*>(px), static_cast<const St*>(py), static_cast<const float*>(p),
       static_cast<const int*>(bnd), static_cast<const int*>(lo), K,
       static_cast<const float*>(ans_grad), S, B, T, modified, static_cast<St*>(pxg),
@@ -89,9 +94,9 @@ extern "C" const char* frt_error_string(int err) {
 
 // p: (S+1, B, T+1) f32 out; scores: (B,) f32 out; lo may be NULL (no band);
 // px/py in the storage type named by `dtype` (StorageCode).
-extern "C" int frt_wavefront_fwd(const void* px, const void* py, const void* bnd, const void* lo,
-                                 int K, int S, int B, int T, int modified, void* p, void* scores,
-                                 int threads, int dtype, void* stream) {
+extern "C" int frt_scan_fwd(const void* px, const void* py, const void* bnd, const void* lo,
+                            int K, int S, int B, int T, int modified, void* p, void* scores,
+                            int threads, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
@@ -107,10 +112,10 @@ extern "C" int frt_wavefront_fwd(const void* px, const void* py, const void* bnd
 
 // pxg: (S, B, T') and pyg: (S+1, B, T) out in the storage type, seeded with
 // ans_grad (B,) f32; p f32.
-extern "C" int frt_wavefront_bwd(const void* px, const void* py, const void* p, const void* bnd,
-                                 const void* lo, int K, const void* ans_grad, int S, int B, int T,
-                                 int modified, void* pxg, void* pyg, int threads, int dtype,
-                                 void* stream) {
+extern "C" int frt_scan_bwd(const void* px, const void* py, const void* p, const void* bnd,
+                            const void* lo, int K, const void* ans_grad, int S, int B, int T,
+                            int modified, void* pxg, void* pyg, int threads, int dtype,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:

@@ -1,14 +1,18 @@
-// Fused two-phase lattice recursion kernel for Hopper (sm_90a): the forward
-// recursion and the occupancy backward seeded with ones in one launch,
-// s-major rows, px/py stored as float, bfloat16 or float16 (the recursion
-// computes in float; p, the scores and the hand-off rows are float).
+// Diagonal-sweep lattice recursion kernels for Hopper (sm_90a): the forward
+// recursion, the occupancy backward seeded with ans_grad, and both in one
+// launch (seed 1), s-major rows, px/py stored as float, bfloat16 or float16
+// (the recursion computes in float; p, the scores and the hand-off rows are
+// float).  The three share one kernel template, instantiated on the phases
+// it runs, so the pair run apart (seed 1) gives the fused launch's bits.
 //
-// Replaces the Pallas TPU kernel of fast_rnnt_tpu/ops/kernels/wavefront.py:
-//   wavefront_fused_kernel  <- _fused_kernel (:623, pallas_call :765)
+// Replaces the Pallas TPU kernels of fast_rnnt_tpu/ops/kernels/wavefront.py:
+//   sweep_kernel<.., kFwd>   <- _fwd_kernel   (:224, pallas_call :321)
+//   sweep_kernel<.., kBwd>   <- _bwd_kernel   (:420, pallas_call :517)
+//   sweep_kernel<.., kBoth>  <- _fused_kernel (:623, pallas_call :765)
 //
 // Design: one warp per utterance sweeps anti-diagonals d = s + t.
 //   forward   p[s,t] = logadd(p[s-1, t-dt] + px[s-1, t-dt], p[s,t-1] + py[s,t-1])
-//   backward  g[s,t] = term2[s,t] g[s,t+1] + term1[s,t] g[s+1,t+dt]  (+1 at the seed)
+//   backward  g[s,t] = term2[s,t] g[s,t+1] + term1[s,t] g[s+1,t+dt]  (+ans_grad at the seed)
 // with dt = 0 regular, 1 modified.  Every cell of a diagonal depends only on
 // the two diagonals before it, so a diagonal is computed cell by cell with no
 // scan.  A strip of kStrip = 32*kR rows is swept at a time, row i by lane
@@ -19,18 +23,23 @@
 // [t_begin, t_end]; taller utterances run strip after strip.  The forward's
 // strip k reads its row s0-1 back from p (written by strip k-1); the backward
 // (strips top down) hands the first row's g of a strip to the next one
-// through two (B, T+1) float rows after p in the scratch (rows S+1 and S+2,
-// alternating).  No atomics: the result is the same from run to run, and T
-// has no cap.
+// through two alternating (B, T+1) float hand-off rows (the fused launch
+// keeps them after p in its scratch, rows S+1 and S+2).  No atomics: the
+// result is the same from run to run, and T has no cap.
 //
 // Memory.  The cells of a diagonal lie in 32 different rows, so the sweeping
 // warp never touches device memory itself: each row streams through a ring
 // of four 16-column tiles in shared memory.  The block's other seven warps
 // load every row's next tile of px and py (the backward: p, px, py) one block
 // of 16 steps ahead, coalesced, and store the finished tiles of p (px_grad,
-// py_grad) back, then write the zeros of px_grad and py_grad outside the
-// rectangle.  The warps meet at one block barrier every 16 steps; a sweep
-// that also issued its own loads and stores was issue-bound at ~850
+// py_grad) back, and fill what lies outside the rectangle: the zeros of
+// px_grad and py_grad (backward, fused), -inf in p (forward alone, so that
+// p equals the plain version's in every cell).  They also mask the pruning
+// band (lo <= s < lo + K, lo edge-padded to T+1 columns) into the px and py
+// tiles as they load them, so a banded sweep runs the unbanded one's steps
+// (lo read by the sweeping warp itself had doubled the banded backward's
+// time, PERF.md).  The warps meet at one block barrier every 16 steps; a
+// sweep that also issued its own loads and stores was bound by its ~850
 // instructions a step (2.1 ms at the headline shape on an H100, PERF.md).
 //
 // What bounds it.  A chain of (rows + columns) steps per phase (1,100 at
@@ -114,11 +123,12 @@ struct Strip {
   int n, nb;  // steps, blocks
   bool below_hand;  // forward: row s0-1 exists (strip k > 0)
   bool above_hand;  // backward: row s0+imax+1 exists (not the top strip)
-  int ohg_in, ohg_out;  // backward hand-off rows
+  int ohg_in, ohg_out;  // backward hand-off rows, offsets into the (2, B, T+1) hand rows
+  float ag;  // backward seed at (s_end, t_end)
 };
 
 __device__ __forceinline__ Strip make_strip(int B, int T, int S, int K, int b, const Bnd& q,
-                                            bool modified, int k, int nk) {
+                                            bool modified, int k, int nk, float ag = 0.f) {
   Strip g;
   g.B = B, g.T = T, g.S = S, g.K = K, g.b = b, g.q = q;
   g.s0 = q.sb + k * kStrip;
@@ -132,8 +142,9 @@ __device__ __forceinline__ Strip make_strip(int B, int T, int S, int K, int b, c
   g.nb = (g.n + kTile - 1) / kTile;
   g.below_hand = k > 0;
   g.above_hand = k < nk - 1;
-  g.ohg_in = ((S + 1 + ((k + 1) & 1)) * B + b) * g.W;
-  g.ohg_out = ((S + 1 + (k & 1)) * B + b) * g.W;
+  g.ohg_in = (((k + 1) & 1) * B + b) * g.W;
+  g.ohg_out = ((k & 1) * B + b) * g.W;
+  g.ag = ag;
   return g;
 }
 
@@ -145,10 +156,10 @@ __device__ __forceinline__ float ld_masked(const St* a, bool ok) {
 // --- helper warps (h: thread index among them) ------------------------------
 
 // forward: tile m + tile0(i) + 1 of px and py of every row into the rings,
-// and row s0-1's p for row 0
-template <class St>
-__device__ void fwd_load(const Strip& g, const St* px, const St* py, const float* p, float* sm,
-                         int h, int m) {
+// -inf outside the rectangle and the band, and row s0-1's p for row 0
+template <class St, bool kBand>
+__device__ void fwd_load(const Strip& g, const St* px, const St* py, const int* lo, const float* p,
+                         float* sm, int h, int m) {
   float* rpx = sm;
   float* rpy = sm + kRingFloats;
   float* hand = sm + 5 * kRingFloats;
@@ -161,9 +172,13 @@ __device__ void fwd_load(const Strip& g, const St* px, const St* py, const float
     const int s = g.s0 + i, t = g.q.tb + v, tp = t - g.dt;
     const bool row = i <= g.imax;
     at[k] = row ? ring_at(i, v) : -1;
+    // px[s-1, tp] enters (s, t) in band lo[tp], py[s, t-1] in band lo[t-1]
+    const bool okx = row && s > g.q.sb && tp >= g.q.tb && tp <= g.t_hi;
+    const bool oky = row && t - 1 >= g.q.tb && t - 1 < g.q.te;
     x[k] = ld_masked(px + ((s - 1) * g.B + g.b) * g.T1 + tp,
-                     row && s > g.q.sb && tp >= g.q.tb && tp <= g.t_hi);
-    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t - 1, row && t - 1 >= g.q.tb && t - 1 < g.q.te);
+                     okx && (!kBand || band_ok(lo_at(lo, g.b, g.T, tp), s - 1, g.K)));
+    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t - 1,
+                     oky && (!kBand || band_ok(lo_at(lo, g.b, g.T, t - 1), s, g.K)));
   }
 #pragma unroll
   for (int k = 0; k < kPer; ++k)
@@ -192,11 +207,12 @@ __device__ void fwd_store(const Strip& g, float* p, const float* sm, int h, int 
   }
 }
 
-// backward: tile m + tile0(imax - i) + 1 of p, px and py of every row, and
-// row s0+imax+1's p and g for the top row
-template <class St>
-__device__ void bwd_load(const Strip& g, const St* px, const St* py, const float* p, float* sm,
-                         int h, int m) {
+// backward: tile m + tile0(imax - i) + 1 of p, px and py of every row (px
+// and py -inf outside the rectangle and the band), and row s0+imax+1's p and
+// its g (from the hand-off rows) for the top row
+template <class St, bool kBand>
+__device__ void bwd_load(const Strip& g, const St* px, const St* py, const int* lo, const float* p,
+                         const float* hrows, float* sm, int h, int m) {
   float* rpp = sm;
   float* rpx = sm + kRingFloats;
   float* rpy = sm + 2 * kRingFloats;
@@ -209,10 +225,11 @@ __device__ void bwd_load(const Strip& g, const St* px, const St* py, const float
     const int w = (m + tile0(qk) + 1) * kTile + e % kTile;
     const int s = g.s0 + i, t = g.q.te - w;
     const bool in = i >= 0 && t >= g.q.tb && t <= g.q.te;
+    const bool band = in && (!kBand || band_ok(lo_at(lo, g.b, g.T, t), s, g.K));
     at[k] = i >= 0 ? ring_at(i, w) : -1;
     pv[k] = in ? __ldcg(p + (s * g.B + g.b) * g.W + t) : kNegInf;
-    x[k] = ld_masked(px + (s * g.B + g.b) * g.T1 + t, in && s < g.q.se && t <= g.t_hi);
-    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t, in && t < g.q.te);
+    x[k] = ld_masked(px + (s * g.B + g.b) * g.T1 + t, band && s < g.q.se && t <= g.t_hi);
+    y[k] = ld_masked(py + (s * g.B + g.b) * g.T + t, band && t < g.q.te);
   }
 #pragma unroll
   for (int k = 0; k < kPer; ++k)
@@ -226,7 +243,7 @@ __device__ void bwd_load(const Strip& g, const St* px, const St* py, const float
     float hp = kNegInf, hg = 0.f;
     if (g.above_hand && tn >= g.q.tb && tn <= g.q.te) {
       hp = __ldcg(p + ((g.s0 + g.imax + 1) * g.B + g.b) * g.W + tn);
-      hg = __ldcg(p + g.ohg_in + tn);
+      hg = __ldcg(hrows + g.ohg_in + tn);
     }
     hand[w & (kRing - 1)] = hp;
     hand[kRing + (w & (kRing - 1))] = hg;
@@ -265,6 +282,16 @@ __device__ void zero_row(const Strip& g, St* pxg, St* pyg, int unit, int lane) {
   for (int t = c + lane; t < n; t += 32) o[t] = z;
 }
 
+// -inf of p in row s outside the rectangle, by one helper warp (the forward
+// alone: the fused launch's p is scratch)
+__device__ void neg_row(const Strip& g, float* p, int s, int lane) {
+  float* o = p + (s * g.B + g.b) * g.W;
+  const bool in_s = s >= g.q.sb && s <= g.q.se;
+  const int a = in_s ? g.q.tb : g.W, c = in_s ? g.q.te + 1 : g.W;  // [0, a) and [c, W)
+  for (int t = lane; t < a; t += 32) o[t] = kNegInf;
+  for (int t = c + lane; t < g.W; t += 32) o[t] = kNegInf;
+}
+
 // --- the sweeping warp ----------------------------------------------------
 
 // Per-slot constants of the sweeping warp's rows in one strip.
@@ -291,11 +318,10 @@ struct Rows {
 // this one's stores), then shuffles, computes and stores: the kR cells of a
 // step are independent, and reading after a store into the same shared
 // array would serialize them.
-template <bool kMod, bool kBand>
+template <bool kMod>
 struct FwdSweep {
   Rows rw;
   float v1[kR], v2[kR];  // p of the row on the last two steps
-  int lprev[kR];  // lo[b, t-1]
   float xa[kR], ya[kR], hv;  // ring cells of the coming step
 
   __device__ __forceinline__ void read(const float* sm, int lane, int x) {
@@ -313,11 +339,10 @@ struct FwdSweep {
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       v1[r] = v2[r] = kNegInf;
-      lprev[r] = 0;
     }
   }
 
-  __device__ __forceinline__ void step(const Strip& g, const int* lo, float* sm, int lane, int x) {
+  __device__ __forceinline__ void step(const Strip& g, float* sm, int lane, int x) {
     float nv[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -331,16 +356,9 @@ struct FwdSweep {
     for (int r = 0; r < kR; ++r) {
       const int v = x - rw.i[r];
       act[r] = rw.row[r] && (unsigned)v <= (unsigned)g.span;
-      float x_ = xa[r], y_ = ya[r];
-      if (kBand) {
-        const int lt = act[r] ? lo_at(lo, g.b, g.T, g.q.tb + v) : 0;
-        if (!band_ok(kMod ? lprev[r] : lt, rw.s[r] - 1, g.K)) x_ = kNegInf;
-        if (!band_ok(lprev[r], rw.s[r], g.K)) y_ = kNegInf;
-        lprev[r] = lt;
-      }
-      float a = nv[r] + x_;
+      float a = nv[r] + xa[r];
       if (r == 0 && x == 0 && rw.first[0]) a = 0.f;  // origin p[s_begin, t_begin] = 0 (row 0, step 0)
-      const float val = log_add_fast(a, v1[r] + y_);
+      const float val = log_add_fast(a, v1[r] + ya[r]);
       nv[r] = act[r] ? val : kNegInf;
     }
     read(sm, lane, x + 1);
@@ -363,7 +381,7 @@ struct FwdSweep {
   }
 };
 
-template <bool kMod, bool kBand>
+template <bool kMod>
 struct BwdSweep {
   Rows rw;
   float pc1[kR];  // p[s, t+1]
@@ -394,8 +412,7 @@ struct BwdSweep {
     }
   }
 
-  __device__ __forceinline__ void step(const Strip& g, const int* lo, float* sm, float* p, int lane,
-                                       int x) {
+  __device__ __forceinline__ void step(const Strip& g, float* sm, float* hrows, int lane, int x) {
     float ap[kR], ag[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -415,12 +432,9 @@ struct BwdSweep {
     for (int r = 0; r < kR; ++r) {
       const int w = x - g.imax + rw.i[r];
       act[r] = rw.row[r] && (unsigned)w <= (unsigned)g.span;
-      float x_ = xa[r], y_ = ya[r];
-      if (kBand && !(act[r] && band_ok(lo_at(lo, g.b, g.T, g.q.te - w), rw.s[r], g.K)))
-        x_ = y_ = kNegInf;
-      const float h = safe_exp_fast(pa[r] + x_ - ap[r]) * ag[r];
-      const float c = safe_exp_fast(pa[r] + y_ - pc1[r]);
-      const float seed = (rw.last[r] && x == 0) ? 1.f : 0.f;  // (s_end, t_end): row imax, step 0
+      const float h = safe_exp_fast(pa[r] + xa[r] - ap[r]) * ag[r];
+      const float c = safe_exp_fast(pa[r] + ya[r] - pc1[r]);
+      const float seed = (rw.last[r] && x == 0) ? g.ag : 0.f;  // (s_end, t_end): row imax, step 0
       ng[r] = act[r] ? fmaf(c, g1[r], h + seed) : 0.f;
       npc[r] = act[r] ? pa[r] : kNegInf;
       gy[r] = c * g1[r];
@@ -431,7 +445,7 @@ struct BwdSweep {
     // lane 0's value, under a condition the whole warp shares
     const float g0 = __shfl_sync(kFull, ng[0], 0);
     const int w0 = x - g.imax;
-    if (g.below_hand && (unsigned)w0 <= (unsigned)g.span) p[g.ohg_out + g.q.te - w0] = g0;
+    if (g.below_hand && (unsigned)w0 <= (unsigned)g.span) hrows[g.ohg_out + g.q.te - w0] = g0;
     float* rgx = sm + 3 * kRingFloats;
     float* rgy = sm + 4 * kRingFloats;
 #pragma unroll
@@ -446,132 +460,186 @@ struct BwdSweep {
   }
 };
 
-template <class St, bool kMod, bool kBand>
+// The phases a launch runs: the forward alone, the backward alone, or both
+enum Phases { kFwd = 1, kBwd = 2, kBoth = 3 };
+
+// p: (S+1, B, T+1), written by the forward (kFwd: every cell, -inf outside
+// the rectangle; kBoth: the rectangle) and read by the backward; hrows: the
+// backward's two (B, T+1) hand-off rows; ans_grad: the backward's seeds, or
+// NULL for seed 1.
+template <class St, bool kMod, bool kBand, int kPh>
 __global__ void __launch_bounds__(kThreads)
-wavefront_fused_kernel(const St* __restrict__ px, const St* __restrict__ py,
-                       const int* __restrict__ bnd, const int* __restrict__ lo, int K, int S,
-                       int B, int T, float* p, float* __restrict__ scores,
-                       St* __restrict__ pxg, St* __restrict__ pyg) {
+sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __restrict__ bnd,
+             const int* __restrict__ lo, int K, int S, int B, int T,
+             const float* __restrict__ ans_grad, float* p, float* hrows,
+             float* __restrict__ scores, St* __restrict__ pxg, St* __restrict__ pyg) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = threadIdx.x - 32;  // thread index among the helper warps
   const Bnd q = load_bnd(bnd, b);
   const int nr = q.se - q.sb + 1;
   const int nk = nr > 0 && q.te >= q.tb ? (nr + kStrip - 1) / kStrip : 0;
-  if (nk == 0 && threadIdx.x == 0) scores[b] = kNegInf;
-  // zero units (row, output): one per helper warp and block of the forward,
-  // the rest after it
-  const int nunits = 2 * (S + 1);
+  // a runtime value in every instantiation, so that seed 1 takes the same
+  // operations fused and apart
+  const float ag = ans_grad != nullptr ? __ldg(ans_grad + b) : 1.f;
+  // fill units outside the rectangle, one per helper warp and block of the
+  // first phase, the rest after it: -inf of p (one per row, kFwd) or the
+  // zeros of (row, output) (two per row, kBwd and kBoth)
+  const int nunits = kPh == kFwd ? S + 1 : 2 * (S + 1);
   int unit = warp - 1;
-
-  for (int k = 0; k < nk; ++k) {
-    const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
-    FwdSweep<kMod, kBand> f;
-    if (warp == 0) {
-      f.init(g, lane);
-    } else {
-      fwd_load(g, px, py, p, sm, h, -1);
-      fwd_load(g, px, py, p, sm, h, 0);
+  auto fill = [&](const Strip& g) {
+    if (unit < nunits) {
+      if (kPh == kFwd)
+        neg_row(g, p, unit, lane);
+      else
+        zero_row(g, pxg, pyg, unit, lane);
     }
-    __syncthreads();
-    if (warp == 0) f.read(sm, lane, 0);  // the prologue's tiles are in
-    for (int m = 0; m < g.nb; ++m) {
-      if (warp == 0) {
-        for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x)
-          f.step(g, lo, sm, lane, x);
-        if (m == g.nb - 1 && k == nk - 1) f.score(g, scores);
-      } else {
-        if (m + 1 < g.nb) fwd_load(g, px, py, p, sm, h, m + 1);
-        fwd_store(g, p, sm, h, m);
-        if (unit < nunits) zero_row(g, pxg, pyg, unit, lane);
-        unit += kHelp;
-      }
-      __syncthreads();  // tiles of block m+1 in, block m's cells written
-    }
-    if (warp > 0) {
-      fwd_store(g, p, sm, h, g.nb);
-      fwd_store(g, p, sm, h, g.nb + 1);
-    }
-    __syncthreads();  // the strip's p is stored before the next strip (or the backward) reads it
-  }
-  if (warp > 0) {
+    unit += kHelp;
+  };
+  auto fill_rest = [&]() {
     const Strip g = make_strip(B, T, S, K, b, q, kMod, 0, 1);
-    for (; unit < nunits; unit += kHelp) zero_row(g, pxg, pyg, unit, lane);
-  }
-  for (int k = nk - 1; k >= 0; --k) {
-    const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
-    BwdSweep<kMod, kBand> f;
-    if (warp == 0) {
-      f.init(g, lane);
-    } else {
-      bwd_load(g, px, py, p, sm, h, -1);
-      bwd_load(g, px, py, p, sm, h, 0);
-    }
-    __syncthreads();
-    if (warp == 0) f.read(g, sm, lane, 0);  // the prologue's tiles are in
-    for (int m = 0; m < g.nb; ++m) {
+    while (unit < nunits) fill(g);
+  };
+
+  if (kPh & kFwd) {
+    if (nk == 0 && threadIdx.x == 0) scores[b] = kNegInf;
+    for (int k = 0; k < nk; ++k) {
+      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
+      FwdSweep<kMod> f;
       if (warp == 0) {
-        for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x) f.step(g, lo, sm, p, lane, x);
+        f.init(g, lane);
       } else {
-        if (m + 1 < g.nb) bwd_load(g, px, py, p, sm, h, m + 1);
-        bwd_store(g, pxg, pyg, sm, h, m);
+        fwd_load<St, kBand>(g, px, py, lo, p, sm, h, -1);
+        fwd_load<St, kBand>(g, px, py, lo, p, sm, h, 0);
       }
       __syncthreads();
+      if (warp == 0) f.read(sm, lane, 0);  // the prologue's tiles are in
+      for (int m = 0; m < g.nb; ++m) {
+        if (warp == 0) {
+          for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x)
+            f.step(g, sm, lane, x);
+          if (m == g.nb - 1 && k == nk - 1) f.score(g, scores);
+        } else {
+          if (m + 1 < g.nb) fwd_load<St, kBand>(g, px, py, lo, p, sm, h, m + 1);
+          fwd_store(g, p, sm, h, m);
+          fill(g);
+        }
+        __syncthreads();  // tiles of block m+1 in, block m's cells written
+      }
+      if (warp > 0) {
+        fwd_store(g, p, sm, h, g.nb);
+        fwd_store(g, p, sm, h, g.nb + 1);
+      }
+      __syncthreads();  // the strip's p is stored before the next strip (or the backward) reads it
     }
-    if (warp > 0) {
-      bwd_store(g, pxg, pyg, sm, h, g.nb);
-      bwd_store(g, pxg, pyg, sm, h, g.nb + 1);
+    if (warp > 0) fill_rest();
+  }
+  if (kPh & kBwd) {
+    for (int k = nk - 1; k >= 0; --k) {
+      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk, ag);
+      BwdSweep<kMod> f;
+      if (warp == 0) {
+        f.init(g, lane);
+      } else {
+        bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, -1);
+        bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, 0);
+      }
+      __syncthreads();
+      if (warp == 0) f.read(g, sm, lane, 0);  // the prologue's tiles are in
+      for (int m = 0; m < g.nb; ++m) {
+        if (warp == 0) {
+          for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x)
+            f.step(g, sm, hrows, lane, x);
+        } else {
+          if (m + 1 < g.nb) bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, m + 1);
+          bwd_store(g, pxg, pyg, sm, h, m);
+          if (kPh == kBwd) fill(g);
+        }
+        __syncthreads();
+      }
+      if (warp > 0) {
+        bwd_store(g, pxg, pyg, sm, h, g.nb);
+        bwd_store(g, pxg, pyg, sm, h, g.nb + 1);
+      }
+      __syncthreads();  // the hand-off row is stored before the strip below reads it
     }
-    __syncthreads();  // the hand-off row is stored before the strip below reads it
+    if (kPh == kBwd && warp > 0) fill_rest();
   }
 }
 
-template <class St, bool kMod, bool kBand>
-int launch(const void* px, const void* py, const void* bnd, const void* lo, int K, int S, int B,
-           int T, void* p, void* scores, void* pxg, void* pyg, cudaStream_t stream) {
-  cudaFuncSetAttribute(wavefront_fused_kernel<St, kMod, kBand>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  wavefront_fused_kernel<St, kMod, kBand><<<B, kThreads, kSmem, stream>>>(
-      static_cast<const St*>(px), static_cast<const St*>(py), static_cast<const int*>(bnd),
-      static_cast<const int*>(lo), K, S, B, T, static_cast<float*>(p),
-      static_cast<float*>(scores), static_cast<St*>(pxg), static_cast<St*>(pyg));
+struct Args {
+  const void *px, *py, *bnd, *lo;
+  int K, S, B, T;
+  const void* ans_grad;
+  void *p, *hrows, *scores, *pxg, *pyg;
+};
+
+template <class St, int kPh, bool kMod, bool kBand>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kern = sweep_kernel<St, kMod, kBand, kPh>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  kern<<<a.B, kThreads, kSmem, stream>>>(
+      static_cast<const St*>(a.px), static_cast<const St*>(a.py), static_cast<const int*>(a.bnd),
+      static_cast<const int*>(a.lo), a.K, a.S, a.B, a.T, static_cast<const float*>(a.ans_grad),
+      static_cast<float*>(a.p), static_cast<float*>(a.hrows), static_cast<float*>(a.scores),
+      static_cast<St*>(a.pxg), static_cast<St*>(a.pyg));
   return (int)cudaGetLastError();
 }
 
-template <class St>
-int launch_fused(const void* px, const void* py, const void* bnd, const void* lo, int K, int S,
-                 int B, int T, int modified, void* p, void* scores, void* pxg, void* pyg,
-                 int threads, cudaStream_t stream) {
-  if (threads != kThreads) return (int)cudaErrorInvalidValue;
+template <class St, int kPh>
+int launch_masks(const Args& a, int modified, cudaStream_t st) {
   if (modified)
-    return lo ? launch<St, true, true>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream)
-              : launch<St, true, false>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream);
-  return lo ? launch<St, false, true>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream)
-            : launch<St, false, false>(px, py, bnd, lo, K, S, B, T, p, scores, pxg, pyg, stream);
+    return a.lo ? launch<St, kPh, true, true>(a, st) : launch<St, kPh, true, false>(a, st);
+  return a.lo ? launch<St, kPh, false, true>(a, st) : launch<St, kPh, false, false>(a, st);
+}
+
+template <int kPh>
+int launch_sweep(const Args& a, int modified, int threads, int dtype, void* stream) {
+  if (threads != kThreads) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_masks<float, kPh>(a, modified, st);
+    case kBF16:
+      return launch_masks<__nv_bfloat16, kPh>(a, modified, st);
+    case kF16:
+      return launch_masks<__half, kPh>(a, modified, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Every entry: px (S, B, T') and py (S+1, B, T) in the storage type named by
+// `dtype` (StorageCode); lo may be NULL (no band); `threads` must be 256 (one
+// sweeping warp, seven helpers); one block per utterance.
+
+// p: (S+1, B, T+1) f32 out, -inf outside each rectangle; scores: (B,) f32 out.
+extern "C" int frt_sweep_fwd(const void* px, const void* py, const void* bnd, const void* lo, int K,
+                             int S, int B, int T, int modified, void* p, void* scores, int threads,
+                             int dtype, void* stream) {
+  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, nullptr, scores, nullptr, nullptr};
+  return launch_sweep<kFwd>(a, modified, threads, dtype, stream);
+}
+
+// p: (S+1, B, T+1) f32 in; ans_grad: (B,) f32 seeds; hrows: (2, B, T+1) f32
+// scratch; pxg (S, B, T') and pyg (S+1, B, T) out in the storage type.
+extern "C" int frt_sweep_bwd(const void* px, const void* py, const void* p, const void* bnd,
+                             const void* lo, int K, const void* ans_grad, int S, int B, int T,
+                             int modified, void* hrows, void* pxg, void* pyg, int threads,
+                             int dtype, void* stream) {
+  const Args a{px, py, bnd, lo, K, S, B, T, ans_grad, const_cast<void*>(p), hrows, nullptr, pxg,
+               pyg};
+  return launch_sweep<kBwd>(a, modified, threads, dtype, stream);
+}
+
 // p: (S+3, B, T+1) f32 scratch (rows 0..S the forward lattice, S+1 and S+2
-// the backward's hand-off rows); scores: (B,) f32 out; pxg (S, B, T') and
-// pyg (S+1, B, T) out in the storage type named by `dtype` (StorageCode); lo
-// may be NULL (no band); `threads` must be 256 (one sweeping warp, seven
-// helpers).
+// the backward's hand-off rows); scores: (B,) f32 out; pxg, pyg out; seed 1.
 extern "C" int frt_wavefront_fused(const void* px, const void* py, const void* bnd,
                                    const void* lo, int K, int S, int B, int T, int modified,
                                    void* p, void* scores, void* pxg, void* pyg, int threads,
                                    int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch_fused<float>(px, py, bnd, lo, K, S, B, T, modified, p, scores, pxg, pyg,
-                                 threads, st);
-    case kBF16:
-      return launch_fused<__nv_bfloat16>(px, py, bnd, lo, K, S, B, T, modified, p, scores, pxg,
-                                         pyg, threads, st);
-    case kF16:
-      return launch_fused<__half>(px, py, bnd, lo, K, S, B, T, modified, p, scores, pxg, pyg,
-                                  threads, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  float* hrows = static_cast<float*>(p) + (size_t)(S + 1) * B * (T + 1);
+  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, hrows, scores, pxg, pyg};
+  return launch_sweep<kBoth>(a, modified, threads, dtype, stream);
 }

@@ -1,7 +1,7 @@
-// Row bodies of the split lattice recursion kernels (wavefront.cu): the
+// Row bodies of the row-scan lattice recursion kernels (wavefront.cu): the
 // forward sweep over rows s = 0..S and the occupancy backward sweep over
 // s = S..0; the boundary, band and storage-type helpers are shared with the
-// fused diagonal-sweep kernel (wavefront_fused.cu).
+// diagonal-sweep kernels (wavefront_fused.cu).
 //
 // Storage dtypes.  px/py (and the occupancies written back) are stored as
 // St = float, __nv_bfloat16 or __half; every value is widened to float as

@@ -39,10 +39,14 @@ P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, dtype,
     # stream
-    "frt_wavefront_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
-    # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, pxg, pyg,
-    # threads, dtype, stream
-    "frt_wavefront_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
+    "frt_sweep_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
+    # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, hand-off rows,
+    # pxg, pyg, threads, dtype, stream
+    "frt_sweep_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, P, I, I, P],
+    # the row scans: frt_scan_fwd as frt_sweep_fwd; frt_scan_bwd as
+    # frt_sweep_bwd without the hand-off rows
+    "frt_scan_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
+    "frt_scan_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
     # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+3 rows),
     # scores, pxg, pyg, threads, dtype, stream
     "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],

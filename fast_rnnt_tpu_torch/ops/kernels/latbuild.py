@@ -22,7 +22,10 @@ cores, see ``csrc/wgmma.cuh``), or bf16 lm and am for the plain build
 (bf16 products, float32 sums), the JAX package's bf16 mode: px and py come
 out float32, the gradients in the inputs' dtypes.  In that mode the
 backward keeps the forward's float32 residual D (the JAX package
-recomputes it).  The smoothed build takes float32 only.
+recomputes it).  The smoothed build takes float32 only.  ``lattice_rows``
+and ``lattice_rows_smoothed`` cast float16 lm and am to float32 before
+the kernels, as the Pallas build contracts them (``_mxu_dtype``); autograd
+carries the gradients back to float16.
 """
 
 from __future__ import annotations
@@ -84,6 +87,11 @@ def _lm_probs(lm: torch.Tensor) -> torch.Tensor:
     operand.  For bf16 lm, in bf16 arithmetic, rounded as the plain build's
     (and the JAX XLA build's) exps are."""
     return torch.exp(lm - lm.amax(dim=2, keepdim=True).detach())
+
+
+def _f16_as_f32(*xs):
+    """float16 lm and am ride the float32 kernels; the others as they are."""
+    return tuple(x.float() if x.dtype == torch.float16 else x for x in xs)
 
 
 def _check_inputs(lm, am, symbols, te_fix, blank, uni=None):
@@ -283,7 +291,7 @@ def lattice_rows(
     else:
         te_fix = _te_fix(boundary, am.shape[0], rnnt_type == "regular", am.device)
         px, py = _BuildFn.apply(
-            lm, am, symbols, te_fix, int(termination_symbol), rnnt_type == "modified"
+            *_f16_as_f32(lm, am), symbols, te_fix, int(termination_symbol), rnnt_type == "modified"
         )
     if out_dtype is not None:
         px, py = px.to(out_dtype), py.to(out_dtype)
@@ -383,7 +391,7 @@ def lattice_rows_smoothed(
     uni = (lmp / lmsum[:, :, None]).mean(dim=(0, 1)) + _TINY
     uni_log = torch.log(uni)
     if am.is_cuda:
-        px, py, normd = _BuildPartsFn.apply(lm, am, symbols, te_fix, uni, blank, modified)
+        px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified)
     else:
         px, py, normd = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified)
 

@@ -10,10 +10,11 @@
     scores[b] = p[b, s_end, t_end]
 
 Rows are (S, B, T)-major.  On a CUDA tensor they run the hand-written
-kernels of ``kernels/wavefront.py``: the fused forward + occupancy-backward
-kernel where the occupancies are asked for (``calc_gradients=True``), the
-forward kernel for scores alone, and the backward kernel on demand under
-autograd (or the fused kernel, with ``_FUSE_SCORES_VJP``); on a CPU tensor
+diagonal-sweep kernel of ``kernels/wavefront.py``: its fused forward +
+occupancy-backward launch where the occupancies are asked for
+(``calc_gradients=True``), its forward phase alone for scores, and its
+backward phase alone, seeded with the score gradient, on demand under
+autograd (or the fused launch, with ``_FUSE_SCORES_VJP``); on a CPU tensor
 they run the plain versions below (S+1 sequential rows, each solved by a
 doubling scan over t, see ``numerics.py``).
 

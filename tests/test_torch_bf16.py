@@ -1,7 +1,7 @@
 """The bf16-input mode (bf16 lm and am, ``lattice_dtype=bf16``: the JAX
 package's mixed-precision training step, bench.py's second row) on the
-port against the JAX package, the build kernels' input guard, and a model
-of the kernels' 3xTF32 products."""
+port against the JAX package, float16 lm and am on the plain route, the
+build kernels' input guard, and a model of the kernels' 3xTF32 products."""
 
 import jax
 import jax.numpy as jnp
@@ -114,6 +114,50 @@ def test_bf16_smoothed_losses_match_jax(rnnt_type, seed):
     np.testing.assert_allclose(to_np(s_t), np.asarray(s_j), rtol=1e-4, err_msg="smoothed stage")
     agree = _agree(r_t, r_j)
     np.testing.assert_allclose(to_np(p_t)[agree], np.asarray(p_j)[agree], rtol=1e-4, err_msg="pruned")
+
+
+# float16 gradients: each side rounds its exps and their VJPs to float16
+# (2^-11 relative), so two results may sit a few float16 steps apart; held
+# to 2^-8 of the largest |gradient|
+F16_GRAD_TOL = 2.0**-8
+
+
+@pytest.mark.parametrize("rnnt_type", TYPES)
+def test_f16_inputs_match_jax(rnnt_type):
+    """float16 lm and am on the plain route (the card casts them to float32
+    for its build kernels, as the Pallas build does): the simple, pruned
+    and smoothed losses against the JAX package's XLA pipeline on the same
+    float16 inputs to relative 1e-4 (the pruned ones where the ranges
+    agree), and the gradient of 0.5 * simple + pruned, in float16, to the
+    float16 bound."""
+    am, lm, sym, bnd = loss_inputs(60, B=3, T=30, S=6, C=12)
+    am_t, lm_t = (torch.from_numpy(x).half().requires_grad_() for x in (am, lm))
+    am_j, lm_j = jnp.asarray(am).astype(jnp.float16), jnp.asarray(lm).astype(jnp.float16)
+    s_t, p_t, r_t = ft.rnnt_loss_simple_pruned(lm_t, am_t, tt(sym), 0, 3, tt(bnd), rnnt_type=rnnt_type,
+                                               reduction="none")
+
+    def jf(a, l):
+        s, p, r = frt.rnnt_loss_simple_pruned(l, a, jj(sym), 0, 3, jj(bnd), rnnt_type=rnnt_type,
+                                              reduction="none", impl="xla")
+        return 0.5 * s.sum() + p.sum(), (s, p, r)
+
+    (_, (s_j, p_j, r_j)), (ga_j, gl_j) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(am_j, lm_j)
+    np.testing.assert_allclose(to_np(s_t), np.asarray(s_j), rtol=1e-4, err_msg="simple")
+    agree = _agree(r_t, r_j)
+    np.testing.assert_allclose(to_np(p_t)[agree], np.asarray(p_j)[agree], rtol=1e-4, err_msg="pruned")
+    sm_t = ft.rnnt_loss_smoothed(lm_t.detach(), am_t.detach(), tt(sym), 0, 0.2, 0.1, tt(bnd), rnnt_type,
+                                 reduction="none")
+    sm_j = frt.rnnt_loss_smoothed(lm_j, am_j, jj(sym), 0, 0.2, 0.1, jj(bnd), rnnt_type,
+                                  reduction="none", impl="xla")
+    np.testing.assert_allclose(to_np(sm_t), np.asarray(sm_j), rtol=1e-4, err_msg="smoothed")
+    if not agree.all():
+        return  # the gradient needs every utterance's ranges to agree
+    (0.5 * s_t.sum() + p_t.sum()).backward()
+    assert am_t.grad.dtype == torch.float16 and lm_t.grad.dtype == torch.float16
+    for got, want, name in ((am_t.grad, ga_j, "d am"), (lm_t.grad, gl_j, "d lm")):
+        got, want = to_np(got).astype(np.float32), np.asarray(want.astype(jnp.float32))
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= F16_GRAD_TOL, f"{name}: {err:.3e} of max"
 
 
 def test_float32_smoothed_build_unchanged_by_the_bf16_contract():

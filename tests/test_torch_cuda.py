@@ -10,10 +10,11 @@ needs no JAX).
 chip_smoke.py compares every kernel with its plain version at small
 ragged shapes and at the headline shape, and drives the main path; the
 cases here are the ones it does not cover: random shapes, very long
-utterances (the fused kernel's too, past the split pair's cap), the fused
-kernel over several strips, at S = 0 and banded, out-of-range symbols, the storage
-dtypes at random shapes, the CUDA dtype, size and gradient rules, the fused
-kernel's launches in the recipe, and the forward-only build's memory."""
+utterances (the sweep kernels past the row scans' cap), the sweep kernels
+over several strips, at S = 0 and banded, out-of-range symbols, the storage
+dtypes at random shapes, float16 lm and am, the CUDA dtype, size and
+gradient rules, the fused kernel's launches in the recipe, and the
+forward-only build's memory."""
 
 import numpy as np
 import pytest
@@ -275,14 +276,16 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
     K = int(rng.integers(1, S + 2)) if rng.integers(2) else 0
     lo = band(seed, B, S, T, K) if K else None
     px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
-    p_k, s_k = wavefront.forward_rows(px, py, bnd, lo, K)
     p_p, s_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
-    assert_loss_close(s_k, s_p)
-    assert_close(p_k, p_p, 1e-4, 1e-5)
-    ag = torch.rand(B, device=dev) + 0.5
-    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K),
-                    wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
-        assert_close(a, b, 1e-5, 1e-4)
+    ag = torch.randn(B, device=dev)
+    for fwd, bwd in ((wavefront.forward_rows, wavefront.backward_rows),
+                     (wavefront.forward_rows_scan, wavefront.backward_rows_scan)):
+        p_k, s_k = fwd(px, py, bnd, lo, K)
+        assert_loss_close(s_k, s_p)
+        assert_close(p_k, p_p, 1e-4, 1e-5)
+        for a, b in zip(bwd(px, py, p_k, bnd, ag, lo, K),
+                        wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
+            assert_close(a, b, 1e-5, 1e-4)
     if S >= 1 and not K:
         gx, gy = wavefront.backward_rows(px, py, p_k, bnd, torch.ones(B, device=dev))
         Kr = int(rng.integers(1 if modified else 2, S + 2)) if S >= 1 else 1
@@ -306,18 +309,47 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
         assert_close(px_c, px_p + py_p[1:], 1e-4, 1e-5)
 
 
+@pytest.mark.parametrize("pair", ["sweep", "scan"])
 @pytest.mark.parametrize("modified", [False, True])
-def test_wavefront_kernels_long_utterance(dev, modified):
-    """T = 12000 (the ROADMAP's longest scaling shape): twelve cells per
-    thread, the largest rows the kernels keep in shared memory."""
+def test_wavefront_kernels_long_utterance(dev, modified, pair):
+    """T = 12000 (the ROADMAP's longest scaling shape): the sweep pair over
+    12,013 diagonals, and the row scans at twelve cells per thread, the
+    largest rows they keep in shared memory."""
+    fwd, bwd = {"sweep": (wavefront.forward_rows, wavefront.backward_rows),
+                "scan": (wavefront.forward_rows_scan, wavefront.backward_rows_scan)}[pair]
     px, py, bnd = from_numpy(*rows_inputs(9, B=2, S=12, T=12000, modified=modified), device=dev)
-    p_k, s_k = wavefront.forward_rows(px, py, bnd)
+    p_k, s_k = fwd(px, py, bnd)
     p_p, s_p = wavefront.forward_rows_plain(px, py, bnd)
     assert_loss_close(s_k, s_p)
     ones = torch.ones(2, device=dev)
-    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ones),
+    for a, b in zip(bwd(px, py, p_k, bnd, ones),
                     wavefront.backward_rows_plain(px, py, p_k, bnd, ones)):
         assert_close(a, b, 1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["full", "banded"])
+@pytest.mark.parametrize("modified", [False, True])
+def test_sweep_pair_past_the_scan_cap(dev, modified, banded):
+    """T = 20000, which the row scans refuse: the sweep pair against the
+    plain version run in float64 (scores 1e-4 + 1e-5|x|; occupancies at
+    3e-3, the long-utterance bound of the fused kernel's test), with seeds
+    that hold 0 and a negative value.  p, in every cell: float32 round-off
+    accumulates along a 20,000-step path, so its error is on the scale of
+    the largest |p| wherever the cell's own value lies (the float32 plain p
+    is 9e-4 from the kernel's beside |p| ~ 1.2e3 on an H100, at values
+    near 0): held to 1e-5 of max |p| + 1e-5|x|."""
+    px, py, bnd = rows_inputs(13, B=3, S=12, T=20000, modified=modified, offset=True)
+    K = 3 if banded else 0
+    lo = band(14, 3, 12, 20000, K) if banded else None
+    px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
+    ag = torch.tensor([0.0, -1.5, 2.0], device=dev)
+    p_k, s_k = wavefront.forward_rows(px, py, bnd, lo, K)
+    p_p, s_p = wavefront.forward_rows_plain(px.double(), py.double(), bnd, lo, K)
+    assert_loss_close(s_k, s_p)
+    assert_close(p_k, p_p, 1e-5 * p_p[torch.isfinite(p_p)].abs().max().item(), 1e-5)
+    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K),
+                    wavefront.backward_rows_plain(px.double(), py.double(), p_p, bnd, ag.double(), lo, K)):
+        assert_close(a, b, 1e-5, 3e-3)
 
 
 @pytest.mark.parametrize("modified", [False, True])
@@ -364,7 +396,8 @@ def test_fused_kernel_diagonal_sweep_matches_plain(dev, case):
     """The diagonal sweep against its plain version (scores 1e-4 + 1e-5|x|,
     occupancies 1e-5 + (1e-3 + one storage step)|x|), with non-zero begins,
     ragged ends and zeros outside each rectangle; and the same bits on a
-    second run (no atomics).  At T = 20000, where |p| reaches ~4e4 and a
+    second run (no atomics); and the forward and backward launched apart,
+    seeded with ones, give the same bits.  At T = 20000, where |p| reaches ~4e4 and a
     float32 step is 4e-3, the float32 plain version's own occupancies are
     1.7e-3 from float64 ones (PERF.md): there the kernel is held to the
     plain version run in float64, at 3e-3."""
@@ -386,6 +419,9 @@ def test_fused_kernel_diagonal_sweep_matches_plain(dev, case):
         assert_close(a, b, 1e-5, rtol)
     again = wavefront.fused_rows(px, py, bnd, lo, K)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+    p_k, s_k = wavefront.forward_rows(px, py, bnd, lo, K)
+    pair = (s_k, *wavefront.backward_rows(px, py, p_k, bnd, torch.ones_like(s_k), lo, K))
+    assert all(torch.equal(a, b) for a, b in zip(out, pair))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
@@ -424,34 +460,38 @@ def test_storage_dtypes_match_plain_on_random_shapes(dev, seed, dtype):
 
 def test_recursion_dtype_and_size_rules_on_cuda(dev):
     """float64 and mixed px/py dtypes raise TypeError in every recursion
-    wrapper; past the shared-memory limit the split kernels raise
-    ValueError, with no fallback, and the fused kernel, which keeps no row
-    in shared memory, runs."""
+    wrapper; past the shared-memory limit the row scans raise ValueError,
+    with no fallback, and the sweep kernels, which keep no row in shared
+    memory, run."""
     px, py, bnd = from_numpy(*rows_inputs(11, B=2, S=3, T=8), device=dev)
     p, _ = wavefront.forward_rows(px, py, bnd)
     ones = torch.ones(2, device=dev)
     for x, y in ((px.double(), py.double()), (px, py.bfloat16()), (px.half(), py.bfloat16())):
-        with pytest.raises(TypeError):
-            wavefront.forward_rows(x, y, bnd)
-        with pytest.raises(TypeError):
-            wavefront.backward_rows(x, y, p, bnd, ones)
-        with pytest.raises(TypeError):
-            wavefront.fused_rows(x, y, bnd)
+        for fwd in (wavefront.forward_rows, wavefront.forward_rows_scan, wavefront.fused_rows):
+            with pytest.raises(TypeError):
+                fwd(x, y, bnd)
+        for bwd in (wavefront.backward_rows, wavefront.backward_rows_scan):
+            with pytest.raises(TypeError):
+                bwd(x, y, p, bnd, ones)
     px, py, bnd = from_numpy(*rows_inputs(12, B=1, S=2, T=15000), device=dev)
+    p = torch.zeros((3, 1, 15001), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        wavefront.forward_rows(px, py, bnd)
+        wavefront.forward_rows_scan(px, py, bnd)
     with pytest.raises(ValueError, match="shared memory"):
-        wavefront.backward_rows(px, py, torch.zeros((3, 1, 15001), device=dev), bnd,
-                                torch.ones(1, device=dev))
+        wavefront.backward_rows_scan(px, py, p, bnd, torch.ones(1, device=dev))
+    p, sc = wavefront.forward_rows(px, py, bnd)
+    assert torch.isfinite(sc).all()
+    assert all(torch.isfinite(g).all() for g in wavefront.backward_rows(px, py, p, bnd, torch.ones(1, device=dev)))
     assert torch.isfinite(wavefront.fused_rows(px, py, bnd)[0]).all()
 
 
 def test_fuse_switches_launch_the_fused_kernel(dev, monkeypatch):
     """The recipe's stage 1 launches the fused kernel once and stage 2 the
-    split pair; with the scores op's switch set, stage 2 launches the fused
-    kernel too and neither split kernel, and the loss and gradients agree
-    with the split stage 2's (loss 1e-4 + 1e-5|x|, gradients 1e-5 + 1e-3|x|:
-    the fused kernel sums in another order than the row scans)."""
+    sweep pair; with the scores op's switch set, stage 2 launches the fused
+    kernel too and neither of the pair, and the loss and gradients agree
+    with the pair's stage 2 (loss 1e-4 + 1e-5|x|, gradients 1e-5 + 1e-3|x|:
+    the pruned gradient rescales seed-1 occupancies in one arm and seeds
+    the backward with it in the other).  No path launches the row scans."""
     from fast_rnnt_tpu_torch.ops import recursion as trec
 
     am, lm, sym, b = from_numpy(*loss_inputs(13, B=3, T=60, S=8, C=16), device=dev)
@@ -466,11 +506,13 @@ def test_fuse_switches_launch_the_fused_kernel(dev, monkeypatch):
 
     before = dict(wavefront.LAUNCHES)
     ref = recipe()
-    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {"fwd": 1, "bwd": 1, "fused": 1}
+    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {
+        "fwd": 1, "bwd": 1, "fused": 1, "scan_fwd": 0, "scan_bwd": 0}
     monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
     before = dict(wavefront.LAUNCHES)
     got = recipe()
-    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {"fwd": 0, "bwd": 0, "fused": 2}
+    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {
+        "fwd": 0, "bwd": 0, "fused": 2, "scan_fwd": 0, "scan_bwd": 0}
     assert_loss_close(got[0], ref[0])
     for a, w in zip(got[1:], ref[1:]):
         assert_close(a, w, 1e-5, 1e-3)
@@ -486,3 +528,38 @@ def test_rnnt_loss_bf16_logits_on_cuda(dev):
     sym_c, b_c = from_numpy(sym, b, device="cpu")
     want = ft.rnnt_loss(logits, sym_c, 0, b_c, reduction="none")
     assert_loss_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("rnnt_type", ["regular", "modified"])
+def test_f16_lm_am_train_through_the_build_kernels(dev, rnnt_type):
+    """float16 lm and am: the build kernels run on their float32 casts (one
+    forward and one backward launch, the smoothed build's too), and the
+    loss of 0.5 * simple + pruned agrees with the plain route's on the same
+    float16 inputs to relative 1e-4 (each utterance whose ranges agree),
+    the float16 gradients to 2^-8 of max (a few float16 steps)."""
+    am, lm, sym, b = loss_inputs(15, B=3, T=60, S=8, C=16)
+    out = {}
+    for where in ("card", "plain"):
+        d = dev if where == "card" else torch.device("cpu")
+        am_t, lm_t, sym_t, b_t = from_numpy(am, lm, sym, b, device=d)
+        am_t, lm_t = am_t.half().requires_grad_(), lm_t.half().requires_grad_()
+        before = dict(latbuild.LAUNCHES)
+        s, p, r = ft.rnnt_loss_simple_pruned(lm_t, am_t, sym_t, 0, 3, b_t, rnnt_type=rnnt_type,
+                                             reduction="none")
+        loss = 0.5 * s + p
+        g = torch.autograd.grad(loss.sum(), (am_t, lm_t))
+        sm = ft.rnnt_loss_smoothed(lm_t.detach(), am_t.detach(), sym_t, 0, 0.2, 0.1, b_t, rnnt_type,
+                                   reduction="none")
+        n = {k: latbuild.LAUNCHES[k] - before[k] for k in before}
+        out[where] = [x.detach().cpu() for x in (loss, sm, r, *g)], n
+    (loss, sm, r, *g), n = out["card"]
+    (loss_p, sm_p, r_p, *g_p), _ = out["plain"]
+    assert n == {"fwd": 1, "bwd": 1, "fwd_parts": 1, "bwd_parts": 0}
+    assert g[0].dtype == torch.float16 and g[1].dtype == torch.float16
+    agree = (r == r_p).flatten(1).all(1)
+    assert agree.any()
+    np.testing.assert_allclose(loss[agree].numpy(), loss_p[agree].numpy(), rtol=1e-4)
+    np.testing.assert_allclose(sm.numpy(), sm_p.numpy(), rtol=1e-4)
+    if agree.all():
+        for a, w in zip(g, g_p):
+            assert (a.float() - w.float()).abs().max() <= 2.0**-8 * w.float().abs().max()

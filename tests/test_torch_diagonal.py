@@ -1,6 +1,7 @@
-"""A numpy model of the fused recursion kernel's schedule
-(fast_rnnt_tpu_torch/csrc/wavefront_fused.cu), held against the JAX
-package's XLA recursion on the CPU.
+"""A numpy model of the diagonal-sweep recursion kernels' schedule
+(fast_rnnt_tpu_torch/csrc/wavefront_fused.cu): the fused launch, and the
+forward and backward phases launched apart, held against the JAX package's
+XLA recursion on the CPU.
 
 The kernel cannot run here, so its index logic is pinned by this model.
 One warp per utterance sweeps the anti-diagonals d = s + t of the
@@ -12,9 +13,12 @@ diagonals back).  Rows stream through rings of four 16-column tiles that
 helper warps fill a block of 16 steps ahead and drain a block behind; the
 forward's strip k reads row s0-1 back from p, the backward's strips run top
 down and hand the g of their first row to the strip below through two
-alternating rows after p in the scratch, and the band starts lo[b, t] are
-read per cell (lo[b, t-1] kept from the step before).  The model shares
-the kernel's schedule, tile arithmetic and masks; its arithmetic is
+alternating hand-off rows (after p in the fused launch's scratch, a
+separate (2, B, T+1) scratch for the backward alone), and the helpers mask
+the band lo[b, t] <= s < lo[b, t] + K into the px and py tiles as they load
+them.  The forward alone fills p with -inf outside each rectangle, and the
+backward alone reads p (read-only here) and seeds with ans_grad.  The model
+shares the kernel's schedule, tile arithmetic and masks; its arithmetic is
 numpy's float32 logaddexp / exp.
 
 Tolerances: scores 1e-4 + 1e-5|x| (the loss tolerance), p 1e-5 + 1e-5|x|
@@ -71,6 +75,14 @@ def _tile0(q):
     return (-q) // TILE
 
 
+def _band(lob, t, s, K):
+    """The band test of lo[b, t] (edge-padded to T+1 columns) at row s; True
+    without a band."""
+    if lob is None:
+        return np.ones(np.broadcast(t, s).shape, bool)
+    return _band_ok(lob[np.clip(t, 0, len(lob) - 1)], s, K)
+
+
 def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
     """One strip of the forward as the kernel runs it.  The helper warps'
     work of block m (the loads for block m+1, the stores of finished tiles)
@@ -89,8 +101,10 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
             v = (m + _tile0(i) + 1) * TILE + COLS
             s, t = s0 + i, tb + v
             tp = t - mod
-            rpx[i, v & 63] = np.where((s > sb) & (tp >= tb) & (tp <= t_hi), _take(pxb, s - 1, tp), NEG)
-            rpy[i, v & 63] = np.where((t - 1 >= tb) & (t - 1 < te), _take(pyb, s, t - 1), NEG)
+            okx = (s > sb) & (tp >= tb) & (tp <= t_hi) & _band(lob, tp, s - 1, K)
+            oky = (t - 1 >= tb) & (t - 1 < te) & _band(lob, t - 1, s, K)
+            rpx[i, v & 63] = np.where(okx, _take(pxb, s - 1, tp), NEG)
+            rpy[i, v & 63] = np.where(oky, _take(pyb, s, t - 1), NEG)
         v = (m + 1) * TILE + COLS
         tp = tb + v - mod
         ok = (k > 0) & (tp >= tb) & (tp <= t_hi)
@@ -110,7 +124,6 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
     s = s0 + rows
     v1 = np.full(strip, NEG)
     v2 = np.full(strip, NEG)
-    lprev = np.zeros(strip, np.int64)
     n = imax + span + 1
     nb = -(-n // TILE)
     load(-1)
@@ -127,11 +140,6 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
             at = v & 63
             xa, ya = rpx[rows, at], rpy[rows, at]
             act = (rows <= imax) & (v >= 0) & (v <= span)
-            if lob is not None:
-                lt = np.where(act, lob[np.clip(t, 0, len(lob) - 1)], 0)
-                xa = np.where(_band_ok(lprev if mod else lt, s - 1, K), xa, NEG)
-                ya = np.where(_band_ok(lprev, s, K), ya, NEG)
-                lprev = lt
             below = np.concatenate([[hand[x & 63]], (v2 if mod else v1)[:-1]])
             a = np.where((s == sb) & (t == tb), np.float32(0), below + xa)
             val = np.logaddexp(a, v1 + ya).astype(np.float32)
@@ -146,15 +154,17 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
     store(nb + 1)
 
 
-def _backward_strip(pxb, pyb, p, b, q, k, nk, s0, imax, mod, lob, K, R, S, pxg, pyg):
-    """One strip of the backward (strips top down), as the forward's."""
+def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S, seed_g, pxg, pyg):
+    """One strip of the backward (strips top down), as the forward's; g is
+    handed down through rows 0 and 1 of ``hrows`` and seeded with
+    ``seed_g``."""
     sb, tb, se, te = q
     span, t_hi, strip = te - tb, te - mod, 32 * R
     T, T1 = pyg.shape[2], pxg.shape[2]
     rpp, rpx, rpy, rgx, rgy = (np.full((strip, RING), np.nan, np.float32) for _ in range(5))
     hand_p = np.full(RING, np.nan, np.float32)
     hand_g = np.full(RING, np.nan, np.float32)
-    g_in, g_out = S + 1 + ((k + 1) & 1), S + 1 + (k & 1)
+    g_in, g_out = (k + 1) & 1, k & 1
 
     def load(m):
         for qk in range(imax + 1):
@@ -162,14 +172,15 @@ def _backward_strip(pxb, pyb, p, b, q, k, nk, s0, imax, mod, lob, K, R, S, pxg, 
             w = (m + _tile0(qk) + 1) * TILE + COLS
             s, t = s0 + i, te - w
             inside = (t >= tb) & (t <= te)
+            band = inside & _band(lob, t, s, K)
             rpp[i, w & 63] = np.where(inside, _take(p[:, b], np.full_like(t, s), t), NEG)
-            rpx[i, w & 63] = np.where(inside & (s < se) & (t <= t_hi), _take(pxb, s, t), NEG)
-            rpy[i, w & 63] = np.where(inside & (t < te), _take(pyb, s, t), NEG)
+            rpx[i, w & 63] = np.where(band & (s < se) & (t <= t_hi), _take(pxb, s, t), NEG)
+            rpy[i, w & 63] = np.where(band & (t < te), _take(pyb, s, t), NEG)
         w = (m + 1) * TILE + COLS
         tn = te - w + mod
         ok = (k < nk - 1) & (tn >= tb) & (tn <= te)
         hand_p[w & 63] = np.where(ok, _take(p[:, b], np.full_like(tn, s0 + imax + 1), tn), NEG)
-        hand_g[w & 63] = np.where(ok, _take(p[:, b], np.full_like(tn, g_in), tn), np.float32(0))
+        hand_g[w & 63] = np.where(ok, _take(hrows[:, b], np.full_like(tn, g_in), tn), np.float32(0))
 
     def store(m):
         """Stores tile m + tile0(imax - i) - 1 of every row; returns what it read."""
@@ -204,10 +215,6 @@ def _backward_strip(pxb, pyb, p, b, q, k, nk, s0, imax, mod, lob, K, R, S, pxg, 
             at = w & 63
             act = (rows <= imax) & (w >= 0) & (w <= span)
             pc, xa, ya = rpp[rows, at], rpx[rows, at], rpy[rows, at]
-            if lob is not None:
-                ok = act & _band_ok(np.where(act, lob[np.clip(t, 0, len(lob) - 1)], 0), s, K)
-                xa = np.where(ok, xa, NEG)
-                ya = np.where(ok, ya, NEG)
             # row i+1 at t+dt: p from row i+1's ring (its cell dt steps
             # back), g from its state; the top slot's from the strip above
             # (hand rings)
@@ -215,12 +222,12 @@ def _backward_strip(pxb, pyb, p, b, q, k, nk, s0, imax, mod, lob, K, R, S, pxg, 
             ag = np.concatenate([(g2 if mod else g1)[1:], [hand_g[x & 63]]])
             h = _safe_exp(pc + xa - ap) * ag
             c = _safe_exp(pc + ya - pc1)
-            seed = np.where((s == se) & (t == te), np.float32(1), np.float32(0))
+            seed = np.where((s == se) & (t == te), np.float32(seed_g), np.float32(0))
             g = (c * g1 + (h + seed)).astype(np.float32)
             rgy[rows[act], at[act]] = (c * g1)[act]
             rgx[rows[act], at[act]] = h[act]
             if s0 > sb and act[0]:
-                p[g_out, b, t[0]] = g[0]
+                hrows[g_out, b, t[0]] = g[0]
             pc1 = np.where(act, pc, NEG)
             g2, g1 = g1, np.where(act, g, np.float32(0))
         for x, y in zip(store(m), before):
@@ -245,34 +252,92 @@ def _zero_outside(pxg, pyg, b, q):
         o[s, b, c:] = 0
 
 
-def diagonal_model(px, py, bnd, lo=None, K=0, R=1):
-    """(scores [B], px_grad [S, B, T'], py_grad [S+1, B, T], p scratch
-    [S+3, B, T+1]) by the kernel's schedule; every output starts as NaN, so
-    a cell that no part of the schedule writes stays NaN."""
+def _neg_outside(p, b, q):
+    """The helper warps' -inf of p outside the rectangle (the forward alone)."""
+    sb, tb, se, te = q
+    W = p.shape[2]
+    for s in range(p.shape[0]):
+        a, c = (tb, te + 1) if sb <= s <= se else (W, W)
+        p[s, b, :a] = NEG
+        p[s, b, c:] = NEG
+
+
+def _strips(bnd, b, R):
+    """(q, [(k, first row, imax) of each strip, bottom up])."""
+    q = tuple(int(v) for v in bnd[b])
+    sb, se, strip = q[0], q[2], 32 * R
+    nk = -(-(se - sb + 1) // strip)
+    return q, [(k, sb + k * strip, min(strip - 1, se - sb - k * strip)) for k in range(nk)]
+
+
+def _forward_phase(px, py, p, bnd, lo, K, R, scores, b):
+    q, strips = _strips(bnd, b, R)
+    for k, s0, imax in strips:
+        _forward_strip(px[:, b], py[:, b], p, b, q, k, s0, imax, int(px.shape[2] == py.shape[2]),
+                       None if lo is None else lo[b], K, R, scores)
+
+
+def _backward_phase(px, py, p, hrows, bnd, lo, K, R, ag, pxg, pyg, b):
+    q, strips = _strips(bnd, b, R)
+    for k, s0, imax in reversed(strips):
+        _backward_strip(px[:, b], py[:, b], p, hrows, b, q, k, len(strips), s0, imax,
+                        int(px.shape[2] == py.shape[2]), None if lo is None else lo[b], K, R,
+                        px.shape[0], ag, pxg, pyg)
+
+
+def _outputs(px, py):
+    """NaN-filled scores, px_grad and py_grad: a cell that no part of the
+    schedule writes stays NaN."""
     S, B, T1 = px.shape
     T = py.shape[2]
-    mod = int(T1 == T)
-    strip = 32 * R
+    return (np.full(B, np.nan, np.float32), np.full((S, B, T1), np.nan, np.float32),
+            np.full((S + 1, B, T), np.nan, np.float32))
+
+
+def diagonal_model(px, py, bnd, lo=None, K=0, R=1):
+    """The fused launch: (scores [B], px_grad [S, B, T'], py_grad [S+1, B,
+    T], p scratch [S+3, B, T+1]) by the kernel's schedule, seed 1, the
+    hand-off rows after p in the scratch."""
+    S, B, _ = px.shape
+    T = py.shape[2]
     p = np.full((S + 3, B, T + 1), np.nan, np.float32)
-    scores = np.full(B, np.nan, np.float32)
-    pxg = np.full((S, B, T1), np.nan, np.float32)
-    pyg = np.full((S + 1, B, T), np.nan, np.float32)
+    scores, pxg, pyg = _outputs(px, py)
     with np.errstate(invalid="ignore", over="ignore"):
         for b in range(B):
-            q = tuple(int(v) for v in bnd[b])
-            sb, se = q[0], q[2]
-            lob = lo[b] if lo is not None else None
-            nk = -(-(se - sb + 1) // strip)
-            _zero_outside(pxg, pyg, b, q)
-            for k in range(nk):
-                s0 = sb + k * strip
-                _forward_strip(px[:, b], py[:, b], p, b, q, k, s0, min(strip - 1, se - s0), mod,
-                               lob, K, R, scores)
-            for k in range(nk - 1, -1, -1):
-                s0 = sb + k * strip
-                _backward_strip(px[:, b], py[:, b], p, b, q, k, nk, s0, min(strip - 1, se - s0),
-                                mod, lob, K, R, S, pxg, pyg)
+            _zero_outside(pxg, pyg, b, tuple(int(v) for v in bnd[b]))
+            _forward_phase(px, py, p, bnd, lo, K, R, scores, b)
+            _backward_phase(px, py, p, p[S + 1 :], bnd, lo, K, R, 1.0, pxg, pyg, b)
     return scores, pxg, pyg, p
+
+
+def sweep_fwd_model(px, py, bnd, lo=None, K=0, R=1):
+    """The forward launched alone: (p_rows [S+1, B, T+1], -inf outside each
+    rectangle, scores [B])."""
+    S, B, _ = px.shape
+    p = np.full((S + 1, B, py.shape[2] + 1), np.nan, np.float32)
+    scores = _outputs(px, py)[0]
+    with np.errstate(invalid="ignore", over="ignore"):
+        for b in range(B):
+            _forward_phase(px, py, p, bnd, lo, K, R, scores, b)
+            _neg_outside(p, b, tuple(int(v) for v in bnd[b]))
+    return p, scores
+
+
+def sweep_bwd_model(px, py, p_rows, bnd, ans_grad, lo=None, K=0, R=1):
+    """The backward launched alone: (px_grad, py_grad) seeded with
+    ``ans_grad`` [B], reading ``p_rows`` (made read-only here: the kernel
+    must not write it) and handing g rows down through a separate NaN-filled
+    (2, B, T+1) scratch."""
+    B = px.shape[1]
+    p = p_rows.copy()
+    p.setflags(write=False)
+    hrows = np.full((2, B, py.shape[2] + 1), np.nan, np.float32)
+    _, pxg, pyg = _outputs(px, py)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for b in range(B):
+            _zero_outside(pxg, pyg, b, tuple(int(v) for v in bnd[b]))
+            _backward_phase(px, py, p, hrows, bnd, lo, K, R, np.float32(ans_grad[b]), pxg, pyg, b)
+    return pxg, pyg
 
 
 def _jax_reference(px, py, bnd, lo=None, K=0):
@@ -342,3 +407,73 @@ def test_model_matches_jax_banded_random_offsets():
     rng = np.random.default_rng(46)
     lo = np.sort(rng.integers(0, 40, size=(3, 75)), axis=1).astype(np.int32)
     _check(px, py, bnd, lo, 6, R=1)
+
+
+# --- the phases launched apart -------------------------------------------
+
+# seeds of the backward alone: 0, a negative value and one that is not 1
+# (cycled over the batch)
+SEEDS = np.array([0.0, -1.7, 2.5], np.float32)
+
+
+def _check_split(px, py, bnd, lo=None, K=0, R=1):
+    """The forward alone against ``_forward_rows_xla`` in every cell of p
+    (-inf outside each rectangle included), the backward alone with the
+    seeds above against ``_backward_rows_xla``, and the pair seeded with
+    ones against the fused launch bit for bit."""
+    B = px.shape[1]
+    ag = np.resize(SEEDS, B)
+    p, sc = sweep_fwd_model(px, py, bnd, lo, K, R)
+    p_j, sc_j = jrec._forward_rows_xla(*jj(px, py, bnd), lo=jj(lo), K=K)
+    assert not np.isnan(p).any(), "a cell of p that the forward never writes"
+    assert_loss_close(sc, np.asarray(sc_j), "scores")
+    assert_lattice_close(p, np.asarray(p_j), "p (every cell)")
+    gx, gy = sweep_bwd_model(px, py, p, bnd, ag, lo, K, R)
+    gx_j, gy_j = jrec._backward_rows_xla(*jj(px, py), p_j, jj(bnd), jnp.asarray(ag), lo=jj(lo), K=K)
+    assert_close(gx, np.asarray(gx_j), OCC_ATOL, OCC_RTOL, "px_grad")
+    assert_close(gy, np.asarray(gy_j), OCC_ATOL, OCC_RTOL, "py_grad")
+    fused = diagonal_model(px, py, bnd, lo, K, R)
+    pair = (sc, *sweep_bwd_model(px, py, p, bnd, np.ones(B, np.float32), lo, K, R))
+    for a, f, name in zip(pair, fused, ("scores", "px_grad", "py_grad")):
+        np.testing.assert_array_equal(a, f, err_msg=f"pair vs fused {name}")
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["zero-begins", "offset"])
+@pytest.mark.parametrize("modified", [False, True], ids=["regular", "modified"])
+def test_split_model_matches_jax_across_strips(modified, offset):
+    """S = 70 with R = 1: three strips, so the hand-offs run through the
+    separate 2-row scratch between full strips and into a partial top
+    strip; ragged ends, and with ``offset`` non-zero begins, so p has -inf
+    rows and columns on every side of a rectangle."""
+    px, py, bnd = rows_inputs(47, B=3, S=70, T=100, modified=modified, offset=offset)
+    bnd[0, 2] = 70
+    _check_split(px, py, bnd, R=1)
+
+
+@pytest.mark.parametrize("modified", [False, True], ids=["regular", "modified"])
+def test_split_model_matches_jax_in_one_wide_strip_and_at_s0(modified):
+    """R = 4 (the kernel's own strip) with non-zero begins, and S = 0."""
+    _check_split(*rows_inputs(48, B=3, S=9, T=90, modified=modified, offset=True), R=4)
+    _check_split(*rows_inputs(49, B=3, S=0, T=40, modified=modified), R=1)
+
+
+@pytest.mark.parametrize("rnnt_type", ["regular", "modified"])
+def test_split_model_matches_jax_banded_by_jax_ranges(rnnt_type):
+    """Stage 2 as the pipelines run it: lo = ranges[:, :, 0] from the JAX
+    package's simple loss and pruning, over two strips (R = 1)."""
+    am, lm, sym, bnd = loss_inputs(50, B=3, T=80, S=40, C=9)
+    bnd[:, 2] = np.maximum(bnd[:, 2], 33)
+    _, (gx, gy) = jft.rnnt_loss_simple(*jj(lm, am, sym), 0, jj(bnd), rnnt_type=rnnt_type,
+                                       reduction="sum", calc_gradients=True)
+    K = 4
+    ranges = np.asarray(jft.get_rnnt_prune_ranges(gx, gy, jj(bnd), K))
+    px, py = get_rnnt_logprobs_rows(*jj(lm, am, sym), 0, rnnt_type, jj(bnd))
+    px, py = np.asarray(px, np.float32), np.asarray(py, np.float32)
+    _check_split(px, py, bnd, np.ascontiguousarray(ranges[:, :, 0]), K, R=1)
+
+
+def test_split_model_matches_jax_banded_random_offsets():
+    """A random monotone band over non-zero begins, modified, two strips."""
+    px, py, bnd = rows_inputs(51, B=3, S=40, T=75, modified=True, offset=True)
+    lo = np.sort(np.random.default_rng(52).integers(0, 40, size=(3, 75)), axis=1).astype(np.int32)
+    _check_split(px, py, bnd, lo, 6, R=1)
