@@ -23,7 +23,9 @@ after:
   * the same step in the bf16-input mode (``bench.py``'s second row: bf16
     am and lm, a bf16 lattice), held to the float32 step on the same
     rounded inputs and ranges;
-  * smoothed training: the same for ``rnnt_loss_smoothed_pruned``;
+  * smoothed training: the same for ``rnnt_loss_smoothed_pruned``, in
+    float32 and on bf16 am and lm with a bf16 lattice (the smoothed build
+    kernels in their bf16 mode), each held to the plain path on the card;
   * the real-joiner recipe (``rnnt_loss_simple`` with occupancies,
     ``get_rnnt_prune_ranges``, ``do_rnnt_pruning``, the joiner
     ``am_p + lm_p``, ``rnnt_loss_pruned``), as shipped and with the scores
@@ -98,11 +100,21 @@ def make_inputs(seed=0):
     return am, lm, symbols, boundary
 
 
-def cuda_ms(fn, reps=REPS, inner=10):
+# cycles of the device-side wait (torch.cuda._sleep, ~2 ms) that starts a
+# kernel's timed run: the host enqueues the run's calls meanwhile, so a call
+# whose wrapper takes longer on the host than its kernels on the card is
+# timed by its kernels
+HEAD_START = 4_000_000
+
+
+def cuda_ms(fn, reps=REPS, inner=10, head_start=False):
     """Milliseconds per call of ``fn``: CUDA events around ``inner``
     back-to-back calls, divided by ``inner``; the median of ``reps`` such
     runs, after a warm-up run of ``inner`` calls (the first timer of a
-    process otherwise reads the card before its clocks are up)."""
+    process otherwise reads the card before its clocks are up).  With
+    ``head_start`` each run starts behind a device-side wait, so that the
+    calls run back to back on the card, not at the host's pace (the
+    kernels' times; a step's time keeps its host time)."""
     import torch
 
     for _ in range(inner):
@@ -112,6 +124,8 @@ def cuda_ms(fn, reps=REPS, inner=10):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if head_start:
+            torch.cuda._sleep(HEAD_START)
         a.record()
         for _ in range(inner):
             fn()
@@ -119,6 +133,36 @@ def cuda_ms(fn, reps=REPS, inner=10):
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def cold_ms(fn, reps=REPS):
+    """Milliseconds of one call of ``fn`` with the 50 MB L2 cache flushed
+    before it (a 128 MB buffer written), as a step finds its inputs: CUDA
+    events around the call alone, behind a device-side wait, median of
+    ``reps``."""
+    import torch
+
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HEAD_START)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del flush
+    return float(np.median(times))
+
+
+def kernel_ms(fn, **kw):
+    """``cuda_ms`` of a kernel (or its plain version or library call),
+    behind a head start."""
+    return cuda_ms(fn, head_start=True, **kw)
 
 
 def in_turns(*steps):
@@ -346,11 +390,11 @@ def kernel_bounds(bnd, build_rate=3, esize=4):
         # outputs d_am, d_lm
         "latbuild_bwd": bound(4 * (x * (lm + am) + sym + B + py + B * T + px + py + x * (am + lm)),
                               2 * gemm, **mm),
-        "latbuild_fwd_parts": bound(4 * (am + lm + sym + B + C + px + 2 * py),
+        "latbuild_fwd_parts": bound(4 * (x * (am + lm) + sym + B + C + px + 2 * py),
                                     gemm + 2 * B * T * C, **mm),
         # + uni, the residual duni and dnd in, d_uni out
-        "latbuild_bwd_parts": bound(4 * (lm + am + sym + B + C + py + 2 * B * T + px + 2 * py
-                                         + am + lm + C),
+        "latbuild_bwd_parts": bound(4 * (x * (lm + am) + sym + B + C + py + 2 * B * T + px + 2 * py
+                                         + x * (am + lm) + C),
                                     2 * 2 * B * T * (S + 2) * C, **mm),
     }
 
@@ -457,6 +501,27 @@ def build_checks(dev, rng, bnd, Sc, Tc, modified, offset, Cc):
         raise Failed(f"bf16 build bwd: gradient dtypes {g[0].dtype} {g[1].dtype}")
     e.append(bf16_contract_err(g, want, "bf16 build bwd (autograd)")[0])
     err["latbuild_bwd/bfloat16"] = max(e)
+
+    # the smoothed build on bf16 lm and am: its kernels and their plain
+    # versions round as the Pallas smoothed build does (bf16 exps of the
+    # float32 shift, bf16 w in the backward); the backward to the bf16
+    # contract, d_uni (float32) to its 1e-5 of max.  The plain backward
+    # takes the forward's residual D, as the kernels do: w = dnorm / D is
+    # rounded to bf16, and a D recomputed in another summation order moves
+    # some w to the neighbouring bf16 step (2.3e-5 of max on d_lm at the
+    # headline shape on an H100, against 1e-5)
+    *o16, r16 = latbuild.build_fwd(lm16, am16, sym, te, blank, modified, uni, save=True)
+    err["latbuild_fwd_parts/bfloat16"] = max(
+        finite_err(a, b, f"bf16 parts {n}", 1e-4, 1e-5)[0]
+        for a, b, n in zip(o16, latbuild.lattice_rows_parts_plain(lm16, am16, sym, te, uni, blank, modified),
+                           ("px", "py", "normd")))
+    want = latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, blank, modified, uni, dnd, r16[0])
+    g = latbuild.build_bwd(lm16, am16, sym, te, blank, modified, r16, dpx, dpy, uni, dnd)
+    if g[1].dtype != torch.bfloat16 or want[1].dtype != torch.bfloat16:
+        raise Failed(f"bf16 parts bwd: d_am dtypes {g[1].dtype} {want[1].dtype}")
+    err["latbuild_bwd_parts/bfloat16"] = max(
+        bf16_contract_err(g[:2], want[:2], "bf16 parts bwd")[0],
+        grad_err(g[2], want[2], "bf16 parts bwd d_uni", BF16_CONTRACT_TOL)[0])
 
     # f16 lm and am run the float32 kernels on their casts (as the Pallas
     # build contracts them), the gradients cast back to f16
@@ -584,50 +649,27 @@ def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
     return n, gmax
 
 
-def kernel_order_argmax(gy, gx, K):
-    """The ranges kernel's raw window argmax (``csrc/ranges.cu``), in its own
-    float32 order: a rolling window sum (add row i, then drop row i-K; at
-    K = 1 the row itself), minus px_grad[k-1], the first maximum kept.
-    (B, T) int32."""
-    import torch
-
-    S1, B, T = gy.shape
-    gy, gx = gy.float(), gx[:, :, :T].float()
-    acc = torch.zeros((B, T), device=gy.device)
-    best, arg = acc, torch.zeros((B, T), dtype=torch.int32, device=gy.device)
-    for i in range(S1):
-        a = gy[i] if K == 1 else acc + gy[i]
-        if K > 1 and i >= K:
-            a = a - gy[i - K]
-        acc = a
-        k = i - (K - 1)
-        if k == 0:
-            best = a
-        elif k > 0:
-            score = a - gx[k - 1]
-            take = score > best
-            best, arg = torch.where(take, score, best), torch.where(take, k, arg)
-    return arg
-
-
 def ranges_check(starts, gy, gx, K, bnd, step, name, gap_tol=1e-3):
-    """The ranges kernel's repaired window starts ``starts`` (B, T) on the
+    """The ranges kernels' repaired window starts ``starts`` (B, T) on the
     occupancies (gy, gx): they must be exactly the boundary padding and
-    monotone repair (the plain version's) of the kernel's raw argmax,
-    recomputed in its own summation order, and every frame where that raw
-    argmax differs from the plain cumsum-difference one must be a near-tie
+    monotone repair (the plain version's) of the kernels' raw argmax,
+    recomputed in their own summation order
+    (``ranges.window_argmax_kernel_order``: each window's K rows added
+    directly, in row order), and every frame where that raw argmax differs
+    from the plain cumsum-difference one must be a near-tie
     (``range_flips``): the two searches sum in another order, and a raw flip
     cascades through the repair into other frames.  Returns (raw flips,
     largest gap, the first flips' (b, t))."""
     import torch
 
+    from fast_rnnt_tpu_torch.ops.kernels import ranges
     from fast_rnnt_tpu_torch.ops.pruning import (
         _window_argmax,
         _window_scores,
         adjust_pruning_lower_bound,
     )
 
-    raw = kernel_order_argmax(gy, gx, K)
+    raw = ranges.window_argmax_kernel_order(gy, gx, K)
     t = torch.arange(raw.shape[1], device=raw.device)[None, :]
     pad = (bnd[:, 2:3] - K + 1).clamp(min=0).to(torch.int32)
     want = adjust_pruning_lower_bound(torch.where(t < bnd[:, 3:4] - 1, raw, pad), step)
@@ -740,13 +782,13 @@ def headline_kernels(am, lm, sym, bnd):
     amp = torch.exp(am - am.amax(2, keepdim=True))
     report["latbuild_fwd"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
-        ms=cuda_ms(lambda: latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)),
-        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)),
-        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp, amp)),
+        ms=kernel_ms(lambda: latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)),
+        library_ms=kernel_ms(lambda: torch.einsum("bsc,btc->sbt", lmp, amp)),
         # the training forward, which also writes the residuals D and amax:
         # the residual's cost is the difference, a recompute's at least the
         # forward kernel's own time
-        residuals_ms=cuda_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)),
+        residuals_ms=kernel_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)),
     )
 
     # build backward on random cotangents at the main path's shapes
@@ -761,9 +803,9 @@ def headline_kernels(am, lm, sym, bnd):
     w = torch.randn((B, S + 1, T), device=dev, generator=gen)
     report["latbuild_bwd"] = dict(
         err=e[0], rel=e[1], tol=f"{GRAD_TOL} of max |plain|",
-        ms=cuda_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)),
-        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False)),
-        library_ms=cuda_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp), torch.bmm(w, amp))),
+        ms=kernel_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False)),
+        library_ms=kernel_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp), torch.bmm(w, amp))),
     )
     del g_k, g_p, res
 
@@ -777,9 +819,9 @@ def headline_kernels(am, lm, sym, bnd):
     lmp16, amp16, w16 = lmp.bfloat16(), amp.bfloat16(), w.bfloat16()
     report["latbuild_fwd"]["bf16"] = dict(
         err=e16[0], tol="1e-4 + 1e-5|x|",
-        ms=cuda_ms(lambda: latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd)),
-        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd)),
-        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp16, amp16)),
+        ms=kernel_ms(lambda: latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd)),
+        library_ms=kernel_ms(lambda: torch.einsum("bsc,btc->sbt", lmp16, amp16)),
     )
     _, _, _, res16 = latbuild.build_fwd(lm16, am16, sym, te, 0, False, save=True)
     e16 = bf16_contract_err(latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy),
@@ -788,9 +830,9 @@ def headline_kernels(am, lm, sym, bnd):
     report["latbuild_bwd"]["bf16"] = dict(
         err=e16[0], tol=f"{BF16_CONTRACT_TOL} of max |plain| (d_am + one bf16 step), measured "
                         f"{e16[1]:.3e}",
-        ms=cuda_ms(lambda: latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy)),
-        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False)),
-        library_ms=cuda_ms(lambda: (torch.bmm(w16.transpose(1, 2), lmp16), torch.bmm(w16, amp16))),
+        ms=kernel_ms(lambda: latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False)),
+        library_ms=kernel_ms(lambda: (torch.bmm(w16.transpose(1, 2), lmp16), torch.bmm(w16, amp16))),
     )
     del res16, lm16, am16, lmp16, amp16, w16
 
@@ -804,9 +846,9 @@ def headline_kernels(am, lm, sym, bnd):
     lmp_x = torch.cat([lmp, uni.expand(B, 1, C)], 1)
     report["latbuild_fwd_parts"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x|",
-        ms=cuda_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, uni)),
-        plain_ms=cuda_ms(lambda: latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)),
-        library_ms=cuda_ms(lambda: torch.einsum("bsc,btc->sbt", lmp_x, amp)),
+        ms=kernel_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, uni)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)),
+        library_ms=kernel_ms(lambda: torch.einsum("bsc,btc->sbt", lmp_x, amp)),
     )
     del o_k, o_p
     g_k = latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy, uni, dnd)
@@ -816,12 +858,41 @@ def headline_kernels(am, lm, sym, bnd):
     w = torch.randn((B, S + 2, T), device=dev, generator=gen)
     report["latbuild_bwd_parts"] = dict(
         err=e[0], rel=e[1], tol=f"{GRAD_TOL} of max |plain|",
-        ms=cuda_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy, uni, dnd)),
-        plain_ms=cuda_ms(
+        ms=kernel_ms(lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy, uni, dnd)),
+        plain_ms=kernel_ms(
             lambda: latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd)),
-        library_ms=cuda_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp_x), torch.bmm(w, amp))),
+        library_ms=kernel_ms(lambda: (torch.bmm(w.transpose(1, 2), lmp_x), torch.bmm(w, amp))),
     )
-    del g_k, g_p, res, w, dpx, dpy, dnd
+    del g_k, g_p, res
+
+    # the smoothed build on bf16 lm and am (the Pallas smoothed build's
+    # rounding), against its plain versions and beside the library calls on
+    # bf16 operands
+    lm16, am16 = lm.bfloat16(), am.bfloat16()
+    *o_k, res16 = latbuild.build_fwd(lm16, am16, sym, te, 0, False, uni, save=True)
+    e16 = worst(*(finite_err(a, b, f"headline bf16 parts {n}", 1e-4, 1e-5) for a, b, n in zip(
+        o_k, latbuild.lattice_rows_parts_plain(lm16, am16, sym, te, uni, 0, False), ("px", "py", "normd"))))
+    del o_k
+    lmp_x16, amp16, w16 = lmp_x.bfloat16(), amp.bfloat16(), w.bfloat16()
+    report["latbuild_fwd_parts"]["bf16"] = dict(
+        err=e16[0], tol="1e-4 + 1e-5|x|",
+        ms=kernel_ms(lambda: latbuild.build_fwd(lm16, am16, sym, te, 0, False, uni)),
+        plain_ms=kernel_ms(lambda: latbuild.lattice_rows_parts_plain(lm16, am16, sym, te, uni, 0, False)),
+        library_ms=kernel_ms(lambda: torch.einsum("bsc,btc->sbt", lmp_x16, amp16)),
+    )
+    g_p = latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False, uni, dnd, res16[0])
+    g_k = latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy, uni, dnd)
+    e16 = worst(bf16_contract_err(g_k[:2], g_p[:2], "headline bf16 parts bwd"),
+                grad_err(g_k[2], g_p[2], "headline bf16 parts bwd d_uni", BF16_CONTRACT_TOL))
+    del g_k, g_p
+    report["latbuild_bwd_parts"]["bf16"] = dict(
+        err=e16[0], tol=f"{BF16_CONTRACT_TOL} of max |plain| (d_am + one bf16 step), measured {e16[1]:.3e}",
+        ms=kernel_ms(lambda: latbuild.build_bwd(lm16, am16, sym, te, 0, False, res16, dpx, dpy, uni, dnd)),
+        plain_ms=kernel_ms(
+            lambda: latbuild.lattice_rows_bwd_plain(lm16, am16, sym, te, dpx, dpy, 0, False, uni, dnd, res16[0])),
+        library_ms=kernel_ms(lambda: (torch.bmm(w16.transpose(1, 2), lmp_x16), torch.bmm(w16, amp16))),
+    )
+    del res16, lm16, am16, lmp_x16, amp16, w16, w, dpx, dpy, dnd
 
     # the sweep pair (stage 2) and the row-scan pair against their plain
     # versions: p in every cell, the backward seeded with ones (the
@@ -830,10 +901,10 @@ def headline_kernels(am, lm, sym, bnd):
     p_p, sc_p = wavefront.forward_rows_plain(px_k, py_k, bnd)
     e = worst(finite_err(p_k, p_p, "headline fwd p", 1e-4, 1e-5),
               finite_err(sc_k, sc_p, "headline fwd scores", 1e-4, 1e-5))
-    fwd_plain_ms = cuda_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1)
+    fwd_plain_ms = kernel_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1)
     report["wavefront_fwd"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
-        ms=cuda_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
     )
     ones = torch.ones(B, device=dev)
     ag = torch.rand(B, device=dev, generator=gen) * 4 - 2  # seeds in [-2, 2)
@@ -844,24 +915,24 @@ def headline_kernels(am, lm, sym, bnd):
               *(finite_err(a, b, f"headline bwd {n} (random seeds)", 1e-5, 1e-4) for a, b, n in zip(
                   wavefront.backward_rows(px_k, py_k, p_k, bnd, ag),
                   wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ag), ("px_grad", "py_grad"))))
-    bwd_plain_ms = cuda_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1)
+    bwd_plain_ms = kernel_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1)
     report["wavefront_bwd"] = dict(
         err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|, seeds 1 and random",
-        ms=cuda_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)), plain_ms=bwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)), plain_ms=bwd_plain_ms,
     )
     p_s, sc_s = wavefront.forward_rows_scan(px_k, py_k, bnd)
     e = worst(finite_err(p_s, p_p, "headline scan fwd p", 1e-4, 1e-5),
               finite_err(sc_s, sc_p, "headline scan fwd scores", 1e-4, 1e-5))
     report["wavefront_scan_fwd"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
-        ms=cuda_ms(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
     )
     gx_s, gy_s = wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)
     e = worst(*(finite_err(a, b, f"headline scan bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
         (gx_s, gy_s), wavefront.backward_rows_plain(px_k, py_k, p_s, bnd, ones), ("px_grad", "py_grad"))))
     report["wavefront_scan_bwd"] = dict(
         err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|",
-        ms=cuda_ms(lambda: wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)), plain_ms=bwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)), plain_ms=bwd_plain_ms,
     )
     del p_p
 
@@ -957,11 +1028,11 @@ def headline_kernels(am, lm, sym, bnd):
     del o_k, o_p
 
     def pair_ms(fwd, bwd, x, y):
-        return cuda_ms(lambda: bwd(x, y, fwd(x, y, bnd)[0], bnd, ones))
+        return kernel_ms(lambda: bwd(x, y, fwd(x, y, bnd)[0], bnd, ones))
 
     bf16_ms = (pair_ms(wavefront.forward_rows_scan, wavefront.backward_rows_scan, px16, py16),
                pair_ms(wavefront.forward_rows, wavefront.backward_rows, px16, py16),
-               cuda_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
+               kernel_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
     del px16, py16
     fused_ab = in_turns(lambda: wavefront.fused_rows(px_k, py_k, bnd),
                         lambda: wavefront.backward_rows(px_k, py_k, wavefront.forward_rows(px_k, py_k, bnd)[0],
@@ -980,7 +1051,7 @@ def headline_kernels(am, lm, sym, bnd):
     report["wavefront_fused"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies; deterministic",
         ms=(fused_ab[0] + fused_ab[3]) / 2,
-        plain_ms=cuda_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
+        plain_ms=kernel_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
         note=(f"(in turns fused, sweep pair, sweep pair, fused {fmt(fused_ab)} ms; fused vs scan pair max "
               f"abs diff {vs_scan[0]:.3e} (rel {vs_scan[1]:.3e}, tol as vs plain); bf16 storage: scan pair "
               f"{bf16_ms[0]:.4f} ms, sweep pair {bf16_ms[1]:.4f} ms, fused {bf16_ms[2]:.4f} ms; max abs err "
@@ -1003,12 +1074,21 @@ def headline_kernels(am, lm, sym, bnd):
         raise Failed(f"occupancy conservation off by {cons[0]:.3e} (rel)")
 
     n_flip, gap, _ = ranges_check(lo, gy_k, gx_k, S_RANGE, bnd, S_RANGE, "headline ranges")
+    # bf16 occupancies (the bf16 steps' stage 1), read as they are stored
+    gx16, gy16 = gx_k.bfloat16(), gy_k.bfloat16()
+    n16, gap16, _ = ranges_check(ranges.window_starts(gy16, gx16, S_RANGE, bnd, S_RANGE), gy16, gx16,
+                                 S_RANGE, bnd, S_RANGE, "headline ranges (bf16)")
     report["ranges"] = dict(
-        err=gap, rel=0.0, tol="the repair of its own raw argmax exactly; window-score gap <= 1e-3 at "
-                              "each raw flip against the plain search",
-        ms=cuda_ms(lambda: ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
-        plain_ms=cuda_ms(lambda: ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
+        err=max(gap, gap16), rel=0.0,
+        tol="the repair of its own raw argmax exactly; window-score gap <= 1e-3 at each raw flip against "
+            "the plain search",
+        ms=kernel_ms(lambda: ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
+        plain_ms=kernel_ms(lambda: ranges.window_starts_plain(gy_k, gx_k, S_RANGE, bnd, S_RANGE)),
+        note=(f"(L2 flushed before each call {cold_ms(lambda: ranges.window_starts(gy_k, gx_k, S_RANGE, bnd, S_RANGE)):.4f}"
+              f" ms; bf16 occupancies {kernel_ms(lambda: ranges.window_starts(gy16, gx16, S_RANGE, bnd, S_RANGE)):.4f}"
+              f" ms, {n16} raw flips against the plain search (gap <= {gap16:.2e}))"),
     )
+    del gx16, gy16
     return report, n_flip, cons
 
 
@@ -1451,6 +1531,56 @@ def main():
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_s:.1f} ms); peak "
           f"{peak_s:.1f} MiB ({peak_s - base_s:.1f} MiB above the inputs)")
 
+    # smoothed training in the bf16-input mode: bf16 am and lm, a bf16
+    # lattice; the smoothed build kernels round as the Pallas smoothed build
+    # does.  Held to the plain path on the card on the same inputs (the plain
+    # builds, XLA-rounded, and the plain recursion on the kernel path's
+    # ranges) at train-bf16's tolerances
+    def smoothed_step_bf16():
+        s, p, r = rnnt_loss_smoothed_pruned(lm16_g, am16_g, sym, 0, S_RANGE, boundary=bnd,
+                                            reduction="sum", lattice_dtype=torch.bfloat16)
+        loss = 0.5 * s + p
+        return (loss.detach(), *torch.autograd.grad(loss, (am16_g, lm16_g)), r)
+
+    (loss_sb, *g_sb, r_sb), launches_sb, first_sb, peak_sb, base_sb = counted(
+        smoothed_step_bf16, "smoothed-train-bf16",
+        {"latbuild_fwd_parts": 1, "latbuild_bwd_parts": 1, "latbuild_fwd": 1, "latbuild_bwd": 1,
+         "wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1, "ranges": 1},
+    )
+    if g_sb[0].dtype != torch.bfloat16 or g_sb[1].dtype != torch.bfloat16:
+        raise Failed(f"smoothed-train-bf16: gradient dtypes {g_sb[0].dtype} {g_sb[1].dtype}")
+    am_r, lm_r = am16_g.detach().clone().requires_grad_(), lm16_g.detach().clone().requires_grad_()
+    pxs, pys = latbuild.lattice_rows_smoothed_plain(lm_r, am_r, sym, 0, 0.1, 0.1, bnd)
+    px2, py2 = latbuild.lattice_rows_plain(lm_r, am_r, sym, 0, "regular", bnd)
+    lo_sb = r_sb[:, :, 0].contiguous()
+    with torch.no_grad():
+        xs, ys, x2, y2 = (v.bfloat16() for v in (pxs, pys, px2, py2))
+        p_s, sc_s = wavefront.forward_rows_plain(xs, ys, bnd)
+        gxs, gys = wavefront.backward_rows_plain(xs, ys, p_s, bnd, ones)
+        del p_s
+        p_2, sc_2 = wavefront.forward_rows_plain(x2, y2, bnd, lo_sb, S_RANGE)
+        gx2, gy2 = wavefront.backward_rows_plain(x2, y2, p_2, bnd, ones, lo_sb, S_RANGE)
+        del p_2, xs, ys, x2, y2
+    loss_r = -(0.5 * sc_s.sum() + sc_2.sum())
+    rel_sb = ((loss_sb - loss_r).abs() / loss_r.abs()).item()
+    if not (torch.isfinite(loss_sb) and rel_sb <= TRAIN_BF16_LOSS_RTOL):
+        raise Failed(f"smoothed-train-bf16: loss {loss_sb.item()} vs plain {loss_r.item()}: rel {rel_sb:.3e}")
+    w_am, w_lm = torch.autograd.grad(
+        [pxs, pys, px2, py2], [am_r, lm_r],
+        [-0.5 * gxs.float(), -0.5 * gys.float(), -gx2.float(), -gy2.float()])
+    e_sb = worst(*(grad_err(a.float(), b.float(), f"smoothed-train-bf16 {n}", TRAIN_BF16_GRAD_TOL)
+                   for a, b, n in zip(g_sb, (w_am, w_lm), ("d_am", "d_lm"))))
+    del g_sb, w_am, w_lm, pxs, pys, px2, py2, gxs, gys, gx2, gy2, am_r, lm_r
+    smoothed_bf16_ms = cuda_ms(smoothed_step_bf16)
+    phase("smoothed-train-bf16", f"grad of 0.5*smoothed + pruned (rnnt_loss_smoothed_pruned, scales "
+          f"0.1/0.1, reduction sum, lattice_dtype bf16) w.r.t. bf16 (am, lm): launches "
+          f"{json.dumps(launches_sb)}; loss {loss_sb.item():.3f} vs the plain path on the card "
+          f"{loss_r.item():.3f}: rel {rel_sb:.3e} (tol {TRAIN_BF16_LOSS_RTOL}); gradients (bf16) max abs "
+          f"diff {e_sb[0]:.3e} ({e_sb[1]:.3e} of max, tol {TRAIN_BF16_GRAD_TOL}); step {smoothed_bf16_ms:.4f} "
+          f"ms (CUDA events, median of {REPS} runs of 10 steps; first call {first_sb:.1f} ms); peak "
+          f"{peak_sb:.1f} MiB ({peak_sb - base_sb:.1f} MiB above the inputs)")
+    del loss_r
+
     # the real-joiner recipe, with the joiner am_p + lm_p: the training
     # step's function computed through the pruned logits
     def recipe_step(logits_dtype=None):
@@ -1590,15 +1720,17 @@ def main():
     # --- 5. where the steps' time goes (measurements) ----------------------
     for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
                      ("train-bf16", train_step_bf16),
-                     ("smoothed-train", smoothed_step),
+                     ("smoothed-train", smoothed_step), ("smoothed-train-bf16", smoothed_step_bf16),
                      ("recipe-train", recipe_step), ("recipe-train (vjp arm)", armed("vjp", recipe_step))):
         prof = profile_step(fn)
         if prof is None:
             raise Failed(f"profile of the {name} step: the profiler saw no device activity")
         rows, busy = prof
         total = sum(r[1] for r in rows)
+        in_ranges = [r for r in rows if "ranges_" in r[0]]
         phase("profile", f"{name} step, torch.profiler, 10 steps: device busy {100 * busy:.1f}% "
-              f"of the device window; kernel time {total:.1f} us per step")
+              f"of the device window; kernel time {total:.1f} us per step; the ranges kernels "
+              f"{sum(r[1] for r in in_ranges):.1f} us in {sum(r[2] for r in in_ranges):.1f} launches per step")
         for kname, us, calls in rows:
             print(f"  {us:9.1f} us/step {calls:5.1f} calls/step {100 * us / total:5.1f}%  "
                   f"{kname[:90]}", flush=True)

@@ -23,11 +23,15 @@
 //   normd[s, t] = lognorm - log duni        (= norm - amonly: amax cancels)
 // residuals (training only, pointers non-null): D (S+1, B, T), amax (B, T)
 // and, smoothed, duni (B, T); the forward-only path writes none of them.
-// bf16 inputs (lm, am bf16; plain build only) follow the JAX package's XLA
+// bf16 inputs (lm, am bf16), plain build, follow the JAX package's XLA
 // build (fast_rnnt_tpu/ops/lattice.py:290-338): the exps are
 // bf16(exp(bf16(am - amax))) and lmp arrives so rounded, their products are
 // exact in float32, D is float32, and py's gather sum am[t, blank] +
-// lm[s, blank] is rounded to bf16 before the normalizer is taken off.
+// lm[s, blank] is rounded to bf16 before the normalizer is taken off.  The
+// smoothed build (PALLAS) follows the Pallas kernel's bf16 mode (:233-288):
+// the exps bf16(exp(am - amax)) of the float32 shift, the shifted gathers
+// bf16(am[t, c] - amax) and the unigram row rounded to bf16, every sum
+// float32.
 //
 // Design.  D is, per utterance, an (S+1) x T x C product, run here on the
 // tensor cores (wgmma, wgmma.cuh).  `lm_parts_kernel` first takes the lm
@@ -75,7 +79,7 @@ constexpr int kFwdStages = 3;
 // [0, C)), and the products' B operand exp(lm[s, c] - lmmax[s]) written
 // straight into its image (TF32 hi / lo parts, or bf16), zero-padded to G
 // groups and nK chunks (the padding rows' blocks write only zeros).
-template <bool BF16>
+template <bool BF16, bool PALLAS>
 __global__ void __launch_bounds__(128)
 lm_parts_kernel(const void* __restrict__ lm_v, const int* __restrict__ sym, int S, int C, int blank,
                 int nK, int G, float* __restrict__ lmmax, float* __restrict__ pylm,
@@ -104,7 +108,7 @@ lm_parts_kernel(const void* __restrict__ lm_v, const int* __restrict__ sym, int 
   }
   const size_t base = (size_t)b * nK;  // the utterance's first chunk
   for (int c = tid; c < nK * KC; c += 128) {
-    const float v = (live && c < C) ? shifted_exp<BF16>(ld_f(row + c), m) : 0.f;
+    const float v = (live && c < C) ? shifted_exp<BF16, PALLAS>(ld_f(row + c), m) : 0.f;
     const size_t i = ((((base + c / KC) * G + s / 8) * (KC / epc) + (c % KC) / epc) * 8 + s % 8) * epc + c % epc;
     if constexpr (BF16) {
       static_cast<__nv_bfloat16*>(img_hi)[i] = __float2bfloat16_rn(v);
@@ -125,7 +129,7 @@ enum { kam_global = 0, kam_bulk = 1, kam_threads = 2 };
 
 constexpr int kFwdThreads = 128;  // one warpgroup
 
-template <bool BF16, int NB8>
+template <bool BF16, bool PALLAS, int NB8>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ img_lo,
                     const float* __restrict__ pxlm, const float* __restrict__ pylm,
@@ -224,13 +228,18 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
     for (int d = 1; d < kPer; d <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
     if (part == 0) amax_s[r] = m;
     if (uni != nullptr) {
+      // PALLAS: bf16 operands (the unigram row and the exps), exact products
+      auto term = [&](int c, float uu) {
+        const float e = expf(ld_f(row + c) - m);
+        return PALLAS ? fmaf(bf16r(uni[c]), bf16r(e), uu) : fmaf(uni[c], e, uu);
+      };
       float uu[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) uu[i] = 0.f;
       for (c = cb; c + 8 <= ce; c += 8)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) uu[i] = fmaf(uni[c + i], expf(ld_f(row + c + i) - m), uu[i]);
-      for (; c < ce; ++c) uu[0] = fmaf(uni[c], expf(ld_f(row + c) - m), uu[0]);
+        for (int i = 0; i < 8; ++i) uu[i] = term(c + i, uu[i]);
+      for (; c < ce; ++c) uu[0] = term(c, uu[0]);
       float u = ((uu[0] + uu[1]) + (uu[2] + uu[3])) + ((uu[4] + uu[5]) + (uu[6] + uu[7]));
 #pragma unroll
       for (int d = 1; d < kPer; d <<= 1) u += __shfl_xor_sync(0xffffffffu, u, d);
@@ -254,7 +263,7 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
   const float m0 = amax_s[r0], m1 = amax_s[r1];
   const int o0 = min(r0, max(nrows - 1, 0)) * C, o1 = min(r1, max(nrows - 1, 0)) * C;
   auto amp = [&](float a, float mx, bool ok) -> float {
-    const float e = shifted_exp<BF16>(a, mx);
+    const float e = shifted_exp<BF16, PALLAS>(a, mx);
     return ok ? e : 0.f;
   };
   // the chunk's fragments: every load first, then the exps and splits
@@ -366,13 +375,16 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
   }
   stage([&](int j, int e, int jl, int r) {
     const float abl = ab[e >> 1], amx = amax_s[r];
+    if constexpr (PALLAS) return bf16r(abl - amx) + pylm_s[jl] - acc[4 * j + e];
     return BF16 ? bf16r(abl + pylm_s[jl]) - (acc[4 * j + e] + amx) : (abl - amx) + pylm_s[jl] - acc[4 * j + e];
   });
   flush(py, T, S1);
   stage([&](int j, int e, int jl, int r) {
     const float amx = amax_s[r];
     const float as = sym_s[jl] >= 0 ? ga[4 * j + e] : 0.f;
-    const float v = BF16 ? (as + pxlm_s[jl]) - (acc[4 * j + e] + amx) : (as - amx) + pxlm_s[jl] - acc[4 * j + e];
+    const float v = PALLAS ? bf16r(as - amx) + pxlm_s[jl] - acc[4 * j + e]
+                    : BF16 ? (as + pxlm_s[jl]) - (acc[4 * j + e] + amx)
+                           : (as - amx) + pxlm_s[jl] - acc[4 * j + e];
     return (!modified && t0 + r == te) ? kNegInf : v;
   });
   flush(px, T1, S);
@@ -381,7 +393,7 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
     for (int s = n0 + tid; s < min(n0 + NCOL, S); s += kFwdThreads) px[((size_t)s * B + b) * T1 + T] = kNegInf;
 }
 
-template <bool BF16, int NB8>
+template <bool BF16, bool PALLAS, int NB8>
 int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, const void* uni,
                int B, int S, int T, int C, int blank, int modified, float* side, void* img_hi,
                void* img_lo, void* px, void* py, void* nd, void* d_out, void* amax_out,
@@ -390,7 +402,7 @@ int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, 
   constexpr int kE = sizeof(Tin), KC = 128 / kE, kParts = BF16 ? 1 : 2;
   const int S1 = S + 1, G = image_groups(S1), nK = even_chunks(C, KC);
   float *lmmax = side, *pylm = side + (size_t)B * S1, *pxlm = side + 2 * (size_t)B * S1;
-  lm_parts_kernel<BF16><<<dim3((unsigned)(G * 8), (unsigned)B), 128, 0, st>>>(
+  lm_parts_kernel<BF16, PALLAS><<<dim3((unsigned)(G * 8), (unsigned)B), 128, 0, st>>>(
       lm, static_cast<const int*>(sym), S, C, blank, nK, G, lmmax, pylm, pxlm, img_hi, img_lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -407,8 +419,8 @@ int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, 
                       : reinterpret_cast<uintptr_t>(am) % 16 == 0 && T % m == 0 ? kam_bulk
                                                                                    : kam_threads;
   const size_t bytes = ring + misc + (am_mode != kam_global ? tile : 0);
-  auto kern = latbuild_fwd_kernel<BF16, NB8>;
-  if ((err = allow_max_smem<latbuild_fwd_kernel<BF16, NB8>>()) != cudaSuccess) return (int)err;
+  auto kern = latbuild_fwd_kernel<BF16, PALLAS, NB8>;
+  if ((err = allow_max_smem<latbuild_fwd_kernel<BF16, PALLAS, NB8>>()) != cudaSuccess) return (int)err;
   const int t_tiles = (T + 63) / 64;
   const dim3 grid((unsigned)(t_tiles > 0 ? t_tiles : 1), (unsigned)(G / NB8), (unsigned)B);
   kern<<<grid, kFwdThreads, bytes, st>>>(
@@ -419,15 +431,15 @@ int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, 
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool PALLAS>
 int launch_fwd_nb8(const void* lm, const void* sym, const void* te, const void* am, const void* uni,
                    int B, int S, int T, int C, int blank, int modified, float* side, void* img_hi,
                    void* img_lo, void* px, void* py, void* nd, void* d_out, void* amax_out,
                    void* duni_out, cudaStream_t st) {
-#define FRT_FWD(N)                                                                          \
-  case N:                                                                                   \
-    return launch_fwd<BF16, N>(lm, sym, te, am, uni, B, S, T, C, blank, modified, side,     \
-                               img_hi, img_lo, px, py, nd, d_out, amax_out, duni_out, st);
+#define FRT_FWD(N)                                                                              \
+  case N:                                                                                       \
+    return launch_fwd<BF16, PALLAS, N>(lm, sym, te, am, uni, B, S, T, C, blank, modified, side, \
+                                       img_hi, img_lo, px, py, nd, d_out, amax_out, duni_out, st);
   switch (pick_nb8(S + 1)) {
     FRT_FWD(4)
     FRT_FWD(8)
@@ -442,7 +454,8 @@ int launch_fwd_nb8(const void* lm, const void* sym, const void* te, const void* 
 
 // lm (B, S+1, C) and am (B, T, C), both float32 or both bf16 (bf16 = 1);
 // symbols (B, S) and te (B,) int32 (te = -1: no t_end column); uni (C,)
-// f32 or NULL (plain build; float32 only).  Scratch: side, 3 B (S+1) f32
+// f32 or NULL (plain build); bf16 with uni rounds as the Pallas smoothed
+// build does.  Scratch: side, 3 B (S+1) f32
 // (lmmax, pylm, pxlm), and img_hi, img_lo (float32 only) of the sizes
 // frt_latbuild_sizes gives.  Out: px (S, B, T or T+1), py (S+1, B, T) f32;
 // nd (S+1, B, T) when uni is given; the residuals d (S+1, B, T), amax (B, T)
@@ -454,9 +467,12 @@ extern "C" int frt_latbuild_fwd(const void* lm, const void* sym, const void* te,
                                 void* duni_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sd = static_cast<float*>(side);
+  if (bf16 && uni != nullptr)
+    return launch_fwd_nb8<true, true>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
+                                      img_lo, px, py, nd, d_out, amax_out, duni_out, st);
   if (bf16)
-    return launch_fwd_nb8<true>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
-                                img_lo, px, py, nd, d_out, amax_out, duni_out, st);
-  return launch_fwd_nb8<false>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
-                               img_lo, px, py, nd, d_out, amax_out, duni_out, st);
+    return launch_fwd_nb8<true, false>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
+                                       img_lo, px, py, nd, d_out, amax_out, duni_out, st);
+  return launch_fwd_nb8<false, false>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
+                                      img_lo, px, py, nd, d_out, amax_out, duni_out, st);
 }

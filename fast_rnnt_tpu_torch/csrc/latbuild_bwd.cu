@@ -21,8 +21,13 @@
 // sum_t rd[t] amp[t, c] (summed over b by the caller).  A symbol outside
 // [0, C) contributes nothing, as in the forward.  bf16 inputs: amp and lmp
 // are the forward's bf16 values, D the forward's float32 residual (the JAX
-// package recomputes D in that mode; the port keeps the residual), w is
-// split into two bf16 parts (~2^-16), and d_am is written in bf16.
+// package recomputes D in that mode; the port keeps the residual), and d_am
+// is written in bf16; the plain build splits w into two bf16 parts
+// (~2^-16), the smoothed build (PALLAS) rounds as the Pallas kernel's bf16
+// mode does (:326-420): w and the one-hot term's dpx' to bf16, rd to bf16 in
+// d_uni (its image has no lo part) but not in d_am (rd's row of the d_am
+// operand keeps both parts), and d_am's factor amp is exp(am - amax) in
+// float32, unrounded.
 //
 // Design.  The Pallas kernel carries d_lm in VMEM across a sequential t
 // grid; blocks here run in no order, so each output has exactly one owner
@@ -86,7 +91,7 @@ constexpr int kAmStages = 2, kLmStages = 3;
 constexpr int kDpxRows = 64;  // symbols of a d_am block whose cotangent rows are staged
 constexpr int kListMax = 1024;  // symbols a d_am block lists (past them, it walks the rest)
 
-template <bool BF16>
+template <bool BF16, bool PALLAS>
 __global__ void __launch_bounds__(256)
 latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ duni,
                          const float* __restrict__ dpx, const float* __restrict__ dpy,
@@ -128,7 +133,7 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
           dy = dpy[o];
           if (s < S && px_live) dx = dpx[((size_t)s * B + b) * T1 + t];
           if (dnd != nullptr) dn = dnd[o];
-          wv = (dn - dx - dy) / d[o];
+          wv = (dn - (dx + dy)) / d[o];
           cs += dy;
           ns += dn;
         }
@@ -138,7 +143,7 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
           rsy[((size_t)b * P + part) * S1 + s] = ry;
         }
       }
-      ws[tl * Sc + j] = wv;
+      ws[tl * Sc + j] = PALLAS ? bf16r(wv) : wv;
     }
     if (last) {
       red[0][sl][tl] = cs;
@@ -175,7 +180,7 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
         if constexpr (BF16) {
           const __nv_bfloat16 h = __float2bfloat16_rn(v);
           static_cast<__nv_bfloat16*>(wimg_hi)[base + i] = h;
-          static_cast<__nv_bfloat16*>(wimg_lo)[base + i] = __float2bfloat16_rn(v - __bfloat162float(h));
+          static_cast<__nv_bfloat16*>(wimg_lo)[base + i] = __float2bfloat16_rn(PALLAS ? 0.f : v - __bfloat162float(h));
         } else {
           uint32_t h, lo;
           split_tf32(v, h, lo);
@@ -194,7 +199,7 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
 enum { kam_tma = 0, kam_async = 1, kam_global = 2 };
 
 // d_am: rows t, columns c, K = the S1x rows of w and lmp.
-template <bool BF16>
+template <bool BF16, bool PALLAS>
 __global__ void __launch_bounds__(128)
 latbuild_bwd_am_kernel(const float* __restrict__ wT, const void* __restrict__ limg_hi,
                        const void* __restrict__ limg_lo, const int* __restrict__ sym,
@@ -383,7 +388,7 @@ latbuild_bwd_am_kernel(const float* __restrict__ wT, const void* __restrict__ li
     for (int u = 0; u < 8; ++u) {
       const int i = i0 + 128 * u, r = i / kTileC, cl = i % kTileC;
       const float mx = amx_s[r];
-      const float ap = shifted_exp<BF16>(a[u], mx);
+      const float ap = PALLAS ? expf(a[u] - mx) : shifted_exp<BF16>(a[u], mx);
       float v = ap * stg[r * kStageLd + cl];
       if (c0 + cl == blank) v += cs_s[r];
       stg[r * kStageLd + cl] = v;
@@ -395,12 +400,13 @@ latbuild_bwd_am_kernel(const float* __restrict__ wT, const void* __restrict__ li
   if (tid < nrows) {
     const int t = t0 + tid, te = modified ? -1 : te_arr[b], n = nsym_s[0];
     float* row = stg + tid * kStageLd;
+    auto g = [](float v) { return PALLAS ? bf16r(v) : v; };
     for (int i = 0; i < n; ++i)
       row[list_c[i]] +=
-          i < kDpxRows ? dpx_s[i * 64 + tid] : (t != te ? dpx[((size_t)list[i] * B + b) * T1 + t] : 0.f);
+          g(i < kDpxRows ? dpx_s[i * 64 + tid] : (t != te ? dpx[((size_t)list[i] * B + b) * T1 + t] : 0.f));
     for (int s = nsym_s[1]; s < S; ++s) {  // past a full list
       const int sy = sym[(size_t)b * S + s];
-      if (sy >= c0 && sy < min(C, c0 + kTileC) && t != te) row[sy - c0] += dpx[((size_t)s * B + b) * T1 + t];
+      if (sy >= c0 && sy < min(C, c0 + kTileC) && t != te) row[sy - c0] += g(dpx[((size_t)s * B + b) * T1 + t]);
     }
   }
   __syncthreads();
@@ -418,7 +424,7 @@ latbuild_bwd_am_kernel(const float* __restrict__ wT, const void* __restrict__ li
 
 // d_lm (and the d_uni partial): rows c, columns s, K = all T frames.
 
-template <bool BF16, int NB8>
+template <bool BF16, bool PALLAS, int NB8>
 __global__ void __launch_bounds__(128)
 latbuild_bwd_lm_kernel(const void* __restrict__ lmp_v, const int* __restrict__ sym,
                        const void* __restrict__ am_v, const float* __restrict__ amax,
@@ -550,8 +556,8 @@ latbuild_bwd_lm_kernel(const void* __restrict__ lmp_v, const int* __restrict__ s
 #pragma unroll
           for (int i = 0; i < kCols; ++i) {
             const bool tok = tt[ks][i] < T;
-            e0[i] = shifted_exp<BF16>(a0[ks][i], mx[ks][i]);
-            e1[i] = shifted_exp<BF16>(a1[ks][i], mx[ks][i]);
+            e0[i] = shifted_exp<BF16, PALLAS>(a0[ks][i], mx[ks][i]);
+            e1[i] = shifted_exp<BF16, PALLAS>(a1[ks][i], mx[ks][i]);
             e0[i] = v0 && tok ? e0[i] : 0.f;
             e1[i] = v1 && tok ? e1[i] : 0.f;
           }
@@ -658,7 +664,7 @@ struct Sizes {
   }
 };
 
-template <bool BF16, int NB8>
+template <bool BF16, bool PALLAS, int NB8>
 cudaError_t launch_lm(const void* lmp, const void* sym, const void* am, const void* amax,
                       void* wimg_hi, void* wimg_lo, const void* rsx, const void* rsy, const Sizes& z,
                       int B, int S, int T, int C, int blank, void* d_lm, void* duni_part,
@@ -667,22 +673,22 @@ cudaError_t launch_lm(const void* lmp, const void* sym, const void* am, const vo
   constexpr int kE = sizeof(Tin), KC = 128 / kE;
   const size_t smem =
       (size_t)kLmStages * (KC * 72 * kE + KC * 4 + 2 * NB8 * 1024) + 8 * (kLmStages + 1) + 3 * 4 * 8 * NB8;
-  cudaError_t err = allow_max_smem<latbuild_bwd_lm_kernel<BF16, NB8>>();
+  cudaError_t err = allow_max_smem<latbuild_bwd_lm_kernel<BF16, PALLAS, NB8>>();
   if (err != cudaSuccess) return err;
   CUtensorMap map{};
   const int am_mode = am_tensor_map(&map, am, B * T, C, BF16, 72, KC) ? kam_tma
                       : (C * kE) % 4 == 0 && reinterpret_cast<uintptr_t>(am) % 4 == 0 ? kam_async
                                                                                        : kam_global;
-  latbuild_bwd_lm_kernel<BF16, NB8><<<dim3((unsigned)((C + 63) / 64), (unsigned)(z.Gw / NB8),
-                                           (unsigned)B),
-                                      128, smem, st>>>(
+  latbuild_bwd_lm_kernel<BF16, PALLAS, NB8><<<dim3((unsigned)((C + 63) / 64), (unsigned)(z.Gw / NB8),
+                                                   (unsigned)B),
+                                              128, smem, st>>>(
       lmp, static_cast<const int*>(sym), am, static_cast<const float*>(amax), wimg_hi, wimg_lo,
       static_cast<const float*>(rsx), static_cast<const float*>(rsy), z.P, S, z.S1x, T, C, blank,
       z.Gw, z.nKt, am_mode, map, static_cast<float*>(d_lm), static_cast<float*>(duni_part));
   return cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool PALLAS>
 int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am, const void* amax,
                const void* d, const void* duni, const void* dpx, const void* dpy, const void* dnd,
                int B, int S, int T, int C, int blank, int modified, void* wT, void* wimg_hi,
@@ -697,8 +703,8 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
   if (err != cudaSuccess) return (int)err;
 
   const int Sc = std::min(z.Sp, kPrepS);
-  if ((err = allow_max_smem<latbuild_bwd_prep_kernel<BF16>>()) != cudaSuccess) return (int)err;
-  latbuild_bwd_prep_kernel<BF16><<<dim3((unsigned)t_tiles, (unsigned)B), 256, (size_t)kPrepT * Sc * 4,
+  if ((err = allow_max_smem<latbuild_bwd_prep_kernel<BF16, PALLAS>>()) != cudaSuccess) return (int)err;
+  latbuild_bwd_prep_kernel<BF16, PALLAS><<<dim3((unsigned)t_tiles, (unsigned)B), 256, (size_t)kPrepT * Sc * 4,
                                    st>>>(
       static_cast<const float*>(d), static_cast<const float*>(duni), static_cast<const float*>(dpx),
       static_cast<const float*>(dpy), static_cast<const float*>(dnd), static_cast<const int*>(te), B,
@@ -710,12 +716,12 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
   const size_t am_smem =
       (size_t)kAmStages * kAmStage + 2 * 64 * 4 + 8 * (kAmStages + 1) + 16 + 2 * 4 * std::min(S, kListMax) +
       (size_t)std::min(S, kDpxRows) * 64 * 4;
-  if ((err = allow_max_smem<latbuild_bwd_am_kernel<BF16>>()) != cudaSuccess) return (int)err;
+  if ((err = allow_max_smem<latbuild_bwd_am_kernel<BF16, PALLAS>>()) != cudaSuccess) return (int)err;
   CUtensorMap tile_map{};
   const int am_mode = am_tensor_map(&tile_map, am, B * T, C, BF16, kTileC, 64)             ? kam_tma
                       : (C * sizeof(Tin)) % 4 == 0 && reinterpret_cast<uintptr_t>(am) % 4 == 0 ? kam_async
                                                                                              : kam_global;
-  latbuild_bwd_am_kernel<BF16><<<dim3((unsigned)t_tiles, (unsigned)(z.Gc / (kTileC / 8)), (unsigned)B),
+  latbuild_bwd_am_kernel<BF16, PALLAS><<<dim3((unsigned)t_tiles, (unsigned)(z.Gc / (kTileC / 8)), (unsigned)B),
                                  128, am_smem, st>>>(
       static_cast<const float*>(wT), limg_hi, limg_lo, static_cast<const int*>(sym),
       static_cast<const int*>(te), am, static_cast<const float*>(amax),
@@ -723,10 +729,10 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
       modified, z.nKs, z.Gc, am_mode, tile_map, d_am);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-#define FRT_LM(N)                                                                                 \
-  case N:                                                                                         \
-    return (int)launch_lm<BF16, N>(lmp, sym, am, amax, wimg_hi, wimg_lo, rsx, rsy, z, B, S, T, C, \
-                                   blank, d_lm, duni_part, st);
+#define FRT_LM(N)                                                                                  \
+  case N:                                                                                          \
+    return (int)launch_lm<BF16, PALLAS, N>(lmp, sym, am, amax, wimg_hi, wimg_lo, rsx, rsy, z, B, S, \
+                                           T, C, blank, d_lm, duni_part, st);
   switch (pick_nb8(z.S1x)) {
     FRT_LM(4)
     FRT_LM(8)
@@ -755,7 +761,8 @@ extern "C" int frt_latbuild_sizes(int B, int S, int T, int C, int bf16, int smoo
 }
 
 // lmp (B, S1x, C) in am's dtype (float32, or bf16 with bf16 = 1) with S1x =
-// S+1, or S+2 for the smoothed build (row S+1 = uni; float32 only); symbols
+// S+1, or S+2 for the smoothed build (row S+1 = uni; bf16 with dnd rounds
+// as the Pallas smoothed build does); symbols
 // (B, S) and te (B,) int32 (te = -1: no t_end column); am (B, T, C); the
 // forward's residuals amax (B, T), d (S+1, B, T) and, smoothed, duni (B, T)
 // (float32); cotangents dpx (S, B, T or T+1), dpy (S+1, B, T) and,
@@ -772,11 +779,15 @@ extern "C" int frt_latbuild_bwd(const void* lmp, const void* sym, const void* te
                                 void* limg_hi, void* limg_lo, void* colsum, void* rsx, void* rsy,
                                 void* d_am, void* d_lm, void* duni_part, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && dnd != nullptr)
+    return launch_bwd<true, true>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
+                                  modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
+                                  d_am, d_lm, duni_part, st);
   if (bf16)
-    return launch_bwd<true>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-                            modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
-                            d_am, d_lm, duni_part, st);
-  return launch_bwd<false>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-                           modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy, d_am,
-                           d_lm, duni_part, st);
+    return launch_bwd<true, false>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
+                                   modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
+                                   d_am, d_lm, duni_part, st);
+  return launch_bwd<false, false>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
+                                  modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
+                                  d_am, d_lm, duni_part, st);
 }

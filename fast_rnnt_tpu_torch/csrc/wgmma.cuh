@@ -133,9 +133,12 @@ FRT_DEV void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
 // exp(a - m), the products' exp side: float32 inputs through the SFU
 // (__expf, ~1e-6 relative at the build's arguments, the order of a 3xTF32
 // product's own error); bf16 inputs rounded as bf16 arithmetic rounds them
-// (the shift, then the exp), to match the plain bf16 build bit for bit
-template <bool BF16>
+// (the shift, then the exp), to match the plain bf16 build bit for bit, or,
+// PALLAS (the smoothed build), as the Pallas build rounds them: the exp of
+// the float32 shift, rounded once
+template <bool BF16, bool PALLAS = false>
 FRT_DEV float shifted_exp(float a, float m) {
+  if constexpr (BF16 && PALLAS) return bf16r(expf(a - m));
   return BF16 ? bf16r(expf(bf16r(a - m))) : __expf(a - m);
 }
 

@@ -59,8 +59,9 @@ _SIGNATURES = {
     "frt_latbuild_bwd": [P] * 10 + [I] * 7 + [P] * 12,
     # B, S, T, C, bf16, smoothed, out (int64[5])
     "frt_latbuild_sizes": [I] * 6 + [P],
-    # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, out, threads, stream
-    "frt_ranges": [P, P, P, I, I, I, I, I, I, P, I, P],
+    # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, raw (scratch), out,
+    # threads, dtype, stream
+    "frt_ranges": [P, P, P, I, I, I, I, I, I, P, P, I, I, P],
 }
 
 _lock = threading.Lock()

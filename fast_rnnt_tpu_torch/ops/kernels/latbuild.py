@@ -18,14 +18,19 @@ the unigram denominator) only when autograd needs a gradient, and the
 backward launches the VJP kernels on them.
 
 The kernels take float32 lm and am (products in 3xTF32 on the tensor
-cores, see ``csrc/wgmma.cuh``), or bf16 lm and am for the plain build
-(bf16 products, float32 sums), the JAX package's bf16 mode: px and py come
-out float32, the gradients in the inputs' dtypes.  In that mode the
-backward keeps the forward's float32 residual D (the JAX package
-recomputes it).  The smoothed build takes float32 only.  ``lattice_rows``
-and ``lattice_rows_smoothed`` cast float16 lm and am to float32 before
-the kernels, as the Pallas build contracts them (``_mxu_dtype``); autograd
-carries the gradients back to float16.
+cores, see ``csrc/wgmma.cuh``), or bf16 lm and am (bf16 products, float32
+sums), the JAX package's bf16 mode: px and py come out float32, the
+gradients in the inputs' dtypes.  In that mode the backward keeps the
+forward's float32 residual D (the JAX package recomputes it).  The plain
+build rounds its bf16 exps as the JAX package's XLA build does,
+bf16(exp(bf16(am - amax))); the smoothed build as its Pallas kernels do
+(``_build_fwd_kernel`` / ``_build_bwd_kernel`` with ``parts=True``): the
+exps taken in float32 and then rounded to bf16, the shifted gathers and
+the unigram row rounded to bf16, and in the backward w, the px cotangent
+of the one-hot term and the unigram weight of d_uni rounded to bf16.
+``lattice_rows`` and ``lattice_rows_smoothed`` cast float16 lm and am to
+float32 before the kernels, as the Pallas build contracts them
+(``_mxu_dtype``); autograd carries the gradients back to float16.
 """
 
 from __future__ import annotations
@@ -82,11 +87,20 @@ def _scratch_sizes(B: int, S: int, T: int, C: int, bf16: bool, smoothed: bool):
     return tuple(int(x) for x in out)
 
 
-def _lm_probs(lm: torch.Tensor) -> torch.Tensor:
+def _lm_probs(lm: torch.Tensor, smoothed: bool = False) -> torch.Tensor:
     """lmp = exp(lm - lmmax) (B, S+1, C) in lm's dtype, the backward's lm
-    operand.  For bf16 lm, in bf16 arithmetic, rounded as the plain build's
-    (and the JAX XLA build's) exps are."""
+    operand.  For bf16 lm, the plain build's in bf16 arithmetic, rounded as
+    its forward's (and the JAX XLA build's) exps are; the smoothed build's
+    taken in float32 and rounded once, as the Pallas build's are."""
+    if smoothed:
+        x = lm.float()
+        return torch.exp(x - x.amax(dim=2, keepdim=True)).to(lm.dtype)
     return torch.exp(lm - lm.amax(dim=2, keepdim=True).detach())
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to the nearest bf16 value, kept in float32."""
+    return x.bfloat16().float()
 
 
 def _f16_as_f32(*xs):
@@ -103,8 +117,8 @@ def _check_inputs(lm, am, symbols, te_fix, blank, uni=None):
     if am.dtype not in _KINDS or lm.dtype != am.dtype or lm.device != dev:
         raise TypeError(f"lm and am must both be float32 or both bfloat16 on {dev}, got "
                         f"{lm.dtype} on {lm.device} and {am.dtype}")
-    if uni is not None and (uni.dtype != torch.float32 or am.dtype != torch.float32 or uni.device != dev):
-        raise TypeError(f"the smoothed build takes float32 lm, am and uni on {dev}")
+    if uni is not None and (uni.dtype != torch.float32 or uni.device != dev):
+        raise TypeError(f"the smoothed build takes a float32 uni on {dev}")
     if tuple(lm.shape) != (B, S + 1, C):
         raise ValueError(f"lm {tuple(lm.shape)} must be ({B}, S+1, {C})")
     if tuple(symbols.shape) != (B, S) or symbols.device != dev:
@@ -196,9 +210,9 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         d_lm.zero_()
     else:
         sym = symbols.to(torch.int32).contiguous()
-        lmp = _lm_probs(lm)
-        if uni is not None:  # the unigram row S+1 of both products
-            lmp = torch.cat([lmp, uni.expand(B, 1, C)], dim=1)
+        lmp = _lm_probs(lm, uni is not None)
+        if uni is not None:  # the unigram row S+1 of both products, in lmp's dtype
+            lmp = torch.cat([lmp, uni.to(lmp.dtype).expand(B, 1, C)], dim=1)
         lmp = lmp.contiguous()
         lib = _build.load_library()
         p = _build.ptr
@@ -244,12 +258,18 @@ class _BuildFn(torch.autograd.Function):
 
 
 class _BuildPartsFn(torch.autograd.Function):
-    """The CUDA smoothed build: (lm, am, uni) -> (px, py, normd)."""
+    """The smoothed build: (lm, am, uni) -> (px, py, normd), its VJP the
+    kernels' own: the CUDA kernels on a CUDA tensor, their plain versions
+    (``lattice_rows_parts_plain``, ``lattice_rows_bwd_plain``) on a CPU
+    one."""
 
     @staticmethod
     def forward(ctx, lm, am, symbols, te_fix, uni, blank, modified):
         save = any(ctx.needs_input_grad[i] for i in (0, 1, 4))
-        px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save)
+        if am.is_cuda:
+            px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save)
+        else:
+            (px, py, nd), res = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified), ()
         if save:
             ctx.save_for_backward(lm, am, symbols, te_fix, uni, *res)
             ctx.blank, ctx.modified = blank, modified
@@ -257,12 +277,16 @@ class _BuildPartsFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dpx, dpy, dnd):
-        lm, am, symbols, te_fix, uni, d, amax, duni = ctx.saved_tensors
-        d_lm, d_am, d_uni = build_bwd(
-            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, duni), dpx, dpy,
-            uni, dnd,
-        )
-        return d_lm, d_am, None, None, d_uni, None, None
+        lm, am, symbols, te_fix, uni, *res = ctx.saved_tensors
+        if am.is_cuda:
+            d_lm, d_am, d_uni = build_bwd(
+                lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd
+            )
+        else:
+            d_lm, d_am, d_uni = lattice_rows_bwd_plain(
+                lm, am, symbols, te_fix, dpx, dpy, ctx.blank, ctx.modified, uni, dnd
+            )
+        return d_lm.to(lm.dtype), d_am, None, None, d_uni, None, None
 
 
 def _te_fix(boundary, B: int, regular: bool, device) -> torch.Tensor:
@@ -300,8 +324,13 @@ def lattice_rows(
 
 def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
     """The plain version of the smoothed build kernel: (px, py, normd) with
-    ``normd[s, t] = norm[s, t] - log sum_c uni[c] exp(am[t, c])``; ordinary
-    differentiable torch in (lm, am, uni)."""
+    ``normd[s, t] = norm[s, t] - log sum_c uni[c] exp(am[t, c])``, float32;
+    ordinary differentiable torch in (lm, am, uni).  bf16 lm and am are
+    rounded where the Pallas smoothed build rounds them (``_parts_plain_bf16``);
+    float16 lm and am are taken as float32, as that build takes them."""
+    if am.dtype == torch.bfloat16:
+        return _parts_plain_bf16(lm, am, symbols, te_fix, uni, blank, modified)
+    lm, am = _f16_as_f32(lm, am)
     normalizers, am_max, am_probs, _, _ = _normalizers_plain(lm, am)
     px_am, px_lm = _px_gathers(lm, am, symbols)
     px = _pad_px(px_am + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
@@ -312,25 +341,71 @@ def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified:
     return px, py, normalizers - amonly[None]
 
 
+def _parts_plain_bf16(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
+    """The smoothed build on bf16 lm and am, as the Pallas parts kernel's
+    bf16 mode computes it (``_build_fwd_kernel``,
+    fast_rnnt_tpu/ops/kernels/latbuild.py:233-238, 279-288): the shift and
+    the exps in float32, each exp and the unigram row rounded to bf16 (the
+    products' operands, exact in float32), the shifted am gathers rounded to
+    bf16, every sum float32; the am max cancels from normd."""
+    _assert_fp32_matmul(am)
+    a32, l32 = am.float(), lm.float()
+    amax = a32.amax(dim=2, keepdim=True).detach()  # (B, T, 1)
+    lmmax = l32.amax(dim=2, keepdim=True).detach()  # (B, S+1, 1)
+    amp = _bf16_round(torch.exp(a32 - amax))
+    lmp = _bf16_round(torch.exp(l32 - lmmax))
+    lognorm = torch.log(torch.einsum("bsc,btc->sbt", lmp, amp) + _TINY) + lmmax.permute(1, 0, 2)
+    amax_r = amax.permute(2, 0, 1)  # (1, B, T)
+    px_am, px_lm = _px_gathers(l32, a32, symbols)
+    px_am = _bf16_round(px_am - amax_r)
+    px = _pad_px(px_am + px_lm, modified) - _pad_px(lognorm[:-1], modified, 0.0)
+    if not modified:
+        px = _kill_t_end(px, te_fix)
+    py_am = _bf16_round(a32[:, :, blank][None] - amax_r)
+    py = (py_am + l32[:, :, blank].t()[:, :, None]) - lognorm
+    duni = torch.einsum("btc,c->bt", amp, _bf16_round(uni))
+    return px, py, lognorm - torch.log(duni)[None]
+
+
 def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modified: bool,
-                           uni=None, dnd=None):
+                           uni=None, dnd=None, d=None):
     """The plain version of the VJP kernels, the formulas of
-    ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``,
-    float32, for cotangents (dpx, dpy) and, with the smoothed build's
-    unigram row, ``uni`` and dnd.  For bf16 lm and am the exps are the
-    forward's bf16 values and everything after them float32, the kernels'
-    contract."""
+    ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``
+    for cotangents (dpx, dpy) and, with the smoothed build's unigram row,
+    ``uni`` and dnd; d_am in am's dtype, d_lm and d_uni float32.  For bf16
+    lm and am the exps are the forward's bf16 values; the plain build takes
+    everything after them in float32, the kernels' contract, and the
+    smoothed build rounds as the Pallas parts kernel's bf16 mode does
+    (``_build_bwd_kernel``, fast_rnnt_tpu/ops/kernels/latbuild.py:326-420):
+    w, the one-hot term's px cotangent and d_uni's weight rd to bf16, the
+    unigram row to bf16, and d_am's exp factor in float32.  float16 lm and
+    am are taken as float32.  ``d``, the forward's residual D (S+1, B, T)
+    as the kernels take it, replaces the recomputed normalizer denominator
+    (the smoothed build's bf16 w then rounds from the same float32 value
+    as in the kernels)."""
     _assert_fp32_matmul(am)
     B, T, C = am.shape
     S = symbols.shape[1]
     blank %= C
+    pallas = uni is not None and am.dtype == torch.bfloat16
+    rnd = _bf16_round if pallas else (lambda x: x)
 
     def shifted_exp(x):
+        if pallas:
+            x = x.detach().float()
+            return _bf16_round(torch.exp(x - x.amax(dim=2, keepdim=True)))
         x = x.detach() if x.dtype == torch.bfloat16 else x.detach().float()
         return torch.exp(x - x.amax(dim=2, keepdim=True)).float()
 
     lmp, amp = shifted_exp(lm), shifted_exp(am)
-    d = torch.einsum("bsc,btc->bst", lmp, amp) + _TINY
+    amp_f = amp
+    if pallas:  # d_am's exp factor: the Pallas smoothed build's is float32, unrounded
+        amf = am.detach().float()
+        amp_f = torch.exp(amf - amf.amax(dim=2, keepdim=True))
+    if d is None:
+        d = torch.einsum("bsc,btc->bst", lmp, amp) + _TINY
+    else:
+        d = d.float().permute(1, 0, 2)
     # cotangents B-major; dpx zeroed on the constant -inf columns
     gx = dpx.float().permute(1, 0, 2)[:, :, :T]
     if not modified:
@@ -341,21 +416,22 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
     if dnd is not None:
         gnd = dnd.float().permute(1, 0, 2)
         dnorm = dnorm + gnd
-    w = dnorm / d  # (B, S+1, T)
-    d_am = amp * torch.einsum("bst,bsc->btc", w, lmp)
+    w = rnd(dnorm / d)  # (B, S+1, T)
+    d_am = amp_f * torch.einsum("bst,bsc->btc", w, lmp)
     d_lm = lmp * torch.einsum("bst,btc->bsc", w, amp)
     sym, valid = _symbol_index(symbols, C)
     gxv = torch.where(valid[:, :, None], gx, 0.0)
-    d_am = d_am.scatter_add(2, sym[:, None, :].expand(B, T, S), gxv.transpose(1, 2))
+    d_am = d_am.scatter_add(2, sym[:, None, :].expand(B, T, S), rnd(gxv).transpose(1, 2))
     d_am[:, :, blank] += gy.sum(dim=1)
     d_lm[:, :S] = d_lm[:, :S].scatter_add(2, sym[:, :, None], gxv.sum(dim=2, keepdim=True))
     d_lm[:, :, blank] += gy.sum(dim=2)
     d_uni = None
     if uni is not None:
-        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", amp, uni.detach())
-        d_am = d_am + amp * uni.detach() * rd[:, :, None]
-        d_uni = torch.einsum("bt,btc->c", rd, amp)
-    return d_lm, d_am, d_uni
+        u = rnd(uni.detach().float())
+        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", amp, u)
+        d_am = d_am + amp_f * (rd[:, :, None] * u)
+        d_uni = torch.einsum("bt,btc->c", rnd(rd), amp)
+    return d_lm, d_am.to(am.dtype), d_uni
 
 
 def lattice_rows_smoothed(
@@ -369,9 +445,10 @@ def lattice_rows_smoothed(
     rnnt_type: str = "regular",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smoothed s-major rows (port of ``lattice_rows_fused_smoothed``): the
-    smoothed build kernel returns (px, py, normd) on a CUDA tensor (its
-    plain version on a CPU tensor); the unigram statistics and the three-way
-    interpolation are plain torch, differentiable end to end."""
+    smoothed build kernels return (px, py, normd) and its VJP on a CUDA
+    tensor (their plain versions on a CPU tensor); the unigram statistics
+    and the three-way interpolation are plain torch, differentiable end to
+    end."""
     if rnnt_type == "constrained":
         px, py = lattice_rows_smoothed(
             lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, None, "modified"
@@ -390,10 +467,7 @@ def lattice_rows_smoothed(
     # included, as the reference does
     uni = (lmp / lmsum[:, :, None]).mean(dim=(0, 1)) + _TINY
     uni_log = torch.log(uni)
-    if am.is_cuda:
-        px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified)
-    else:
-        px, py, normd = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified)
+    px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified)
 
     # per-(b, s) columns, s-major (S?, B, 1)
     sym, valid = _symbol_index(symbols, C)

@@ -134,3 +134,52 @@ def assert_ranges_match(got, want, scores, what=""):
     for b, t in diff:
         gap = abs(scores[got[b, t], b, t] - scores[want[b, t], b, t])
         assert gap <= TIE_GAP, f"{what}: window start flip at b={b} t={t}, score gap {gap}"
+
+
+def occupancies(seed, B, S, T, modified, quarter=False):
+    """Non-negative (gy (S+1, B, T), gx (S, B, T or T+1)) float32 for the
+    pruning-window search; with ``quarter``, multiples of 1/4 below 4,
+    whose window sums are exact in float32 in any order and tie often."""
+    rng = np.random.default_rng(seed)
+    T1 = T if modified else T + 1
+    if quarter:
+        gy = rng.integers(0, 16, size=(S + 1, B, T)) / 4.0
+        gx = rng.integers(0, 16, size=(S, B, T1)) / 4.0
+    else:
+        gy, gx = rng.random((S + 1, B, T)), rng.random((S, B, T1))
+    return gy.astype(np.float32), gx.astype(np.float32)
+
+
+def ranges_boundary(seed, B, S, T, te=None):
+    """(B, 4) int32 boundary with random s_end in [0, S] and t_end in
+    [0, T] (or ``te`` for every utterance)."""
+    rng = np.random.default_rng(seed + 1000)
+    se = rng.integers(0, S + 1, size=B)
+    te = rng.integers(0, T + 1, size=B) if te is None else np.full(B, te)
+    z = np.zeros(B, np.int64)
+    return np.stack([z, z, se, te], axis=1).astype(np.int32)
+
+
+# edge shapes of the pruning-window kernels, (B, S, T, K, modified, t_end):
+# K = 1, 2, S+1; S + 2 - K < 8 (some of a tile's 8 slices of window starts
+# empty); T not a multiple of the 32-frame tile, T = 1; t_end <= 1 (every
+# frame padded), random t_end (also 0 and T otherwise)
+RANGES_EDGES = [
+    (3, 6, 40, 1, False, None),
+    (3, 6, 40, 2, True, None),
+    (2, 5, 37, 6, False, None),
+    (2, 3, 45, 2, False, None),
+    (3, 4, 33, 3, True, None),
+    (2, 20, 64, 5, False, None),
+    (2, 30, 70, 4, True, None),
+    (3, 7, 1, 2, False, None),
+    (3, 7, 1, 1, True, None),
+    (2, 9, 50, 3, False, 1),
+    (2, 9, 50, 3, True, 0),
+    (4, 40, 65, 8, False, None),
+]
+
+
+def ranges_edge_id(case):
+    B, S, T, K, modified, te = case
+    return f"B{B}-S{S}-T{T}-K{K}-{'mod' if modified else 'reg'}-te{te}"

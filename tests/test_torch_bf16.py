@@ -274,9 +274,10 @@ def test_build_wrappers_take_float32_and_bf16_only(dtype):
     args = (lm_t, am_t, tt(sym), te, 0)
     if dtype in (torch.float32, torch.bfloat16):
         assert latbuild._check_inputs(*args)[:4] == (2, 3, 5, 6)
-        if dtype == torch.bfloat16:  # the smoothed build is float32 only
-            with pytest.raises(TypeError):
-                latbuild._check_inputs(*args, uni=torch.ones(6))
+        # the smoothed build takes both, with a float32 unigram row
+        assert latbuild._check_inputs(*args, uni=torch.ones(6))[:4] == (2, 3, 5, 6)
+        with pytest.raises(TypeError):
+            latbuild._check_inputs(*args, uni=torch.ones(6, dtype=dtype).double())
         return
     with pytest.raises(TypeError):
         latbuild._check_inputs(*args)

@@ -14,7 +14,8 @@ utterances (the sweep kernels past the row scans' cap), the sweep kernels
 over several strips, at S = 0 and banded, out-of-range symbols, the storage
 dtypes at random shapes, float16 lm and am, the CUDA dtype, size and
 gradient rules, the fused kernel's launches in the recipe, and the
-forward-only build's memory."""
+forward-only build's memory; the smoothed build on bf16 lm and am; the
+pruning-window kernels on edge and long shapes, in every storage dtype."""
 
 import numpy as np
 import pytest
@@ -22,16 +23,20 @@ import torch
 
 import fast_rnnt_tpu_torch as ft
 from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
-from fast_rnnt_tpu_torch.ops.pruning import _window_scores
+from fast_rnnt_tpu_torch.ops.pruning import _window_scores, adjust_pruning_lower_bound
 from fast_rnnt_tpu_torch.utils import from_numpy
 
 from ._torch_parity import (
+    RANGES_EDGES,
     assert_close,
     assert_lattice_close,
     assert_loss_close,
     assert_ranges_match,
     band,
     loss_inputs,
+    occupancies,
+    ranges_boundary,
+    ranges_edge_id,
     rows_inputs,
 )
 
@@ -563,3 +568,105 @@ def test_f16_lm_am_train_through_the_build_kernels(dev, rnnt_type):
     if agree.all():
         for a, w in zip(g, g_p):
             assert (a.float() - w.float()).abs().max() <= 2.0**-8 * w.float().abs().max()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bf16_smoothed_build_matches_plain_on_random_shapes(dev, seed):
+    """The smoothed build kernels on bf16 lm and am at random shapes (odd C
+    included) against their plain versions, which round where the Pallas
+    smoothed build rounds: px, py and normd to 1e-4 + 1e-5|x|; the backward
+    (d_lm float32, d_am bf16, d_uni float32) and the autograd route's bf16
+    gradients to the bf16 contract, 1e-5 of max (d_am plus one bf16 step),
+    the plain backward on the forward kernel's residual D."""
+    rng = np.random.default_rng(400 + seed)
+    B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
+    C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    lm, am = lm.bfloat16(), am.bfloat16()
+    uni = torch.softmax(torch.randn(C, device=dev), 0) + 1e-3
+    dnd = torch.randn(S + 1, B, T, device=dev)
+    *out, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True)
+    for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, modified)):
+        assert a.dtype == torch.float32
+        assert_close(a, b, 1e-4, 1e-5)
+    # the forward's residual D, as the kernels take it: w = dnorm / D is
+    # rounded to bf16, and a D summed in another order moves some w a step
+    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd, res[0])
+    assert want[1].dtype == torch.bfloat16
+    got = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
+    _assert_bf16_contract(got, want)
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5 * float(want[2].abs().max())
+    lm_l, am_l, uni_l = lm.clone().requires_grad_(), am.clone().requires_grad_(), uni.clone().requires_grad_()
+    before = dict(latbuild.LAUNCHES)
+    outs = latbuild._BuildPartsFn.apply(lm_l, am_l, sym, te, uni_l, blank % C, modified)
+    g = torch.autograd.grad(outs, [lm_l, am_l, uni_l], [dpx, dpy, dnd])
+    assert {k: latbuild.LAUNCHES[k] - before[k] for k in before} == {
+        "fwd": 0, "bwd": 0, "fwd_parts": 1, "bwd_parts": 1}
+    assert g[0].dtype == torch.bfloat16 and g[1].dtype == torch.bfloat16
+    _assert_bf16_contract(g, (want[0].bfloat16(), want[1]))
+
+
+def _ranges_want(gy, gx, K, bnd, step):
+    """The padding and repair of the kernels' raw argmax recomputed in their
+    own summation order (``window_argmax_kernel_order``)."""
+    raw = ranges.window_argmax_kernel_order(gy, gx, K)
+    t = torch.arange(raw.shape[1], device=raw.device)[None, :]
+    pad = (bnd[:, 2:3] - K + 1).clamp(min=0).to(torch.int32)
+    return adjust_pruning_lower_bound(torch.where(t < bnd[:, 3:4] - 1, raw, pad), step)
+
+
+def _ranges_case(dev, case, seed, dtype, quarter=False):
+    B, S, T, K, modified, te = case
+    gy, gx = occupancies(seed, B, S, T, modified, quarter)
+    bnd = ranges_boundary(seed, B, S, T, te)
+    gy, gx, bnd = from_numpy(gy, gx, bnd, device=dev)
+    return gy.to(dtype), gx.to(dtype), bnd, K, 2 if modified else K
+
+
+LONG_RANGES = [(128, 20, 12000, 5, False, None), (8, 100, 20000, 5, False, None),
+               (30, 100, 1000, 5, False, None), (5, 60, 3000, 61, True, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", RANGES_EDGES + LONG_RANGES, ids=[ranges_edge_id(c) for c in RANGES_EDGES + LONG_RANGES])
+def test_ranges_kernels_equal_repair_of_their_argmax(dev, case, dtype):
+    """The pruning-window kernels' starts are exactly the padding and repair
+    of their raw argmax in their own summation order, on the edge shapes
+    (also on quarter-valued occupancies, whose ties are real), at B = 128,
+    T = 12000 and T = 20000, in every storage dtype, one launch each; and
+    each raw flip against the plain cumsum-difference search is a near-tie."""
+    for quarter in (False, True) if case in RANGES_EDGES else (False,):
+        gy, gx, bnd, K, step = _ranges_case(dev, case, sum(case[:4]), dtype, quarter)
+        before = ranges.LAUNCHES["ranges"]
+        got = ranges.window_starts(gy, gx, K, bnd, step)
+        assert ranges.LAUNCHES["ranges"] == before + 1
+        assert torch.equal(got, _ranges_want(gy, gx, K, bnd, step))
+        assert_ranges_match(ranges.window_argmax_kernel_order(gy, gx, K),
+                            torch.argmax(_window_scores(gx, gy, K), dim=0).to(torch.int32),
+                            _window_scores(gx, gy, K))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_ranges_kernels_on_random_shapes(dev, seed):
+    """Random B, S, T, K, t_end and storage dtype: the starts equal the
+    repair of the kernels' own raw argmax."""
+    rng = np.random.default_rng(500 + seed)
+    S, T = int(rng.integers(0, 150)), int(rng.integers(1, 3000))
+    case = (int(rng.integers(1, 40)), S, T, int(rng.integers(1, S + 2)), bool(rng.integers(2)), None)
+    dtype = (torch.float32, torch.bfloat16, torch.float16)[seed % 3]
+    gy, gx, bnd, K, step = _ranges_case(dev, case, seed, dtype)
+    assert torch.equal(ranges.window_starts(gy, gx, K, bnd, step), _ranges_want(gy, gx, K, bnd, step))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_ranges_kernels_read_narrow_storage_without_a_cast(dev, dtype):
+    """bf16 and f16 occupancies go to the kernels as they are stored: the
+    wrapper runs no cast or copy (the kernels sum in float32)."""
+    gy, gx, bnd, K, step = _ranges_case(dev, (4, 30, 500, 5, False, None), 3, dtype)
+    ranges.window_starts(gy, gx, K, bnd, step)  # the build, outside the profile
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = ranges.window_starts(gy, gx, K, bnd, step)
+    names = {e.name for e in prof.events()}
+    assert not names & {"aten::to", "aten::_to_copy", "aten::copy_", "aten::contiguous"}, names
+    assert torch.equal(got, _ranges_want(gy, gx, K, bnd, step))
