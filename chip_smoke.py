@@ -33,7 +33,23 @@ after:
     step's function, so loss and gradients are held to the training
     step's; then with bf16 pruned logits (a bf16 lattice in the recursion),
     held to the float32 recipe;
-  * the unpruned ``rnnt_loss`` of full logits at B=4.
+  * the unpruned ``rnnt_loss`` of full logits at B=4;
+  * ``model-train``: the pruned transducer's training step
+    (``models.make_train_step``) at the full width of ``TransducerConfig()``
+    (6 conformer layers, d_model 256, vocab 500, bf16 compute) on
+    ``benchmarks/harness.py``'s batch (B=8, T_in=1000, S=100, s_range=5,
+    seed 0), AdamW(1e-3, weight_decay 1e-4): the six loss kernels once
+    each, the losses and their gradients w.r.t. the loss's inputs held to
+    the plain versions on copies on the CPU (fed the card's ranges), 10
+    more steps whose loss falls, then step time, audio-seconds/s, peak
+    memory and the device-time split of the loss kernels and the model's
+    layers under ``torch.profiler``;
+  * ``model-converge``: ``bench.py``'s convergence run on the port (a tiny
+    model overfit on a copy task in 300 AdamW steps), regular RNN-T with
+    greedy search, and modified RNN-T with greedy (one symbol a frame)
+    and modified beam search: loss falls 20x, decoders reach 95%;
+  * ``alignment``: ``viterbi_alignment`` of the headline lattice on the
+    card against its own result on the CPU.
 
 The occupancies of the ``calc_gradients`` calls come from the fused
 kernel, a diagonal sweep, and stage 2 (the scores op and its backward)
@@ -719,7 +735,10 @@ def profile_step(step, reps=10):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device activity only: user annotations (the optimizer's step range)
+    # are drawn on the device timeline too
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     if not dev_events:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
@@ -760,6 +779,267 @@ def step_samples(step, n=60):
     q = np.percentile(dev, [50, 25, 75, 90])
     return tuple(float(x) for x in q), float(np.median(wall))
 
+
+
+# --- the transducer model: a training step, convergence, forced alignment -----
+
+# benchmarks/harness.py:116-127 (BASELINE.json config #5): the model's batch
+MODEL_B, MODEL_T_IN, MODEL_S = 8, 1000, 100
+# the port's own kernels, by the name the profiler gives their launches
+LOSS_KERNELS = ("latbuild_", "image_kernel", "lm_parts_kernel", "ranges_", "sweep_kernel", "scan_")
+
+
+def model_batch(cfg, seed=0):
+    """benchmarks/harness.py's model_train_step batch, in numpy."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(MODEL_B, MODEL_T_IN, cfg.feature_dim)).astype(np.float32)
+    flens = np.full(MODEL_B, MODEL_T_IN, np.int32)
+    syms = rng.integers(1, cfg.vocab_size, size=(MODEL_B, MODEL_S)).astype(np.int32)
+    slens = np.full(MODEL_B, MODEL_S, np.int32)
+    return feats, flens, syms, slens
+
+
+@contextlib.contextmanager
+def patched(module, **names):
+    """``module``'s attributes replaced by ``names`` inside the block."""
+    old = {k: getattr(module, k) for k in names}
+    for k, v in names.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def rel_err(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def model_train_phase(dev, t, counted):
+    """The full-width training step: one step under the launch counters
+    (the six loss kernels once each), its losses and their gradients
+    w.r.t. the loss's inputs held to the plain versions on copies on the
+    CPU (fed the card's ranges), 10 more steps, then step time, memory and
+    the device-time split.  Returns the step's launch counts."""
+    import torch
+
+    from fast_rnnt_tpu_torch import rnnt_loss_pruned, rnnt_loss_simple
+    from fast_rnnt_tpu_torch.models import LossConfig, TransducerConfig, init_model, make_train_step
+    from fast_rnnt_tpu_torch.models import training
+
+    cfg = TransducerConfig()
+    batch = t(*model_batch(cfg))
+    model = init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    loss_cfg = LossConfig(s_range=S_RANGE)
+    step = make_train_step(model, opt, loss_cfg)
+
+    # the loss's inputs, kept with their gradients by wrappers of the two
+    # losses on the training module
+    seen = {}
+
+    def keep(name, fn, n_grad):
+        def run(*args, **kw):
+            for x in args[:n_grad]:
+                x.retain_grad()
+            seen[name] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    with patched(training, rnnt_loss_simple=keep("simple", training.rnnt_loss_simple, 2),
+                 rnnt_loss_pruned=keep("pruned", training.rnnt_loss_pruned, 1)):
+        metrics, launches, first_ms, peak_first, base = counted(
+            lambda: step(batch), "model-train",
+            {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+             "wavefront_bwd": 1, "ranges": 1})
+    (s_lm, s_am, sym), kw_s = seen["simple"][0][:3], seen["simple"][1]
+    (logits, _, r_card), kw_p = seen["pruned"][0][:3], seen["pruned"][1]
+    T_enc = s_am.shape[1]
+    if tuple(logits.shape) != (MODEL_B, T_enc, S_RANGE, cfg.vocab_size) or T_enc != MODEL_T_IN // 4:
+        raise Failed(f"model-train: logits {tuple(logits.shape)}, {T_enc} encoder frames")
+
+    # the plain versions on the CPU, on copies of the same tensors
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw_s.items()}
+    lm_c = s_lm.detach().cpu().requires_grad_()
+    am_c = s_am.detach().cpu().requires_grad_()
+    lg_c = logits.detach().cpu().requires_grad_()
+    simple_c = rnnt_loss_simple(lm_c, am_c, sym.cpu(), **{**cpu, "calc_gradients": False})
+    pruned_c = rnnt_loss_pruned(lg_c, sym.cpu(), r_card.cpu(),
+                                **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw_p.items()})
+    total_c = loss_cfg.simple_scale * simple_c + loss_cfg.pruned_scale * pruned_c
+    total_c.backward()
+    rels = {k: rel_err(metrics[k], v.detach()) for k, v in
+            (("loss", total_c), ("simple_loss", simple_c), ("pruned_loss", pruned_c))}
+    if max(rels.values()) > 1e-4:
+        raise Failed(f"model-train: losses vs the plain versions on the CPU, rel err {rels} > 1e-4")
+    g_err = worst(*(grad_err(a.grad.cpu(), b.grad, f"model-train d {n}", TRAIN_GRAD_TOL)
+                    for a, b, n in ((s_lm, lm_c, "simple_lm"), (s_am, am_c, "simple_am"),
+                                    (logits, lg_c, "logits"))))
+    del seen, s_lm, s_am, logits, lm_c, am_c, lg_c
+
+    losses = torch.stack([metrics["loss"]] + [step(batch)["loss"] for _ in range(10)]).cpu()
+    if not bool(torch.isfinite(losses).all()) or not losses[-1] < losses[0]:
+        raise Failed(f"model-train: 11 steps on one batch, losses {losses.tolist()}")
+    ms = cuda_ms(lambda: step(batch), reps=REPS, inner=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    audio_s = MODEL_B * MODEL_T_IN * 0.01
+    phase("model-train", f"TransducerConfig() ({cfg.num_layers} layers, d_model {cfg.d_model}, d_joiner "
+          f"{cfg.d_joiner}, vocab {cfg.vocab_size}, {cfg.dtype} compute, {n_params} float32 parameters), "
+          f"B={MODEL_B} T_in={MODEL_T_IN} ({T_enc} encoder frames) S={MODEL_S} s_range={S_RANGE}, "
+          f"AdamW(1e-3, weight_decay 1e-4), seed 0: launches {json.dumps(launches)}; loss "
+          f"{metrics['loss'].item():.3f} (simple {metrics['simple_loss'].item():.3f}, pruned "
+          f"{metrics['pruned_loss'].item():.3f}), rel err vs the plain versions on the CPU on the same "
+          f"inputs and ranges: total {rels['loss']:.3e} simple {rels['simple_loss']:.3e} pruned "
+          f"{rels['pruned_loss']:.3e} (tol 1e-4); gradients w.r.t. simple_lm, simple_am and the "
+          f"pruned logits max abs err {g_err[0]:.3e} ({g_err[1]:.3e} of max, tol {TRAIN_GRAD_TOL}); "
+          f"losses over 11 steps {losses[0].item():.3f} -> {losses[-1].item():.3f}; step {ms:.3f} ms "
+          f"(CUDA events, median of {REPS} single steps; first call {first_ms:.1f} ms), "
+          f"{audio_s / (ms / 1e3):.1f} audio-seconds/s; peak {peak:.1f} MiB (first step {peak_first:.1f} "
+          f"MiB, {base:.1f} MiB allocated before it)")
+
+    prof = profile_step(lambda: step(batch))
+    if prof is None:
+        raise Failed("model-train: the profiler saw no device activity")
+    rows, busy = prof
+    total = sum(r[1] for r in rows)
+    loss_us = sum(r[1] for r in rows if any(k in r[0] for k in LOSS_KERNELS))
+    phase("model-train", f"profile, torch.profiler, 10 steps: device busy {100 * busy:.1f}% of the device "
+          f"window; kernel time {total:.1f} us per step ({100 * total / (ms * 1e3):.1f}% of the "
+          f"{ms:.3f} ms step), {sum(r[2] for r in rows):.0f} launches per step: the six loss kernels "
+          f"{loss_us:.1f} us ({100 * loss_us / total:.1f}%), the model's layers, the loss's torch "
+          f"glue and AdamW {total - loss_us:.1f} us ({100 * (total - loss_us) / total:.1f}%)")
+    for kname, us, calls in rows[:25]:
+        print(f"  {us:9.1f} us/step {calls:5.1f} calls/step {100 * us / total:5.1f}%  {kname[:90]}",
+              flush=True)
+    return launches
+
+
+CONVERGE_V, CONVERGE_B, CONVERGE_S, CONVERGE_FPS = 16, 16, 6, 8
+
+
+def converge_arm(dev, rnnt_type, max_symbols_per_frame):
+    """bench.py's training_convergence on the port: a tiny conformer
+    transducer overfit on a synthetic copy task (each symbol painted into
+    8 feature frames), 300 AdamW(3e-3) steps, then greedy search and
+    modified beam search (beam 4) on the trained batch.  Returns (first
+    loss, best of the last 10, greedy accuracy, beam accuracy, seconds)."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import (
+        LossConfig, TransducerConfig, greedy_search, init_model, make_train_step, modified_beam_search,
+    )
+
+    V, Bc, Sc, fps = CONVERGE_V, CONVERGE_B, CONVERGE_S, CONVERGE_FPS
+    rng = np.random.default_rng(0)
+    syms = rng.integers(1, V, size=(Bc, Sc)).astype(np.int32)
+    frames = np.repeat(np.eye(V, dtype=np.float32)[syms], fps, axis=1)
+    frames = frames + 0.1 * rng.normal(size=frames.shape).astype(np.float32)
+    feats = torch.tensor(frames, device=dev)
+    flens = torch.full((Bc,), Sc * fps, dtype=torch.int32, device=dev)
+    symbols = torch.tensor(syms, device=dev)
+    slens = torch.full((Bc,), Sc, dtype=torch.int32, device=dev)
+    cfg = TransducerConfig(vocab_size=V, feature_dim=V, d_model=64, d_joiner=64, num_layers=2,
+                           num_heads=2, conv_kernel=7, dtype=torch.float32)
+    model = init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    step = make_train_step(model, opt, LossConfig(s_range=4, rnnt_type=rnnt_type))
+    t0 = time.perf_counter()
+    losses = torch.stack([step((feats, flens, symbols, slens))["loss"] for _ in range(300)]).cpu().numpy()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise Failed(f"model-converge ({rnnt_type}): non-finite loss")
+
+    def accuracy(hyps, lens):
+        hyps, lens = hyps.cpu().numpy(), lens.cpu().numpy()
+        hits = sum(int((hyps[b, :min(int(lens[b]), Sc)] == syms[b, :min(int(lens[b]), Sc)]).sum())
+                   for b in range(Bc))
+        return hits / (Bc * Sc)
+
+    greedy = accuracy(*greedy_search(model, feats, flens, max_symbols_per_frame=max_symbols_per_frame,
+                                     max_len=Sc + 2))
+    beam = accuracy(*modified_beam_search(model, feats, flens, beam=4, max_len=Sc + 2))
+    return float(losses[0]), float(losses[-10:].min()), greedy, beam, wall
+
+
+def model_converge_phase(dev):
+    """Two arms of the convergence run.  ``regular`` is bench.py's (regular
+    RNN-T, greedy up to 4 symbols a frame): its loss must fall 20x and
+    greedy reach 95%; its beam accuracy is reported, not held, since the
+    beam's one emission per frame is not the topology it was trained in.
+    ``modified`` trains the topology the beam search decodes (one symbol
+    per frame, the JAX package's note at decoding.py:336-338): loss 20x,
+    greedy (one symbol per frame) and beam both 95%."""
+    for rnnt_type, cap, held in (("regular", 4, ("greedy",)), ("modified", 1, ("greedy", "beam"))):
+        first, last, greedy, beam, wall = converge_arm(dev, rnnt_type, cap)
+        drop = first / max(last, 1e-9)
+        acc = {"greedy": greedy, "beam": beam}
+        if drop < 20.0 or any(acc[k] < 0.95 for k in held):
+            raise Failed(f"model-converge ({rnnt_type}): loss drop {drop:.1f}x (need 20x), accuracy "
+                         f"{acc} (need 0.95 for {held})")
+        phase("model-converge", f"{rnnt_type} RNN-T: vocab = features = {CONVERGE_V}, d 64, 2 layers, "
+              f"2 heads, conv 7, float32, B={CONVERGE_B} S={CONVERGE_S}, {CONVERGE_FPS} frames a symbol, "
+              f"300 AdamW(3e-3) steps in {wall:.1f} s: loss {first:.2f} -> {last:.4f} ({drop:.1f}x, need "
+              f"20x); greedy ({cap} symbol{'s' if cap > 1 else ''} a frame) accuracy {greedy:.4f}; modified "
+              f"beam search (beam 4) accuracy {beam:.4f}; held to 0.95: {', '.join(held)}")
+
+
+def path_score(px, py, frames, se, te):
+    """Score of the regular-lattice path that emits symbol s at frame
+    ``frames[s]`` (numpy, one utterance)."""
+    score, t = 0.0, 0
+    for s in range(se + 1):
+        end = te if s == se else frames[s]
+        score += py[s, t:end].sum(dtype=np.float64)
+        t = end
+        if s < se:
+            score += float(px[s, t])
+    return score
+
+
+def alignment_phase(dev, lm, am, sym, bnd):
+    """``viterbi_alignment`` of the headline lattice on the card against
+    its own result on the CPU: scores to rel 1e-5; emission frames equal,
+    or, where they differ, the card's path scored on the CPU's lattice
+    within 1e-4 of the CPU's best (a near-tie)."""
+    import torch
+
+    from fast_rnnt_tpu_torch import viterbi_alignment
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild
+
+    px_r, py_r = latbuild.lattice_rows(lm, am, sym, 0, "regular", bnd)
+    px, py = px_r.movedim(1, 0).contiguous(), py_r.movedim(1, 0).contiguous()
+    del px_r, py_r
+    t0 = time.perf_counter()
+    sc_d, fr_d, ind_d = viterbi_alignment(px, py, bnd)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    px_c, py_c, bnd_c = px.cpu(), py.cpu(), bnd.cpu()
+    sc_c, fr_c, _ = viterbi_alignment(px_c, py_c, bnd_c)
+    rel = ((sc_d.cpu().double() - sc_c.double()).abs() / sc_c.double().abs()).max().item()
+    if not (rel <= 1e-5):
+        raise Failed(f"alignment: scores rel err {rel:.3e} vs the CPU > 1e-5")
+    if not torch.equal(ind_d.sum(2), (fr_d >= 0).to(ind_d.dtype)):
+        raise Failed("alignment: the card's px indicator is not one arc per emitted symbol")
+    differ = (fr_d.cpu() != fr_c).any(1).nonzero().flatten().tolist()
+    gap = 0.0
+    for b in differ:
+        se, te = int(bnd_c[b, 2]), int(bnd_c[b, 3])
+        args = (px_c[b].numpy(), py_c[b].numpy())
+        got = path_score(*args, fr_d[b].cpu().numpy(), se, te)
+        gap = max(gap, abs(got - float(sc_c[b])))
+    if gap > 1e-4:
+        raise Failed(f"alignment: emission frames differ from the CPU's on utterances {differ}, path "
+                     f"score gap {gap:.3e} > 1e-4")
+    phase("alignment", f"viterbi_alignment of the headline lattice [{B}, {S}, {T + 1}] on the card "
+          f"({card_s * 1e3:.1f} ms, first call) against the CPU: scores rel err {rel:.3e} (tol 1e-5); "
+          f"emission frames equal on {B - len(differ)} of {B} utterances, the rest near-ties (path score "
+          f"gap {gap:.3e}, tol 1e-4)")
 
 def headline_kernels(am, lm, sym, bnd):
     """Each kernel against its plain version at the main path's shapes, with
@@ -1717,6 +1997,12 @@ def main():
           f"split {joint['split'][3]:.1f} MiB")
     del joint
 
+    # the transducer model's training step at full width, its convergence
+    # and decoding on a copy task, and forced alignment of the headline lattice
+    launches_model = model_train_phase(dev, t, counted)
+    model_converge_phase(dev)
+    alignment_phase(dev, lm, am, sym, bnd)
+
     # --- 5. where the steps' time goes (measurements) ----------------------
     for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
                      ("train-bf16", train_step_bf16),
@@ -1778,7 +2064,8 @@ def main():
          "launches": path_launches[name], "max_abs_err": report[name]["err"],
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": report[name].get("library_ms")}
+         "library_ms": report[name].get("library_ms"),
+         "model_train_launches": launches_model[name]}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 Hopper GPUs, forward and gradient, with hand-written CUDA kernels for the
 lattice build (simple and smoothed, with their backward), the recursion
 (split and fused, float32 / bfloat16 / float16 storage) and the pruning
-windows, plain PyTorch versions of each for CPU tensors, and the real-joiner
-recipe (``do_rnnt_pruning``, ``rnnt_loss_pruned``, ``rnnt_loss``)."""
+windows, plain PyTorch versions of each for CPU tensors, the real-joiner
+recipe (``do_rnnt_pruning``, ``rnnt_loss_pruned``, ``rnnt_loss``) and
+Viterbi forced alignment.  The conformer transducer that trains with the
+loss, and its decoders, are in ``fast_rnnt_tpu_torch.models``."""
 
+from .ops.alignment import viterbi_alignment, viterbi_scores
 from .ops.lattice import (
     fix_for_boundary,
     get_rnnt_logprobs,
@@ -69,4 +72,7 @@ __all__ = [
     "rnnt_loss_simple_pruned",
     "rnnt_loss_smoothed",
     "rnnt_loss_smoothed_pruned",
+    # viterbi / forced alignment
+    "viterbi_scores",
+    "viterbi_alignment",
 ]

@@ -1,0 +1,168 @@
+"""Two-stage pruned-transducer training step (PyTorch port of
+``fast_rnnt_tpu/models/training.py``):
+
+  1. simple loss (vocab-space additive joiner) with occupancies
+  2. pruning ranges from the occupancies
+  3. prune the joiner-space projections
+  4. full joiner on the pruned (B, T, s_range) pairs only
+  5. pruned loss;   total = simple_scale * simple + pruned_scale * pruned
+
+On CUDA tensors the loss runs the port's kernels: the lattice build and
+its backward, the fused recursion (stage 1's occupancies), the ranges
+kernel, and the recursion's forward and backward phases (stage 2).  The
+model's own layers are plain PyTorch.  One device, no mesh: data
+parallelism is not ported yet.
+
+``optax.adamw(lr)`` corresponds to ``torch.optim.AdamW(params, lr,
+betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)`` (optax's default decay
+is 1e-4, torch's 1e-2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.losses import rnnt_loss_pruned, rnnt_loss_simple
+from ..ops.pruning import do_rnnt_pruning, get_rnnt_prune_ranges
+from .transducer import LayerNorm, PrunedTransducer, TransducerConfig
+
+__all__ = [
+    "LossConfig",
+    "make_boundary",
+    "pruned_transducer_loss",
+    "make_train_step",
+    "init_model",
+]
+
+# stddev of a standard normal truncated to [-2, 2]: flax's truncated-normal
+# initialisers divide by it so that the truncated draw has the asked std
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    s_range: int = 5
+    simple_scale: float = 0.5
+    pruned_scale: float = 1.0
+    rnnt_type: str = "regular"
+    delay_penalty: float = 0.0
+
+
+def make_boundary(out_lens: torch.Tensor, symbol_lens: torch.Tensor) -> torch.Tensor:
+    """[B, 4] int32 rows [0, 0, symbol_len, out_len], on out_lens' device."""
+    zeros = torch.zeros_like(out_lens, dtype=torch.int32)
+    return torch.stack(
+        [zeros, zeros, symbol_lens.to(torch.int32), out_lens.to(torch.int32)], dim=1
+    )
+
+
+def pruned_transducer_loss(
+    model: PrunedTransducer,
+    features: torch.Tensor,
+    feature_lens: torch.Tensor,
+    symbols: torch.Tensor,
+    symbol_lens: torch.Tensor,
+    loss_cfg: LossConfig = LossConfig(),
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss (sum over the batch) and a metrics dict with the JAX
+    package's keys: loss, simple_loss, pruned_loss, frames."""
+    blank = model.cfg.blank_id
+    am, lm, simple_am, simple_lm, out_lens = model(features, feature_lens, symbols)
+    boundary = make_boundary(out_lens, symbol_lens)
+
+    simple_loss, (px_grad, py_grad) = rnnt_loss_simple(
+        simple_lm,
+        simple_am,
+        symbols,
+        termination_symbol=blank,
+        boundary=boundary,
+        rnnt_type=loss_cfg.rnnt_type,
+        delay_penalty=loss_cfg.delay_penalty,
+        reduction="sum",
+        calc_gradients=True,
+    )
+    # the occupancies are not differentiable: they only pick the int ranges
+    ranges = get_rnnt_prune_ranges(px_grad, py_grad, boundary, loss_cfg.s_range)
+    am_pruned, lm_pruned = do_rnnt_pruning(am, lm, ranges)
+    logits = model.join(am_pruned, lm_pruned)
+    pruned_loss = rnnt_loss_pruned(
+        logits,
+        symbols,
+        ranges,
+        termination_symbol=blank,
+        boundary=boundary,
+        rnnt_type=loss_cfg.rnnt_type,
+        delay_penalty=loss_cfg.delay_penalty,
+        reduction="sum",
+    )
+    total = loss_cfg.simple_scale * simple_loss + loss_cfg.pruned_scale * pruned_loss
+    metrics = {
+        "loss": total,
+        "simple_loss": simple_loss,
+        "pruned_loss": pruned_loss,
+        "frames": out_lens.sum(),
+    }
+    return total, metrics
+
+
+@torch.no_grad()
+def _flax_init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """flax's default initialisers: Dense and Conv kernels lecun-normal
+    (truncated to 2 std, std sqrt(1 / fan_in)), biases 0, LayerNorm scale 1
+    and bias 0, embeddings normal with std sqrt(1 / d)."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            fan_in = mod.weight[0].numel()  # in (/ groups) x kernel extent
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, 0.0, math.sqrt(1.0 / mod.weight.shape[1]),
+                            generator=generator)
+        elif isinstance(mod, LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+
+
+def init_model(
+    cfg: TransducerConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> PrunedTransducer:
+    """The model with flax's default initialisers, drawn on the CPU from
+    ``generator`` (the same weights on any device), then moved to
+    ``device``.  A CUDA device on a machine without one raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_model: no CUDA device (pass device='cpu' to run on the CPU)")
+    model = PrunedTransducer(cfg)
+    _flax_init(model, generator)
+    return model.to(device)
+
+
+def make_train_step(
+    model: PrunedTransducer,
+    optimizer: torch.optim.Optimizer,
+    loss_cfg: LossConfig = LossConfig(),
+) -> Callable[[Tuple[torch.Tensor, ...]], Dict[str, torch.Tensor]]:
+    """``step(batch) -> metrics``: one optimizer step on ``batch =
+    (features, feature_lens, symbols, symbol_lens)``; the metrics come back
+    detached, on the model's device (reading them syncs the host)."""
+
+    def step(batch):
+        feats, feat_lens, syms, sym_lens = batch
+        optimizer.zero_grad(set_to_none=True)
+        total, metrics = pruned_transducer_loss(
+            model, feats, feat_lens, syms, sym_lens, loss_cfg
+        )
+        total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step

@@ -1,4 +1,4 @@
-from .convert import from_numpy
-from .validation import check_rnnt_inputs
+from .convert import from_numpy, params_from_flax
+from .validation import check_rnnt_inputs, checkify_rnnt_inputs
 
-__all__ = ["check_rnnt_inputs", "from_numpy"]
+__all__ = ["check_rnnt_inputs", "checkify_rnnt_inputs", "from_numpy", "params_from_flax"]

@@ -1,8 +1,9 @@
 """Input validation for the loss API (counterpart of
-``fast_rnnt_tpu/utils/validation.py::check_rnnt_inputs``).
+``fast_rnnt_tpu/utils/validation.py``).
 
-Only shapes and dtypes are checked: reading values would synchronise with
-the device on every call."""
+:func:`check_rnnt_inputs` checks shapes and dtypes only, so the losses call
+it on every call.  :func:`checkify_rnnt_inputs` checks values, which
+synchronises with the device: it is opt-in, and no loss path calls it."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["check_rnnt_inputs"]
+__all__ = ["check_rnnt_inputs", "checkify_rnnt_inputs"]
 
 
 def _is_integer(dtype: torch.dtype) -> bool:
@@ -82,3 +83,33 @@ def check_rnnt_inputs(
         if ranges.dim() != 3:
             raise ValueError(f"ranges must be [B, T, s_range], got {tuple(ranges.shape)}")
         _batch(ranges, "ranges")
+
+
+def checkify_rnnt_inputs(
+    symbols: torch.Tensor,
+    C: int,
+    boundary: Optional[torch.Tensor] = None,
+    S: Optional[int] = None,
+    T: Optional[int] = None,
+) -> None:
+    """Value checks of the loss inputs (the JAX package's checkify checks,
+    with the same messages): raise ValueError on the first that fails.
+    Reads the values back to the host."""
+    checks = [
+        (symbols >= 0, "symbols must be >= 0"),
+        (symbols < C, f"symbols must be < C={C}"),
+    ]
+    if boundary is not None:
+        sb, tb, se, te = (boundary[:, i] for i in range(4))
+        checks += [
+            ((sb >= 0) & (tb >= 0), "begin must be >= 0"),
+            (sb <= se, "s_begin must be <= s_end"),
+            (tb <= te, "t_begin must be <= t_end"),
+        ]
+        if S is not None:
+            checks.append((se <= S, f"s_end must be <= S={S}"))
+        if T is not None:
+            checks.append((te <= T, f"t_end must be <= T={T}"))
+    for ok, msg in checks:
+        if not bool(ok.all()):
+            raise ValueError(msg)

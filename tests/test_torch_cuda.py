@@ -15,7 +15,9 @@ over several strips, at S = 0 and banded, out-of-range symbols, the storage
 dtypes at random shapes, float16 lm and am, the CUDA dtype, size and
 gradient rules, the fused kernel's launches in the recipe, and the
 forward-only build's memory; the smoothed build on bf16 lm and am; the
-pruning-window kernels on edge and long shapes, in every storage dtype."""
+pruning-window kernels on edge and long shapes, in every storage dtype;
+the transducer model's loss (its six kernel launches, against the same
+model on the CPU), its decoders and the forced alignment on the card."""
 
 import numpy as np
 import pytest
@@ -670,3 +672,93 @@ def test_ranges_kernels_read_narrow_storage_without_a_cast(dev, dtype):
     names = {e.name for e in prof.events()}
     assert not names & {"aten::to", "aten::_to_copy", "aten::copy_", "aten::contiguous"}, names
     assert torch.equal(got, _ranges_want(gy, gx, K, bnd, step))
+
+
+# --- the transducer model on the card -----------------------------------------
+
+MODEL_TINY = dict(vocab_size=32, feature_dim=8, d_model=16, d_joiner=16, num_layers=2, num_heads=2,
+                  conv_kernel=7, dtype=torch.float32)
+
+
+def _model_batch(seed, B=4, T_in=64, S=6):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(B, T_in, 8)).astype(np.float32)
+    flens = np.array([T_in, T_in - 7, T_in - 20, T_in - 33][:B], np.int32)
+    syms = rng.integers(1, 32, size=(B, S)).astype(np.int32)
+    slens = np.array([S, S - 1, 3, 2][:B], np.int32)
+    return feats, flens, syms, slens
+
+
+def _models(dev):
+    from fast_rnnt_tpu_torch.models import TransducerConfig, init_model
+
+    cfg = TransducerConfig(**MODEL_TINY)
+    return (init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0)),
+            init_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+
+
+def test_model_loss_on_cuda_runs_the_six_kernels_and_matches_cpu(dev, monkeypatch):
+    """The training loss on the card launches the build, its backward, the
+    fused recursion, the ranges kernel and stage 2's two phases once each;
+    loss and parameter gradients match the same model's on the CPU (stage
+    2 on both gets the CPU's ranges)."""
+    from fast_rnnt_tpu_torch.models import LossConfig, pruned_transducer_loss
+    from fast_rnnt_tpu_torch.models import training
+
+    m_dev, m_cpu = _models(dev)
+    batch = _model_batch(1)
+    cfg = LossConfig(s_range=3)
+    cpu_total, _ = pruned_transducer_loss(m_cpu, *(torch.tensor(x) for x in batch), cfg)
+    cpu_total.backward()
+    real = training.get_rnnt_prune_ranges
+    seen = []
+
+    def cpu_ranges(gx, gy, bnd, s_range):
+        got = real(gx, gy, bnd, s_range)
+        seen.append(got)
+        want = real(gx.cpu(), gy.cpu(), bnd.cpu(), s_range)
+        assert_ranges_match(got[:, :, 0], want[:, :, 0],
+                            _window_scores(gx.cpu().movedim(1, 0), gy.cpu().movedim(1, 0), s_range))
+        return want.to(gx.device)
+
+    monkeypatch.setattr(training, "get_rnnt_prune_ranges", cpu_ranges)
+    counts = [dict(wavefront.LAUNCHES), dict(latbuild.LAUNCHES), dict(ranges.LAUNCHES)]
+    total, metrics = pruned_transducer_loss(m_dev, *from_numpy(*batch, device=dev), cfg)
+    total.backward()
+    torch.cuda.synchronize()
+    assert seen
+    delta = {f"{i}.{k}": d[k] - c[k] for i, (d, c) in enumerate(zip(
+        (wavefront.LAUNCHES, latbuild.LAUNCHES, ranges.LAUNCHES), counts)) for k in d}
+    assert {k: v for k, v in delta.items() if v} == {
+        "0.fwd": 1, "0.bwd": 1, "0.fused": 1, "1.fwd": 1, "1.bwd": 1, "2.ranges": 1}
+    assert_loss_close(total.detach().cpu(), cpu_total.detach())
+    top = max(q.grad.abs().max().item() for q in m_cpu.parameters())
+    for (name, p), q in zip(m_dev.named_parameters(), m_cpu.parameters()):
+        if name.endswith("attn.key.bias"):
+            # zero but for round-off: the softmax cancels q . b_k
+            assert max(p.grad.abs().max().item(), q.grad.abs().max().item()) <= 1e-5 * top, name
+            continue
+        err = (p.grad.cpu() - q.grad).abs().max().item()
+        assert err <= 1e-3 * q.grad.abs().max().item(), name
+
+
+def test_model_decoding_on_cuda_matches_cpu(dev):
+    """Greedy and beam tokens on the card equal the CPU's for the same
+    float32 model (TF32 off)."""
+    from fast_rnnt_tpu_torch.models import greedy_search, modified_beam_search
+
+    m_dev, m_cpu = _models(dev)
+    feats, flens, _, _ = _model_batch(2)
+    for search in (greedy_search, modified_beam_search):
+        h_d, l_d = search(m_dev, *from_numpy(feats, flens, device=dev), max_len=48)
+        h_c, l_c = search(m_cpu, torch.tensor(feats), torch.tensor(flens), max_len=48)
+        assert torch.equal(l_d.cpu(), l_c) and torch.equal(h_d.cpu(), h_c), search.__name__
+
+
+def test_viterbi_alignment_on_cuda_matches_cpu(dev):
+    px, py, bnd = rows_inputs(9, B=3, S=7, T=40)
+    px, py = np.moveaxis(px, 0, 1).copy(), np.moveaxis(py, 0, 1).copy()
+    s_c, f_c, _ = ft.viterbi_alignment(*from_numpy(px, py, bnd, device="cpu"))
+    s_d, f_d, _ = ft.viterbi_alignment(*from_numpy(px, py, bnd, device=dev))
+    assert_lattice_close(s_d.cpu(), s_c)
+    assert torch.equal(f_d.cpu(), f_c)

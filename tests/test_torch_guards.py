@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
     so a check of sys.modules could not tell)."""
     files = sorted((ROOT / "fast_rnnt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    walked = {str(f.relative_to(ROOT)) for f in files}
+    assert {"fast_rnnt_tpu_torch/models/transducer.py", "fast_rnnt_tpu_torch/models/training.py",
+            "fast_rnnt_tpu_torch/ops/alignment.py"} <= walked
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -93,6 +96,31 @@ def test_cpu_recipe_launches_no_kernel(monkeypatch, fused):
     full = ft.rnnt_loss(am[:, :, None, :] + lm[:, None, :, :], sym, 0, bnd, calc_gradients=True)[0]
     (0.5 * s + p + full).backward()
     assert am.grad.isfinite().all() and lm.grad.isfinite().all()
+    assert _all_launches() == before
+    assert _build._lib is None
+
+
+def test_cpu_model_step_launches_no_kernel():
+    """A training step and both decoders of the transducer on the CPU run
+    the plain versions only."""
+    from fast_rnnt_tpu_torch.models import (
+        LossConfig, TransducerConfig, greedy_search, init_model, make_train_step,
+        modified_beam_search,
+    )
+
+    before = _all_launches()
+    cfg = TransducerConfig(vocab_size=12, feature_dim=6, d_model=8, d_joiner=8, num_layers=1,
+                           num_heads=2, conv_kernel=3, dtype=torch.float32)
+    model = init_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(23)
+    feats = torch.tensor(rng.normal(size=(2, 24, 6)).astype(np.float32))
+    flens = torch.tensor([24, 17], dtype=torch.int32)
+    syms = torch.tensor(rng.integers(1, 12, size=(2, 4)).astype(np.int32))
+    slens = torch.tensor([4, 2], dtype=torch.int32)
+    step = make_train_step(model, torch.optim.AdamW(model.parameters(), 1e-3), LossConfig(s_range=2))
+    assert torch.isfinite(step((feats, flens, syms, slens))["loss"])
+    greedy_search(model, feats, flens, max_len=8)
+    modified_beam_search(model, feats, flens, beam=2, max_len=8)
     assert _all_launches() == before
     assert _build._lib is None
 
