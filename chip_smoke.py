@@ -49,7 +49,21 @@ after:
     greedy search, and modified RNN-T with greedy (one symbol a frame)
     and modified beam search: loss falls 20x, decoders reach 95%;
   * ``alignment``: ``viterbi_alignment`` of the headline lattice on the
-    card against its own result on the CPU.
+    card against its own result on the CPU;
+  * serving, at the full width of ``bench.py``'s streaming config
+    (``TransducerConfig(causal=True, attention_left_context=32)``, chunk
+    32, max_len 256, weights from ``Generator().manual_seed(0)``), each
+    run launching none of the port's kernels: ``stream-encoder`` (16
+    ragged streams encoded chunk by chunk against offline, float32 and
+    bf16 compute), ``serve`` (256 ragged streams through
+    ``StreamServer(capacity=128)``, greedy, tokens equal to the offline
+    ``greedy_search`` on the card or differing first at a near-tie of the
+    offline logits), ``serve-beam`` (32 streams, beam 4, against
+    ``modified_beam_search``), ``serve-converge`` (``model-converge``'s
+    modified arm built causal, served greedy and beam: tokens equal to
+    offline, accuracy 95%) and ``serve-time`` (the bf16 chunk step at
+    capacities 8, 32 and 128, greedy, and beam 4 at 128: step time, RTF,
+    streams at real time, launches, host reads, device busy).
 
 The occupancies of the ``calc_gradients`` calls come from the fused
 kernel, a diagonal sweep, and stage 2 (the scores op and its backward)
@@ -723,9 +737,10 @@ def rand_case(rng, Bc, Sc, Tc, modified, banded, offset, constrained=False):
 def profile_step(step, reps=10):
     """Device time of one step by kernel, from ``torch.profiler`` over
     ``reps`` back-to-back steps: rows (kernel name, us per step, calls per
-    step), largest first, and the device's busy share of the window from
-    the first kernel's start to the last one's end.  None where the
-    profiler saw no device activity."""
+    step), largest first, the device's busy share of the window from the
+    first kernel's start to the last one's end, and the host's reads of a
+    device scalar per step (``aten::_local_scalar_dense``: each waits for
+    the device).  None where the profiler saw no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -754,7 +769,8 @@ def profile_step(step, reps=10):
         us, n = per.get(e.name, (0.0, 0))
         per[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(((k, us / reps, n / reps) for k, (us, n) in per.items()), key=lambda r: -r[1])
-    return rows, busy / (spans[-1][1] - spans[0][0])
+    reads = sum(e.name == "aten::_local_scalar_dense" for e in prof.events()) / reps
+    return rows, busy / (spans[-1][1] - spans[0][0]), reads
 
 
 def step_samples(step, n=60):
@@ -906,7 +922,7 @@ def model_train_phase(dev, t, counted):
     prof = profile_step(lambda: step(batch))
     if prof is None:
         raise Failed("model-train: the profiler saw no device activity")
-    rows, busy = prof
+    rows, busy, _ = prof
     total = sum(r[1] for r in rows)
     loss_us = sum(r[1] for r in rows if any(k in r[0] for k in LOSS_KERNELS))
     phase("model-train", f"profile, torch.profiler, 10 steps: device busy {100 * busy:.1f}% of the device "
@@ -923,12 +939,23 @@ def model_train_phase(dev, t, counted):
 CONVERGE_V, CONVERGE_B, CONVERGE_S, CONVERGE_FPS = 16, 16, 6, 8
 
 
-def converge_arm(dev, rnnt_type, max_symbols_per_frame):
+def copy_accuracy(hyps, lens, syms):
+    """Share of the copy task's symbols decoded in place."""
+    hyps, lens = np.asarray(hyps), np.asarray(lens)
+    Bc, Sc = syms.shape
+    hits = sum(int((hyps[b, :min(int(lens[b]), Sc)] == syms[b, :min(int(lens[b]), Sc)]).sum())
+               for b in range(Bc))
+    return hits / (Bc * Sc)
+
+
+def converge_arm(dev, rnnt_type, max_symbols_per_frame, **cfg_kw):
     """bench.py's training_convergence on the port: a tiny conformer
-    transducer overfit on a synthetic copy task (each symbol painted into
-    8 feature frames), 300 AdamW(3e-3) steps, then greedy search and
-    modified beam search (beam 4) on the trained batch.  Returns (first
-    loss, best of the last 10, greedy accuracy, beam accuracy, seconds)."""
+    transducer (``cfg_kw`` updates its config) overfit on a synthetic copy
+    task (each symbol painted into 8 feature frames), 300 AdamW(3e-3)
+    steps, then greedy search and modified beam search (beam 4) on the
+    trained batch.  Returns (first loss, best of the last 10, greedy
+    accuracy, beam accuracy, seconds, the model, (features, lengths,
+    symbols))."""
     import torch
 
     from fast_rnnt_tpu_torch.models import (
@@ -945,7 +972,7 @@ def converge_arm(dev, rnnt_type, max_symbols_per_frame):
     symbols = torch.tensor(syms, device=dev)
     slens = torch.full((Bc,), Sc, dtype=torch.int32, device=dev)
     cfg = TransducerConfig(vocab_size=V, feature_dim=V, d_model=64, d_joiner=64, num_layers=2,
-                           num_heads=2, conv_kernel=7, dtype=torch.float32)
+                           num_heads=2, conv_kernel=7, dtype=torch.float32, **cfg_kw)
     model = init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     opt = torch.optim.AdamW(model.parameters(), lr=3e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
     step = make_train_step(model, opt, LossConfig(s_range=4, rnnt_type=rnnt_type))
@@ -955,16 +982,11 @@ def converge_arm(dev, rnnt_type, max_symbols_per_frame):
     if not np.isfinite(losses).all():
         raise Failed(f"model-converge ({rnnt_type}): non-finite loss")
 
-    def accuracy(hyps, lens):
-        hyps, lens = hyps.cpu().numpy(), lens.cpu().numpy()
-        hits = sum(int((hyps[b, :min(int(lens[b]), Sc)] == syms[b, :min(int(lens[b]), Sc)]).sum())
-                   for b in range(Bc))
-        return hits / (Bc * Sc)
-
-    greedy = accuracy(*greedy_search(model, feats, flens, max_symbols_per_frame=max_symbols_per_frame,
-                                     max_len=Sc + 2))
-    beam = accuracy(*modified_beam_search(model, feats, flens, beam=4, max_len=Sc + 2))
-    return float(losses[0]), float(losses[-10:].min()), greedy, beam, wall
+    greedy = copy_accuracy(*(x.cpu() for x in greedy_search(
+        model, feats, flens, max_symbols_per_frame=max_symbols_per_frame, max_len=Sc + 2)), syms)
+    beam = copy_accuracy(*(x.cpu() for x in modified_beam_search(model, feats, flens, beam=4,
+                                                                  max_len=Sc + 2)), syms)
+    return float(losses[0]), float(losses[-10:].min()), greedy, beam, wall, model, (feats, flens, syms)
 
 
 def model_converge_phase(dev):
@@ -976,7 +998,7 @@ def model_converge_phase(dev):
     per frame, the JAX package's note at decoding.py:336-338): loss 20x,
     greedy (one symbol per frame) and beam both 95%."""
     for rnnt_type, cap, held in (("regular", 4, ("greedy",)), ("modified", 1, ("greedy", "beam"))):
-        first, last, greedy, beam, wall = converge_arm(dev, rnnt_type, cap)
+        first, last, greedy, beam, wall = converge_arm(dev, rnnt_type, cap)[:5]
         drop = first / max(last, 1e-9)
         acc = {"greedy": greedy, "beam": beam}
         if drop < 20.0 or any(acc[k] < 0.95 for k in held):
@@ -1040,6 +1062,422 @@ def alignment_phase(dev, lm, am, sym, bnd):
           f"({card_s * 1e3:.1f} ms, first call) against the CPU: scores rel err {rel:.3e} (tol 1e-5); "
           f"emission frames equal on {B - len(differ)} of {B} utterances, the rest near-ties (path score "
           f"gap {gap:.3e}, tol 1e-4)")
+
+
+# --- serving: the causal model streamed, and through StreamServer ------------
+
+# bench.py:339-360 (streaming_bench): TransducerConfig(causal=True,
+# attention_left_context=32) at full width, StreamingConfig(chunk=32,
+# max_len=256), capacities 8, 32 and 128, beam 4 at 128
+SERVE_CHUNK, SERVE_MAX_LEN, SERVE_LEFT = 32, 256, 32
+SERVE_STREAMS, SERVE_CAPACITY, SERVE_BEAM_STREAMS = 256, 128, 32
+SERVE_TIME = ((8, 0), (32, 0), (128, 0), (128, 4))  # (capacity, beam)
+# streamed against offline encoder rows, in units of max |am|: float32 with
+# TF32 off; bf16 compute, from the measured round-off (8.6e-3 on an H100:
+# cuBLAS reduces keys of L + n = 40 frames and of T frames in other orders,
+# and a bf16 step at the rows' top is 3.6e-3 of max |am|) with a margin
+ENC_F32_TOL = 1e-5
+ENC_BF16_TOL = 2e-2
+# a stream whose served tokens differ from offline passes only at a near-tie
+# of the offline logits: 1e-4 in float32, 2 bf16 steps of the winning logit
+GAP_F32 = 1e-4
+GAP_BF16_ULPS = 2
+
+
+def serve_models(dev):
+    """The bench's causal model from ``Generator().manual_seed(0)``, in bf16
+    compute (``TransducerConfig``'s) and, over the same float32 parameters,
+    in float32 compute."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import PrunedTransducer, TransducerConfig, init_model
+
+    cfg = TransducerConfig(causal=True, attention_left_context=SERVE_LEFT)
+    bf16 = init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    f32 = PrunedTransducer(TransducerConfig(causal=True, attention_left_context=SERVE_LEFT,
+                                            dtype=torch.float32)).to(dev)
+    f32.load_state_dict(bf16.state_dict(), strict=True)
+    return {"float32": f32, "bf16": bf16}
+
+
+def serve_streams(n, feature_dim, seed=0):
+    """``n`` utterances of 200 to 1,000 input frames (10 ms each) of
+    normal features, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(200, 1001, size=n)
+    return [rng.normal(size=(int(L), feature_dim)).astype(np.float32) for L in lengths]
+
+
+def padded(utts, dev, multiple=1):
+    """Zero-padded (B, T, F) features on ``dev`` (T a multiple of
+    ``multiple``) and (B,) int32 lengths."""
+    import torch
+
+    T = -(-max(len(u) for u in utts) // multiple) * multiple
+    feats = np.zeros((len(utts), T, utts[0].shape[1]), np.float32)
+    for i, u in enumerate(utts):
+        feats[i, : len(u)] = u
+    return (torch.tensor(feats, device=dev),
+            torch.tensor([len(u) for u in utts], dtype=torch.int32, device=dev))
+
+
+def bf16_ulp(x):
+    """One bf16 step at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(float(x)), 2.0**-126))) - 7)
+
+
+def stream_encoder_phase(dev, models, counted):
+    """16 ragged streams encoded chunk by chunk (``encode_stream``, the
+    carried state) and offline by the same causal model: the streamed am
+    rows of every real frame against the offline rows, in float32 compute
+    (TF32 off) to ENC_F32_TOL of max |am| and in bf16 compute to
+    ENC_BF16_TOL.  The path launches none of the port's kernels."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import encoder_stream_state
+
+    cfg = models["bf16"].cfg
+    utts = serve_streams(16, cfg.feature_dim)
+    feats, flens = padded(utts, dev, SERVE_CHUNK)
+    report = []
+    for name, model in models.items():
+        def run():
+            with torch.no_grad():
+                st = encoder_stream_state(model.cfg, feats.shape[0], dev)
+                rows = []
+                for i in range(feats.shape[1] // SERVE_CHUNK):
+                    am, st = model.encode_stream(feats[:, i * SERVE_CHUNK:(i + 1) * SERVE_CHUNK], st)
+                    rows.append(am)
+                return torch.cat(rows, dim=1)
+
+        streamed, _, first_ms, _, _ = counted(run, f"stream-encoder ({name})", {})
+        with torch.no_grad():
+            enc, out_lens = model.encoder(feats, flens)
+            offline = model.am_proj(enc)
+        real = torch.arange(offline.shape[1], device=dev)[None, :] < out_lens[:, None]
+        if not bool(torch.isfinite(streamed[:, :offline.shape[1]][real]).all()):
+            raise Failed(f"stream-encoder ({name}): non-finite streamed rows")
+        d = (streamed[:, :offline.shape[1]] - offline).abs()[real]
+        scale = offline.abs()[real].max().item()
+        err = d.max().item() / scale
+        tol = ENC_F32_TOL if name == "float32" else ENC_BF16_TOL
+        share = (d > 0).float().mean().item()
+        if not err <= tol:
+            raise Failed(f"stream-encoder ({name}): streamed am rows {err:.3e} of max |am| from "
+                         f"offline (tol {tol})")
+        report.append(f"{name} compute: max abs err {d.max().item():.3e} ({err:.3e} of max |am| "
+                      f"{scale:.3f}, tol {tol}), {100 * share:.1f}% of entries differ, mean abs err "
+                      f"{d.mean().item():.3e}; {first_ms:.1f} ms for {feats.shape[1] // SERVE_CHUNK} "
+                      f"chunks")
+    phase("stream-encoder", f"TransducerConfig(causal=True, attention_left_context={SERVE_LEFT}) "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}), weights from Generator().manual_seed(0); "
+          f"16 streams of {min(map(len, utts))}-{max(map(len, utts))} input frames (default_rng(0)), "
+          f"chunk {SERVE_CHUNK}, streamed against offline am rows of every real frame; launches of "
+          f"the port's kernels 0: " + "; ".join(report))
+
+
+def greedy_replay(logits, n_frames, T, served, max_len, max_sym, blank):
+    """Replay ``greedy_over_frames`` for one stream from the logits its
+    offline run recorded at every trip ((trips, C), numpy): returns the
+    offline tokens it decides and the gap at the first decision where the
+    served tokens can have left them.
+
+    A decision is a trip on a real frame with room to emit.  The served
+    tokens equal the offline ones up to the first differing decision, so
+    that decision is one of: an offline emission that the served tokens do
+    not have next (served chose its next token or blank), an offline
+    blank (served emitted its next token), or an offline emission that the
+    served tokens match later (served chose blank).  The gap is the least,
+    over every decision up to the first mismatch, of the offline winner's
+    logit less the logit of the served alternative: it is no more than
+    the gap at the first differing decision and no less than that trip's
+    top-2 gap."""
+    t = cnt = n = 0
+    toks, gaps, mismatch = [], [], False
+    for L in logits:
+        if t >= T:
+            break
+        sym = int(np.argmax(L))
+        decision = t < n_frames and len(toks) < max_len and cnt < max_sym
+        take = decision and sym != blank
+        if decision and not mismatch:
+            nxt = served[n] if n < len(served) else None
+            if take and nxt == sym:
+                n += 1
+                gaps.append((L[sym] - L[blank], L[sym]))
+            elif take:
+                alt = L[blank] if nxt is None else max(L[nxt], L[blank])
+                gaps.append((L[sym] - alt, L[sym]))
+                mismatch = True
+            elif nxt is not None:
+                gaps.append((L[blank] - L[nxt], L[blank]))
+        if take:
+            toks.append(sym)
+            cnt += 1
+        else:
+            t, cnt = t + 1, 0
+    return toks, (min(gaps) if gaps else (np.inf, 0.0))
+
+
+def served_vs_offline(name, served, off_hyps, off_lens, near_tie):
+    """Every stream's served tokens against its offline ones: the streams
+    that differ, each passed by ``near_tie(b)`` (a gap within its bound) or
+    failing the run.  Returns (equal streams, near-tie streams, largest
+    near-tie gap)."""
+    equal, ties, worst_gap = 0, [], 0.0
+    for b in range(len(off_lens)):
+        want = off_hyps[b, : off_lens[b]]
+        if np.array_equal(served[b], want):
+            equal += 1
+            continue
+        ok, gap, what = near_tie(b)
+        if not ok:
+            raise Failed(f"{name}: stream {b} differs from offline ({len(served[b])} against "
+                         f"{len(want)} tokens) and is no near-tie: {what}")
+        ties.append(b)
+        worst_gap = max(worst_gap, gap)
+    return equal, ties, worst_gap
+
+
+def serve_phase(dev, models, counted):
+    """SERVE_STREAMS ragged streams through ``StreamServer(capacity=
+    SERVE_CAPACITY)`` with slot churn, greedy, in float32 compute (TF32 off)
+    and in bf16 compute: every stream's tokens equal the port's offline
+    ``greedy_search`` on the card, or differ first at a near-tie of the
+    offline logits (``greedy_replay``).  Returns the bf16 run's (audio
+    seconds per second, peak MiB)."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import StreamServer, StreamingConfig, greedy_search
+
+    cfg = models["bf16"].cfg
+    utts = serve_streams(SERVE_STREAMS, cfg.feature_dim)
+    audio_s = sum(len(u) for u in utts) * 0.01
+    feats, flens = padded(utts, dev)
+    scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=SERVE_MAX_LEN)
+    stats = {}
+    for name, model in models.items():
+        server = StreamServer(model, scfg, SERVE_CAPACITY)
+        for i, u in enumerate(utts):
+            server.submit(i, u)
+        steps = [0]
+
+        def run():
+            out = {}
+            while not server.idle:
+                out.update(server.step())
+                steps[0] += 1
+            return out
+
+        got, _, wall_ms, peak, base = counted(run, f"serve ({name})", {})
+        if set(got) != set(range(SERVE_STREAMS)):
+            raise Failed(f"serve ({name}): {SERVE_STREAMS - len(got)} streams never finished")
+        if any(len(v) and (v.min() < 1 or v.max() >= cfg.vocab_size) for v in got.values()):
+            raise Failed(f"serve ({name}): a token outside [1, {cfg.vocab_size})")
+        stats[name] = (audio_s / (wall_ms / 1e3), peak, wall_ms, steps[0])
+
+        # offline on the card, the joiner's logits of every trip recorded
+        trips = []
+
+        def join(a, l, real=model.join):
+            out = real(a, l)
+            trips.append(out[:, 0, 0, :])
+            return out
+
+        model.join = join
+        try:
+            off_h, off_l = greedy_search(model, feats, flens, max_len=SERVE_MAX_LEN)
+        finally:
+            del model.join
+        off_h, off_l = off_h.cpu().numpy(), off_l.cpu().numpy()
+        n_frames = ((flens + 3) // 4).cpu().numpy()
+        T = int(n_frames.max())
+
+        stacked = []
+
+        def near_tie(b):
+            if not stacked:
+                stacked.append(torch.stack(trips, dim=1))  # (B, trips, C)
+            logits = stacked[0][b].cpu().numpy()
+            toks, (gap, win) = greedy_replay(logits, n_frames[b], T, list(got[b]), SERVE_MAX_LEN,
+                                             scfg.max_symbols_per_frame, cfg.blank_id)
+            if toks != list(off_h[b, : off_l[b]]):
+                raise Failed(f"serve ({name}): the replay of stream {b} does not give its offline tokens")
+            bound = GAP_F32 if name == "float32" else GAP_BF16_ULPS * bf16_ulp(win)
+            return gap <= bound, gap, f"offline logit gap {gap:.3e} at the first differing decision " \
+                                      f"(bound {bound:.3e})"
+
+        equal, ties, gap = served_vs_offline(f"serve ({name})", got, off_h, off_l, near_tie)
+        del trips, stacked
+        tokens = int(off_l.sum())
+        phase("serve", f"{name} compute: {SERVE_STREAMS} streams of {min(map(len, utts))}-"
+              f"{max(map(len, utts))} input frames (default_rng(0), {audio_s:.1f} audio-seconds) "
+              f"through StreamServer(capacity={SERVE_CAPACITY}, chunk={SERVE_CHUNK}, max_len="
+              f"{SERVE_MAX_LEN}), greedy, in {steps[0]} steps and {wall_ms:.1f} ms "
+              f"({stats[name][0]:.1f} audio-seconds/s, peak {peak:.1f} MiB, {base:.1f} MiB before); "
+              f"launches of the port's kernels 0; tokens equal to the offline greedy_search on the "
+              f"card on {equal} of {SERVE_STREAMS} streams ({tokens} offline tokens), near-ties "
+              f"{len(ties)} (largest gap {gap:.3e}; bound "
+              f"{'%g' % GAP_F32 if name == 'float32' else '%d bf16 steps of the winning logit' % GAP_BF16_ULPS})"
+              + (f": streams {ties[:16]}" if ties else ""))
+    return stats["bf16"]
+
+
+class SortTap:
+    """Stands in for ``torch`` in the decoding module and keeps the top
+    ``keep`` scores of every sort (the beam's ranked candidates)."""
+
+    def __init__(self, keep):
+        import torch
+
+        self._torch, self.keep, self.rows = torch, keep, []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def sort(self, x, *args, **kw):
+        out = self._torch.sort(x, *args, **kw)
+        self.rows.append(out[0][:, : self.keep])
+        return out
+
+
+def serve_beam_phase(dev, model, counted):
+    """SERVE_BEAM_STREAMS ragged streams through ``StreamServer(capacity=
+    SERVE_BEAM_STREAMS)`` with ``beam=4``, float32 compute: every stream's
+    tokens equal the port's offline ``modified_beam_search`` on the card,
+    or the offline beam of that stream has a near-tie (GAP_F32) between
+    neighbouring ranks of its top beam+1 candidates at some frame, or
+    between its final best two scores."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import StreamServer, StreamingConfig, decoding
+
+    H = 4
+    cfg = model.cfg
+    utts = serve_streams(SERVE_BEAM_STREAMS, cfg.feature_dim)
+    feats, flens = padded(utts, dev)
+    server = StreamServer(model, StreamingConfig(chunk=SERVE_CHUNK, max_len=SERVE_MAX_LEN, beam=H),
+                          SERVE_BEAM_STREAMS)
+    for i, u in enumerate(utts):
+        server.submit(i, u)
+    got, _, wall_ms, peak, _ = counted(server.run, "serve-beam", {})
+    if set(got) != set(range(SERVE_BEAM_STREAMS)):
+        raise Failed("serve-beam: a stream never finished")
+
+    tap, finals = SortTap(H + 1), []
+
+    def best(scores, hyps, lens, real=decoding.beam_best):
+        finals.append(scores.sort(dim=1, descending=True)[0][:, :2])
+        return real(scores, hyps, lens)
+
+    with patched(decoding, torch=tap, beam_best=best):
+        off_h, off_l = decoding.modified_beam_search(model, feats, flens, beam=H, max_len=SERVE_MAX_LEN)
+    off_h, off_l = off_h.cpu().numpy(), off_l.cpu().numpy()
+
+    ranked = torch.stack(tap.rows, dim=1).cpu().numpy()  # (B, frames, H + 1)
+    final_gap = (finals[0][:, 0] - finals[0][:, 1]).cpu().numpy()
+
+    def near_tie(b):
+        gaps = np.append((ranked[b, :, :-1] - ranked[b, :, 1:]).ravel(), final_gap[b])
+        gap = float(np.min(gaps[np.isfinite(gaps)]))
+        return gap <= GAP_F32, gap, f"least offline gap between neighbouring ranks {gap:.3e}"
+
+    equal, ties, gap = served_vs_offline("serve-beam", got, off_h, off_l, near_tie)
+    phase("serve-beam", f"float32 compute: {SERVE_BEAM_STREAMS} streams of {min(map(len, utts))}-"
+          f"{max(map(len, utts))} input frames through StreamServer(capacity={SERVE_BEAM_STREAMS}, "
+          f"chunk={SERVE_CHUNK}, beam={H}) in {wall_ms:.1f} ms (peak {peak:.1f} MiB); launches of the "
+          f"port's kernels 0; tokens equal to the offline modified_beam_search on the card on {equal} "
+          f"of {SERVE_BEAM_STREAMS} streams ({int(off_l.sum())} offline tokens), near-ties {len(ties)} "
+          f"(largest gap {gap:.3e}, bound {GAP_F32})")
+
+
+def serve_converge_phase(dev, counted):
+    """``model-converge``'s modified arm built causal with
+    ``attention_left_context=8``, its trained batch decoded through
+    ``StreamServer(capacity=4)``, greedy (one symbol a frame) and beam 4:
+    tokens equal to offline exactly (a trained model has no near-ties to
+    excuse) and accuracy >= 0.95."""
+    from fast_rnnt_tpu_torch.models import (
+        StreamServer, StreamingConfig, greedy_search, modified_beam_search,
+    )
+
+    first, last, _, _, wall, model, (feats, flens, syms) = converge_arm(
+        dev, "modified", 1, causal=True, attention_left_context=8)
+    Sc = syms.shape[1]
+    f_np = feats.cpu().numpy()
+    acc = {}
+    for name, beam in (("greedy", 0), ("beam", 4)):
+        scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=Sc + 2, beam=beam, max_symbols_per_frame=1)
+        server = StreamServer(model, scfg, capacity=4)
+        for b in range(len(f_np)):
+            server.submit(b, f_np[b])
+        got, _, _, _, _ = counted(server.run, f"serve-converge ({name})", {})
+        if beam:
+            off_h, off_l = modified_beam_search(model, feats, flens, beam=4, max_len=Sc + 2)
+        else:
+            off_h, off_l = greedy_search(model, feats, flens, max_symbols_per_frame=1, max_len=Sc + 2)
+        off_h, off_l = off_h.cpu().numpy(), off_l.cpu().numpy()
+        differ = [b for b in range(len(f_np)) if not np.array_equal(got[b], off_h[b, : off_l[b]])]
+        if differ:
+            raise Failed(f"serve-converge ({name}): served tokens differ from offline on streams {differ}")
+        hyps = np.zeros((len(f_np), Sc + 2), np.int32)
+        lens = np.array([len(got[b]) for b in range(len(f_np))])
+        for b in range(len(f_np)):
+            hyps[b, : lens[b]] = got[b]
+        acc[name] = copy_accuracy(hyps, lens, syms)
+    drop = first / max(last, 1e-9)
+    if min(acc.values()) < 0.95:
+        raise Failed(f"serve-converge: served accuracy {acc} (need 0.95)")
+    phase("serve-converge", f"model-converge's modified arm built causal (attention_left_context=8): "
+          f"300 steps in {wall:.1f} s, loss {first:.2f} -> {last:.4f} ({drop:.1f}x); {len(f_np)} "
+          f"streams through StreamServer(capacity=4, chunk={SERVE_CHUNK}): tokens equal to offline on "
+          f"all streams, greedy (one symbol a frame) and beam 4; accuracy greedy {acc['greedy']:.4f}, "
+          f"beam {acc['beam']:.4f} (need 0.95)")
+
+
+def serve_time_phase(dev, model, run_stats):
+    """The chunk step (``streaming_step``, bf16 compute, the bench's
+    config) at each SERVE_TIME capacity: CUDA events, the median of 10
+    single steps after a warm-up, each step from the same state (4 chunks
+    in, so the attention window is full); launches, host reads and device
+    busy per step from ``torch.profiler`` over 3 steps."""
+    import torch
+
+    from fast_rnnt_tpu_torch.models import StreamingConfig, streaming_init, streaming_step
+
+    chunk_s = SERVE_CHUNK * 0.01
+    rows = []
+    for cap, beam in SERVE_TIME:
+        scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=SERVE_MAX_LEN, beam=beam)
+        rng = np.random.default_rng(0)
+        feats = torch.tensor(rng.normal(size=(cap, SERVE_CHUNK, model.cfg.feature_dim))
+                             .astype(np.float32), device=dev)
+        lens = torch.full((cap,), SERVE_CHUNK, dtype=torch.int32, device=dev)
+        state = streaming_init(model, scfg, cap)
+        for _ in range(4):
+            state, _ = streaming_step(model, scfg, state, feats, lens)
+
+        def step():
+            return streaming_step(model, scfg, state, feats, lens)
+
+        ms = cuda_ms(step, reps=REPS, inner=1)
+        prof = profile_step(step, reps=3)  # ~3,700 launches a step: the profiler's events are slow
+        if prof is None:
+            raise Failed(f"serve-time: the profiler saw no device activity at capacity {cap}")
+        prows, busy, reads = prof
+        kernel_us = sum(r[1] for r in prows)
+        rows.append(f"capacity {cap} {'beam ' + str(beam) if beam else 'greedy'}: {1e3 * ms:.1f} us a "
+                    f"chunk step (RTF {ms / 1e3 / chunk_s:.4f}, {int(cap * chunk_s / (ms / 1e3))} "
+                    f"streams at real time), {sum(r[2] for r in prows):.0f} launches and {reads:.0f} "
+                    f"host reads a step, {kernel_us:.1f} us of kernels, device busy {100 * busy:.1f}%")
+    audio_per_s, peak, wall_ms, steps = run_stats
+    phase("serve-time", f"bf16 compute, chunk {SERVE_CHUNK} ({1e3 * chunk_s:.0f} ms of audio), "
+          f"max_len {SERVE_MAX_LEN}, random weights (greedy emits the cap of 4 symbols on nearly every "
+          f"frame: up to 40 trips a step); median of {REPS} single steps (CUDA events), launches, host "
+          f"reads and device busy from torch.profiler over 3 steps: " + "; ".join(rows)
+          + f"; the {SERVE_STREAMS}-stream bf16 serve run: {audio_per_s:.1f} audio-seconds/s "
+          f"({steps} steps in {wall_ms:.1f} ms), peak {peak:.1f} MiB")
+
 
 def headline_kernels(am, lm, sym, bnd):
     """Each kernel against its plain version at the main path's shapes, with
@@ -2003,6 +2441,15 @@ def main():
     model_converge_phase(dev)
     alignment_phase(dev, lm, am, sym, bnd)
 
+    # serving: the causal model at full width streamed, served and timed
+    models = serve_models(dev)
+    stream_encoder_phase(dev, models, counted)
+    run_stats = serve_phase(dev, models, counted)
+    serve_beam_phase(dev, models["float32"], counted)
+    serve_converge_phase(dev, counted)
+    serve_time_phase(dev, models["bf16"], run_stats)
+    del models
+
     # --- 5. where the steps' time goes (measurements) ----------------------
     for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
                      ("train-bf16", train_step_bf16),
@@ -2011,7 +2458,7 @@ def main():
         prof = profile_step(fn)
         if prof is None:
             raise Failed(f"profile of the {name} step: the profiler saw no device activity")
-        rows, busy = prof
+        rows, busy, _ = prof
         total = sum(r[1] for r in rows)
         in_ranges = [r for r in rows if "ranges_" in r[0]]
         phase("profile", f"{name} step, torch.profiler, 10 steps: device busy {100 * busy:.1f}% "

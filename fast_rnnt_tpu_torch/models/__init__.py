@@ -1,5 +1,13 @@
 from .decoding import greedy_over_frames, greedy_search, modified_beam_search
 from .metrics import edit_distance, token_error_rate
+from .serving import StreamServer
+from .streaming import (
+    StreamingConfig,
+    encoder_stream_state,
+    streaming_init,
+    streaming_reset,
+    streaming_step,
+)
 from .training import (
     LossConfig,
     init_model,
@@ -21,8 +29,11 @@ __all__ = [
     "LossConfig",
     "Predictor",
     "PrunedTransducer",
+    "StreamServer",
+    "StreamingConfig",
     "TransducerConfig",
     "edit_distance",
+    "encoder_stream_state",
     "greedy_over_frames",
     "greedy_search",
     "init_model",
@@ -30,5 +41,8 @@ __all__ = [
     "make_train_step",
     "modified_beam_search",
     "pruned_transducer_loss",
+    "streaming_init",
+    "streaming_reset",
+    "streaming_step",
     "token_error_rate",
 ]

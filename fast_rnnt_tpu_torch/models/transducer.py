@@ -21,9 +21,17 @@ outputs:
     by sqrt(head_dim) in the compute dtype, masked logits set to the
     dtype's finfo.min, the softmax in the compute dtype.
 
+Streaming (``causal=True`` with a bounded ``attention_left_context``):
+:class:`ConvModule`, :class:`ConformerBlock` and :class:`Encoder` pair
+their offline ``forward`` with a ``step`` over the same parameters, which
+takes one chunk and the carried per-layer state (the subsampling convs'
+input tails, each block's attention window and depthwise-conv tail) and
+gives the offline rows of the same frames; models/streaming.py drives it.
+The port keeps the subsampling tails NCHW, ``(B, C, 2, F)``, where the
+JAX package keeps them NHWC.
+
 The dense products and convolutions are plain PyTorch ops: the JAX package
-computes them in XLA, outside any Pallas kernel.  The streaming ``step``
-methods are not ported yet.
+computes them in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -162,14 +170,28 @@ class ConvModule(nn.Module):
         self.ln_out = LayerNorm(d, cfg.dtype)
         self.pw_out = Dense(d, d, cfg.dtype)
 
+    def _pre(self, x: torch.Tensor) -> torch.Tensor:
+        return F.glu(self.pw_in(self.ln_in(x)), dim=-1)
+
+    def _post(self, g: torch.Tensor, pads: Tuple[int, int]) -> torch.Tensor:
+        """The depthwise conv of (B, T, d) ``g`` padded by ``pads`` on the
+        time axis, then the output half."""
+        g = _conv(self.dw, F.pad(g.transpose(1, 2), pads), self.cfg.dtype).transpose(1, 2)
+        return self.pw_out(F.silu(self.ln_out(g)))
+
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         k = self.cfg.conv_kernel
-        g = F.glu(self.pw_in(self.ln_in(x)), dim=-1)
         # zero padded frames so the depthwise conv cannot leak across padding
-        g = torch.where(pad_mask[:, :, None], g, 0.0).transpose(1, 2)  # (B, d, T)
-        pads = (k - 1, 0) if self.cfg.causal else _same_pads(g.shape[2], k, 1)
-        g = _conv(self.dw, F.pad(g, pads), self.cfg.dtype).transpose(1, 2)
-        return self.pw_out(F.silu(self.ln_out(g)))
+        g = torch.where(pad_mask[:, :, None], self._pre(x), 0.0)
+        pads = (k - 1, 0) if self.cfg.causal else _same_pads(g.shape[1], k, 1)
+        return self._post(g, pads)
+
+    def step(self, x_new: torch.Tensor, tail: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One streaming chunk: ``tail`` is the (B, k-1, d) post-GLU rows of
+        the previous k-1 frames (zeros at stream start, the offline causal
+        zero pad).  Returns (out, new tail)."""
+        gw = torch.cat([tail, self._pre(x_new)], dim=1)
+        return self._post(gw, (0, 0)), gw[:, x_new.shape[1]:]
 
 
 class ConformerBlock(nn.Module):
@@ -202,6 +224,39 @@ class ConformerBlock(nn.Module):
         x = x + 0.5 * self.ff2(x)
         return self.ln_out(x)
 
+    def step(self, x_new: torch.Tensor, att_cache: torch.Tensor, conv_tail: torch.Tensor,
+             seen: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One streaming chunk over the same parameters as ``forward``.
+
+        Args:
+          x_new: (B, n, d) the chunk's n new encoder frames.
+          att_cache: (B, L, d) the previous L attention inputs (post
+            ``ln_attn``), the key/value window; L = attention_left_context.
+          conv_tail: (B, k-1, d) the conv module's post-GLU tail.
+          seen: int, (B,) or () tensor: encoder frames each stream has
+            consumed; slots may sit at different positions.
+
+        Returns (out (B, n, d), new att_cache, new conv_tail).
+        """
+        L = self.cfg.attention_left_context
+        n = x_new.shape[1]
+        dev = x_new.device
+        x = x_new + 0.5 * self.ff1(x_new)
+        y = self.ln_attn(x)
+        window = torch.cat([att_cache, y], dim=1)  # (B, L+n, d)
+        # cache slot i holds absolute frame seen - L + i and query j is frame
+        # seen + j: the window [q - L, q] is i in [j, j + L], and a slot is
+        # live (absolute frame >= 0) where i >= L - min(seen, L)
+        j = torch.arange(n, device=dev)[:, None]
+        i = torch.arange(L + n, device=dev)[None, :]
+        lo = (L - torch.as_tensor(seen, device=dev).clamp(max=L)).reshape(-1, 1, 1)
+        mask = ((i >= j) & (i <= j + L))[None] & (i[None] >= lo)  # (B or 1, n, L+n)
+        x = x + self.attn(y, window, mask[:, None])
+        c_out, new_tail = self.conv.step(x, conv_tail)
+        x = x + c_out
+        x = x + 0.5 * self.ff2(x)
+        return self.ln_out(x), window[:, n:], new_tail
+
 
 class Encoder(nn.Module):
     """Conv subsampling (stride 4) + conformer stack: (B, T_in, feature_dim)
@@ -217,22 +272,28 @@ class Encoder(nn.Module):
         self.proj = Dense(f4 * c2, cfg.d_model, cfg.dtype)
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for _ in range(cfg.num_layers))
 
-    def _subsample(self, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """One stride-2 3x3 conv + relu over NCHW (B, C, T, F)."""
+    def _subsample(self, conv: nn.Module, x: torch.Tensor, time_pad: int = 2) -> torch.Tensor:
+        """One stride-2 3x3 conv + relu over NCHW (B, C, T, F).  Causal, the
+        frequency axis pads (1, 1) and the time axis ``time_pad`` zero
+        frames on the left, so each output frame depends on past input
+        frames only: 2 offline, 0 when streaming, where the carried tail
+        of 2 real frames stands ahead of ``x``."""
         if self.cfg.causal:
-            # frequency pads (1, 1); time left-pads 2, so each output frame
-            # depends on past input frames only
-            pads = (1, 1, 2, 0)
+            pads = (1, 1, time_pad, 0)
         else:
             pads = (*_same_pads(x.shape[3], 3, 2), *_same_pads(x.shape[2], 3, 2))
         return F.relu(_conv(conv, F.pad(x, pads), self.cfg.dtype))
 
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """The NHWC flatten of (B, C2, T, F4), frequency-major and
+        channel-minor, then ``proj``: (B, T, d_model)."""
+        B, C2, T, F4 = x.shape
+        return self.proj(x.permute(0, 2, 3, 1).reshape(B, T, F4 * C2))
+
     def forward(self, features: torch.Tensor, feature_lens: torch.Tensor):
         x = features.to(self.cfg.dtype)[:, None]  # (B, 1, T_in, F)
-        x = self._subsample(self.sub2, self._subsample(self.sub1, x))
-        B, C2, T, F4 = x.shape
-        # the NHWC flatten: frequency-major, channel-minor
-        x = self.proj(x.permute(0, 2, 3, 1).reshape(B, T, F4 * C2))
+        x = self._project(self._subsample(self.sub2, self._subsample(self.sub1, x)))
+        T = x.shape[1]
         # SAME-padded stride-2 convs give ceil(L/2) frames each
         out_lens = (feature_lens + 3) // 4
         pad_mask = torch.arange(T, device=x.device)[None, :] < out_lens[:, None]
@@ -240,6 +301,34 @@ class Encoder(nn.Module):
             x = blk(x, pad_mask)
         x = torch.where(pad_mask[:, :, None], x, 0.0)
         return x.float(), out_lens
+
+    def step(self, chunk: torch.Tensor, state: dict) -> Tuple[torch.Tensor, dict]:
+        """Encode one chunk of (B, C_in, F) input frames (C_in % 4 == 0)
+        with carried state: ((B, C_in // 4, d_model) float32, new state).
+        The rows are the offline ``forward`` rows of the same absolute
+        frames; the state is :func:`models.streaming.encoder_stream_state`'s
+        layout."""
+        cfg = self.cfg
+        if not cfg.causal or cfg.attention_left_context is None:
+            raise ValueError("Encoder.step needs causal=True and a bounded attention_left_context")
+        xin = chunk.to(cfg.dtype)[:, None]  # (B, 1, C_in, F)
+        mid = self._subsample(self.sub1, torch.cat([state["in_tail"], xin], dim=2), time_pad=0)
+        x = self._project(self._subsample(self.sub2, torch.cat([state["mid_tail"], mid], dim=2),
+                                          time_pad=0))
+        seen = state["seen"]
+        att, conv = [], []
+        for blk, a, c in zip(self.blocks, state["att"], state["conv"]):
+            x, a, c = blk.step(x, a, c, seen)
+            att.append(a)
+            conv.append(c)
+        new_state = {
+            "in_tail": xin[:, :, -2:],
+            "mid_tail": mid[:, :, -2:],
+            "att": att,
+            "conv": conv,
+            "seen": seen + x.shape[1],
+        }
+        return x.float(), new_state
 
 
 class Predictor(nn.Module):
@@ -317,3 +406,8 @@ class PrunedTransducer(nn.Module):
 
     def join(self, am_pruned: torch.Tensor, lm_pruned: torch.Tensor) -> torch.Tensor:
         return self.joiner(am_pruned, lm_pruned)
+
+    def encode_stream(self, chunk: torch.Tensor, enc_state: dict) -> Tuple[torch.Tensor, dict]:
+        """Streaming stage 1 for one chunk: (am rows, new encoder state)."""
+        enc, new_state = self.encoder.step(chunk, enc_state)
+        return self.am_proj(enc), new_state

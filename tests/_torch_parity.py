@@ -183,3 +183,39 @@ RANGES_EDGES = [
 def ranges_edge_id(case):
     B, S, T, K, modified, te = case
     return f"B{B}-S{S}-T{T}-K{K}-{'mod' if modified else 'reg'}-te{te}"
+
+
+# the JAX streaming and serving tests' tiny causal model, float32
+# (tests/test_streaming.py:26-33)
+STREAM_TINY = dict(vocab_size=12, feature_dim=6, d_model=16, d_joiner=16, num_layers=2,
+                   num_heads=2, conv_kernel=7, causal=True, attention_left_context=4)
+
+
+def causal_models(seed, **kw):
+    """The JAX package's tiny causal model from ``PRNGKey(seed)`` (STREAM_TINY
+    updated by ``kw``) and the port's copy, its params carried across by
+    ``params_from_flax`` and loaded strictly: (jax model, params, port model)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fast_rnnt_tpu.models import TransducerConfig as JConfig
+    from fast_rnnt_tpu.models import init_model as jinit_model
+    from fast_rnnt_tpu_torch.models import PrunedTransducer, TransducerConfig
+    from fast_rnnt_tpu_torch.utils import params_from_flax
+
+    cfg = {**STREAM_TINY, **kw}
+    jm, jp = jinit_model(jax.random.PRNGKey(seed), JConfig(dtype=jnp.float32, **cfg))
+    jp = jax.device_get(jp)
+    model = PrunedTransducer(TransducerConfig(dtype=torch.float32, **cfg))
+    model.load_state_dict(params_from_flax(jp), strict=True)
+    return jm, jp, model
+
+
+def pad_utts(utts):
+    """Ragged (T_i, F) utterances -> zero-padded (B, T, F) float32 features
+    and (B,) int32 lengths."""
+    T = max(len(u) for u in utts)
+    feats = np.zeros((len(utts), T, utts[0].shape[1]), np.float32)
+    for i, u in enumerate(utts):
+        feats[i, : len(u)] = u
+    return feats, np.array([len(u) for u in utts], np.int32)

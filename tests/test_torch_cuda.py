@@ -17,7 +17,8 @@ gradient rules, the fused kernel's launches in the recipe, and the
 forward-only build's memory; the smoothed build on bf16 lm and am; the
 pruning-window kernels on edge and long shapes, in every storage dtype;
 the transducer model's loss (its six kernel launches, against the same
-model on the CPU), its decoders and the forced alignment on the card."""
+model on the CPU), its decoders and the forced alignment on the card;
+streaming and ``StreamServer`` on the card at the tiny causal width."""
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from fast_rnnt_tpu_torch.utils import from_numpy
 
 from ._torch_parity import (
     RANGES_EDGES,
+    STREAM_TINY,
     assert_close,
     assert_lattice_close,
     assert_loss_close,
@@ -37,6 +39,7 @@ from ._torch_parity import (
     band,
     loss_inputs,
     occupancies,
+    pad_utts,
     ranges_boundary,
     ranges_edge_id,
     rows_inputs,
@@ -762,3 +765,110 @@ def test_viterbi_alignment_on_cuda_matches_cpu(dev):
     s_d, f_d, _ = ft.viterbi_alignment(*from_numpy(px, py, bnd, device=dev))
     assert_lattice_close(s_d.cpu(), s_c)
     assert torch.equal(f_d.cpu(), f_c)
+
+
+def _stream_models(dev):
+    """The tiny causal float32 model on the card and on the CPU, the same
+    weights."""
+    from fast_rnnt_tpu_torch.models import TransducerConfig, init_model
+
+    cfg = TransducerConfig(dtype=torch.float32, **STREAM_TINY)
+    return (init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0)),
+            init_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+
+
+def _stream(model, scfg, feats, flens, dev):
+    from fast_rnnt_tpu_torch.models import streaming_init, streaming_step
+
+    state = streaming_init(model, scfg, feats.shape[0])
+    T = feats.shape[1]
+    for i in range(-(-T // scfg.chunk)):
+        fc = np.zeros((feats.shape[0], scfg.chunk, feats.shape[2]), np.float32)
+        part = feats[:, i * scfg.chunk : (i + 1) * scfg.chunk]
+        fc[:, : part.shape[1]] = part
+        cl = np.clip(flens - i * scfg.chunk, 0, scfg.chunk).astype(np.int32)
+        state, (hyps, lens) = streaming_step(model, scfg, state, *from_numpy(fc, cl, device=dev))
+    return hyps.cpu(), lens.cpu()
+
+
+@pytest.mark.parametrize("beam", [0, 4], ids=["greedy", "beam4"])
+def test_streaming_on_cuda_matches_cpu(dev, beam):
+    """Streamed tokens on the card equal the CPU's streamed tokens for the
+    same weights (TF32 off), and the card's offline decode."""
+    from fast_rnnt_tpu_torch.models import StreamingConfig, greedy_search, modified_beam_search
+
+    m_dev, m_cpu = _stream_models(dev)
+    rng = np.random.default_rng(11)
+    feats = rng.normal(size=(3, 100, STREAM_TINY["feature_dim"])).astype(np.float32)
+    flens = np.array([100, 81, 58], np.int32)
+    scfg = StreamingConfig(chunk=16, max_len=48, beam=beam)
+    h_d, l_d = _stream(m_dev, scfg, feats, flens, dev)
+    h_c, l_c = _stream(m_cpu, scfg, feats, flens, "cpu")
+    assert torch.equal(l_d, l_c) and torch.equal(h_d, h_c)
+    if beam:
+        off = modified_beam_search(m_dev, *from_numpy(feats, flens, device=dev), beam=beam, max_len=48)
+    else:
+        off = greedy_search(m_dev, *from_numpy(feats, flens, device=dev), max_len=48)
+    assert torch.equal(off[1].cpu(), l_d) and torch.equal(off[0].cpu(), h_d)
+    assert int(l_d.max()) > 0
+
+
+@pytest.mark.parametrize("beam", [0, 2], ids=["greedy", "beam2"])
+def test_stream_server_on_cuda_matches_offline(dev, beam):
+    """7 ragged streams through 2 slots on the card (every slot reused):
+    each stream's tokens equal the card's offline decode."""
+    from fast_rnnt_tpu_torch.models import (
+        StreamServer, StreamingConfig, greedy_search, modified_beam_search,
+    )
+
+    m_dev, _ = _stream_models(dev)
+    rng = np.random.default_rng(12)
+    utts = [rng.normal(size=(n, STREAM_TINY["feature_dim"])).astype(np.float32)
+            for n in (96, 40, 64, 24, 88, 56, 32)]
+    server = StreamServer(m_dev, StreamingConfig(chunk=16, max_len=64, beam=beam), capacity=2)
+    for i, u in enumerate(utts):
+        server.submit(i, u)
+    got = server.run()
+    f, fl = from_numpy(*pad_utts(utts), device=dev)
+    if beam:
+        h, l = modified_beam_search(m_dev, f, fl, beam=beam, max_len=64)
+    else:
+        h, l = greedy_search(m_dev, f, fl, max_len=64)
+    h, l = h.cpu().numpy(), l.cpu().numpy()
+    for i in range(len(utts)):
+        np.testing.assert_array_equal(got[i], h[i, : l[i]])
+    assert l.sum() > 0
+
+
+def test_streaming_reset_on_cuda_restores_fresh_state(dev):
+    """After three chunks on the card, resetting slot 0 gives
+    streaming_init's leaves there bit for bit; slot 1 is untouched."""
+    from fast_rnnt_tpu_torch.models import (
+        StreamingConfig, streaming_init, streaming_reset, streaming_step,
+    )
+
+    m_dev, _ = _stream_models(dev)
+    scfg = StreamingConfig(chunk=8, max_len=16)
+    rng = np.random.default_rng(13)
+    state = streaming_init(m_dev, scfg, 2)
+    for _ in range(3):
+        fc = rng.normal(size=(2, 8, STREAM_TINY["feature_dim"])).astype(np.float32)
+        state, _ = streaming_step(m_dev, scfg, state, *from_numpy(fc, np.full(2, 8, np.int32), device=dev))
+    out = streaming_reset(m_dev, scfg, state, torch.tensor([True, False], device=dev))
+    fresh = streaming_init(m_dev, scfg, 2)
+
+    def leaves(st):
+        for v in st.values():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            elif isinstance(v, list):
+                yield from v
+            else:
+                yield v
+
+    n = 0
+    for a, f, o in zip(leaves(out), leaves(fresh), leaves(state)):
+        assert a.device.type == "cuda"
+        assert torch.equal(a[0], f[0]) and torch.equal(a[1], o[1])
+        n += 1
+    assert n == len(list(leaves(state))) > 5
