@@ -63,7 +63,21 @@ after:
     modified arm built causal, served greedy and beam: tokens equal to
     offline, accuracy 95%) and ``serve-time`` (the bf16 chunk step at
     capacities 8, 32 and 128, greedy, and beam 4 at 128: step time, RTF,
-    streams at real time, launches, host reads, device busy).
+    streams at real time, launches, host reads, device busy);
+  * audio in: ``data`` (the host C++ library built by g++ from
+    ``fast_rnnt_tpu_torch/csrc/host`` into ``build/host/``; streamed fbank
+    bit-equal to offline), ``serve-audio`` (32 synthetic waveforms fed to
+    ``StreamServer(capacity=32)`` in 0.32 s pieces through one
+    ``StreamingFbank`` each: tokens identical to the same server on
+    offline ``fbank_cpu`` features), ``dp-train`` (8 synthetic 6-10 s
+    utterances through ``fbank_cpu`` and ``RaggedBatcher``, the
+    ``TransducerConfig()`` training step on two ranks of 4 utterances on
+    the one card, worker processes of this script over gloo with CUDA
+    tensors, then one rank on NCCL: the six loss kernels once per rank
+    per step, the all-reduced gradients equal to the sum of the shards'
+    single-process gradients bit for bit, the loss falls) and
+    ``example`` (``examples/torch_train_and_decode.py`` at 300 steps on
+    the card: greedy and beam token accuracy at least 0.95).
 
 The occupancies of the ``calc_gradients`` calls come from the fused
 kernel, a diagonal sweep, and stage 2 (the scores op and its backward)
@@ -734,6 +748,25 @@ def rand_case(rng, Bc, Sc, Tc, modified, banded, offset, constrained=False):
     return px, py, bnd, lo, 0
 
 
+def launch_counters():
+    """Each kernel wrapper's launch count by its name in the ``kernels``
+    line: {name: (the wrapper module's LAUNCHES dict, key)}."""
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
+
+    return {
+        "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
+        "wavefront_bwd": (wavefront.LAUNCHES, "bwd"),
+        "latbuild_fwd": (latbuild.LAUNCHES, "fwd"),
+        "ranges": (ranges.LAUNCHES, "ranges"),
+        "latbuild_bwd": (latbuild.LAUNCHES, "bwd"),
+        "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
+        "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
+        "wavefront_fused": (wavefront.LAUNCHES, "fused"),
+        "wavefront_scan_fwd": (wavefront.LAUNCHES, "scan_fwd"),
+        "wavefront_scan_bwd": (wavefront.LAUNCHES, "scan_bwd"),
+    }
+
+
 def profile_step(step, reps=10):
     """Device time of one step by kernel, from ``torch.profiler`` over
     ``reps`` back-to-back steps: rows (kernel name, us per step, calls per
@@ -933,7 +966,7 @@ def model_train_phase(dev, t, counted):
     for kname, us, calls in rows[:25]:
         print(f"  {us:9.1f} us/step {calls:5.1f} calls/step {100 * us / total:5.1f}%  {kname[:90]}",
               flush=True)
-    return launches
+    return launches, ms
 
 
 CONVERGE_V, CONVERGE_B, CONVERGE_S, CONVERGE_FPS = 16, 16, 6, 8
@@ -1479,6 +1512,340 @@ def serve_time_phase(dev, model, run_stats):
           f"({steps} steps in {wall_ms:.1f} ms), peak {peak:.1f} MiB")
 
 
+# --- audio in: the host library, data-parallel training, serving audio -------
+
+SAMPLE_RATE, HOP_S = 16000, 0.01
+# the dp-train cell: 8 utterances of 6-10 s, two ranks of 4 on the one card
+DP_UTTS, DP_WORLD, DP_STEPS, DP_TIMED = 8, 2, 3, 5
+DP_TIMEOUT_S = 600
+# serve-audio: 32 ragged streams fed in 0.32 s pieces (= SERVE_CHUNK frames)
+AUDIO_STREAMS, AUDIO_PIECE_S = 32, 0.32
+EXAMPLE_MIN_ACC = 0.95
+
+
+def synth_wavs(n, lo_s, hi_s, rng):
+    """``n`` synthetic waveforms of ``lo_s``-``hi_s`` seconds at 16 kHz:
+    noise at 0.1 under a few tones."""
+    out = []
+    for n_samp in rng.integers(int(lo_s * SAMPLE_RATE), int(hi_s * SAMPLE_RATE) + 1, size=n):
+        t = np.arange(int(n_samp), dtype=np.float32) / SAMPLE_RATE
+        tones = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(100.0, 4000.0, size=3))
+        out.append((tones + 0.1 * rng.normal(size=len(t))).astype(np.float32))
+    return out
+
+
+def dp_batch(cfg):
+    """The dp-train cell's global batch: DP_UTTS waveforms of 6-10 s from
+    ``default_rng(0)`` through ``fbank_cpu`` (80 mels) and
+    ``RaggedBatcher(pad_batch_to=8, quantum=64)``, 50-100 symbols each.
+    Returns (batch, audio seconds, fbank seconds)."""
+    from fast_rnnt_tpu_torch.data import RaggedBatcher, fbank_cpu
+
+    rng = np.random.default_rng(0)
+    wavs = synth_wavs(DP_UTTS, 6.0, 10.0, rng)
+    syms = [rng.integers(1, cfg.vocab_size, size=int(s)).astype(np.int32)
+            for s in rng.integers(50, 101, size=DP_UTTS)]
+    t0 = time.perf_counter()
+    feats = [fbank_cpu(w, n_mels=cfg.feature_dim) for w in wavs]
+    fbank_s = time.perf_counter() - t0
+    batches = list(RaggedBatcher(pad_batch_to=DP_UTTS, quantum=64).batches(feats, syms))
+    if len(batches) != 1 or int((batches[0][1] > 0).sum()) != DP_UTTS:
+        raise Failed(f"dp-train: the planner made {len(batches)} batches of the {DP_UTTS} utterances")
+    return batches[0], sum(len(w) for w in wavs) / SAMPLE_RATE, fbank_s
+
+
+def dp_worker(rank, world, out_dir, backend):
+    """One rank of the dp-train cell (``chip_smoke.py --dp-worker``): the
+    sum of the shards' single-process gradients on a copy of the model,
+    then the data-parallel step on this rank's shard under the launch
+    counters, DP_STEPS steps, DP_TIMED timed steps; writes rank<r>.json."""
+    import copy
+
+    import torch
+
+    from fast_rnnt_tpu_torch.models import LossConfig, TransducerConfig, init_model, make_train_step
+    from fast_rnnt_tpu_torch.models.training import pruned_transducer_loss
+    from fast_rnnt_tpu_torch.ops.kernels import _build
+    from fast_rnnt_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
+    from fast_rnnt_tpu_torch.parallel.sharding import all_reduce_sum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_distributed(f"file://{os.path.join(out_dir, 'store')}", world, rank, device="cuda",
+                           backend=backend)
+    mesh = make_mesh("cuda")
+    got_backend = torch.distributed.get_backend()
+    if mesh.size() != world or got_backend != backend:
+        raise Failed(f"rank {rank}: mesh of {mesh.size()} ranks on {got_backend}")
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+
+    cfg = TransducerConfig()
+    batch, _, _ = dp_batch(cfg)
+    B = len(batch[0])
+    model = init_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    loss_cfg = LossConfig(s_range=S_RANGE)
+    ref = copy.deepcopy(model)
+
+    def shard_grads(k):
+        sl = slice(k * B // world, (k + 1) * B // world)
+        ref.zero_grad(set_to_none=True)
+        total, _ = pruned_transducer_loss(ref, *(torch.from_numpy(x[sl]).to(dev) for x in batch),
+                                          loss_cfg)
+        total.backward()
+        return [p.grad.clone() for p in ref.parameters()]
+
+    shards = [shard_grads(k) for k in range(world)]
+    again = shard_grads(0)  # the same shard twice: is the single-process step deterministic?
+    deterministic = all(torch.equal(a, b) for a, b in zip(shards[0], again))
+    want = [sum(g) for g in zip(*shards)]
+    del ref, again, shards
+
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    step = make_train_step(model, opt, loss_cfg, mesh)
+    local = shard_batch(batch, mesh)
+    counters = launch_counters()
+    for d, k in counters.values():
+        d[k] = 0
+    torch.cuda.synchronize()
+    metrics = step(local)
+    torch.cuda.synchronize()
+    launches = {name: d[k] for name, (d, k) in counters.items() if d[k]}
+    grads = [p.grad for p in model.parameters()]
+    mismatched = [i for i, (g, w) in enumerate(zip(grads, want)) if not torch.equal(g, w)]
+    max_diff = max(float((g - w).abs().max()) for g, w in zip(grads, want))
+    top = max(float(w.abs().max()) for w in want)
+    losses = [metrics["loss"].item()] + [step(local)["loss"].item() for _ in range(DP_STEPS - 1)]
+
+    times = []
+    for _ in range(DP_TIMED):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(local)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    grads = [p.grad for p in model.parameters()]
+    reduce_ms = []
+    for _ in range(DP_TIMED):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        all_reduce_sum(grads, mesh)
+        b.record()
+        b.synchronize()
+        reduce_ms.append(a.elapsed_time(b))
+    res = {
+        "rank": rank, "world": world, "backend": got_backend, "shard": list(local[0].shape),
+        "launches": launches, "deterministic": deterministic,
+        "n_grads": len(grads), "mismatched": len(mismatched), "max_diff": max_diff, "top": top,
+        "frames": int(metrics["frames"]), "losses": losses, "step_ms": float(np.median(times)),
+        "step_ms_all": times, "allreduce_ms": float(np.median(reduce_ms)),
+        "grad_mib": sum(g.numel() * g.element_size() for g in grads) / 2**20,
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+    }
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_workers(args_per_rank, what, timeout=DP_TIMEOUT_S):
+    """Start one ``chip_smoke.py`` worker process per argument list, all
+    together; a rank that exits non-zero or outlives ``timeout`` fails
+    the run (every worker is killed first)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *map(str, a)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a in args_per_rank]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        raise Failed(f"{what}: a worker outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise Failed(f"{what}: worker {r} exited {p.returncode}:\n{log[-4000:]}")
+
+
+def data_phase():
+    """The host library from the checkout's sources into build/host/, and
+    the streamed fbank bit-equal to the offline one."""
+    from fast_rnnt_tpu_torch import csrc
+    from fast_rnnt_tpu_torch.data import StreamingFbank, fbank_cpu
+
+    t0 = time.perf_counter()
+    csrc.load_library()
+    build_s = time.perf_counter() - t0
+    path = csrc.library_path()
+    if path.parent != csrc.BUILD_DIR or csrc.BUILD_DIR != type(path)(HERE) / "build" / "host":
+        raise Failed(f"data: host library at {path}")
+    rng = np.random.default_rng(1)
+    wav = synth_wavs(1, 10.0, 10.0, rng)[0]
+    t0 = time.perf_counter()
+    ref = fbank_cpu(wav)
+    off_ms = (time.perf_counter() - t0) * 1e3
+    piece = int(AUDIO_PIECE_S * SAMPLE_RATE)
+    splits = {"0.32 s": [piece] * (-(-len(wav) // piece)),
+              "ragged": list(rng.integers(1, 4000, size=len(wav)))}
+    for name, sizes in splits.items():
+        sf, outs, pos = StreamingFbank(), [], 0
+        for n in sizes:
+            if pos >= len(wav):
+                break
+            outs.append(sf.process(wav[pos : pos + n]))
+            pos += n
+        got = np.concatenate(outs)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise Failed(f"data: streamed fbank ({name} pieces) differs from the offline fbank_cpu")
+    phase("data", f"host library {os.path.relpath(path, HERE)} ({'built' if build_s > 0.05 else 'loaded'} "
+          f"in {build_s:.2f} s); fbank_cpu of 10 s of 16 kHz audio: {ref.shape[0]} x {ref.shape[1]} in "
+          f"{off_ms:.2f} ms on the host; StreamingFbank in 0.32 s and in ragged 1-3999-sample pieces "
+          f"bit-equal to it")
+
+
+def dp_train_phase(dev, model_ms):
+    """The dp-train cell: two ranks on the one card (gloo over CUDA
+    tensors: NCCL takes one rank per device), each on 4 of the 8
+    utterances at TransducerConfig() width, DP_STEPS steps; then one rank
+    on NCCL as a check of that branch of initialize_distributed."""
+    import tempfile
+
+    from fast_rnnt_tpu_torch.models import TransducerConfig
+
+    cfg = TransducerConfig()
+    batch, audio_s, fbank_s = dp_batch(cfg)
+    want = {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+            "wavefront_bwd": 1, "ranges": 1}
+    results = {}
+    for backend, world in (("gloo", DP_WORLD), ("nccl", 1)):
+        with tempfile.TemporaryDirectory() as out_dir:
+            run_workers([["--dp-worker", r, world, out_dir, backend] for r in range(world)],
+                        f"dp-train ({backend}, {world} ranks)")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        for x in ranks:
+            tag = f"dp-train ({backend}) rank {x['rank']}"
+            if x["backend"] != backend or x["launches"] != want:
+                raise Failed(f"{tag}: backend {x['backend']}, launches {x['launches']}, expected {want}")
+            if x["mismatched"]:
+                raise Failed(f"{tag}: {x['mismatched']} of {x['n_grads']} all-reduced gradients differ "
+                             f"from the sum of the shards' single-process gradients (max abs diff "
+                             f"{x['max_diff']:.3e} of max {x['top']:.3e}; the single-process step "
+                             f"{'is' if x['deterministic'] else 'is not'} deterministic)")
+            if not all(np.isfinite(x["losses"])) or not x["losses"][-1] < x["losses"][0]:
+                raise Failed(f"{tag}: losses {x['losses']}")
+        if any(x["losses"] != ranks[0]["losses"] for x in ranks):
+            raise Failed(f"dp-train ({backend}): the ranks' all-reduced losses differ")
+        results[backend] = ranks
+    g, n = results["gloo"], results["nccl"][0]
+    step_ms = max(x["step_ms"] for x in g)
+    rank_ms = ", ".join(f"{x['step_ms']:.3f}" for x in g)
+    phase("dp-train", f"{DP_UTTS} synthetic utterances of 6-10 s ({audio_s:.1f} s of audio; fbank_cpu "
+          f"{1e3 * fbank_s:.1f} ms on the host) -> RaggedBatcher(pad_batch_to={DP_UTTS}, quantum=64): one "
+          f"batch {list(batch[0].shape)}; TransducerConfig() (bf16 compute), AdamW(1e-3, weight_decay "
+          f"1e-4), s_range={S_RANGE}; {DP_WORLD} ranks on the one card over gloo with CUDA tensors, "
+          f"shards {g[0]['shard']}: launches per rank per step {json.dumps(g[0]['launches'])}; all "
+          f"{g[0]['n_grads']} all-reduced gradients equal to the sum of the two shards' single-process "
+          f"gradients bit for bit on both ranks (single-process step deterministic: "
+          f"{all(x['deterministic'] for x in g)}); losses over {DP_STEPS} steps "
+          f"{g[0]['losses'][0]:.3f} -> {g[0]['losses'][-1]:.3f} ({g[0]['frames']} encoder frames); "
+          f"step {step_ms:.3f} ms (CUDA events, median of {DP_TIMED}, slower rank; ranks {rank_ms}) "
+          f"vs model-train's single-process B={MODEL_B} T_in={MODEL_T_IN} step {model_ms:.3f} ms; "
+          f"gradient all-reduce of {g[0]['grad_mib']:.1f} MiB alone {max(x['allreduce_ms'] for x in g):.3f} "
+          f"ms; {audio_s / (step_ms / 1e3):.1f} audio-seconds/s; peak {max(x['peak_mib'] for x in g):.1f} "
+          f"MiB per rank.  One rank on NCCL: the same checks, launches {json.dumps(n['launches'])}, "
+          f"gradients equal, step {n['step_ms']:.3f} ms, all-reduce {n['allreduce_ms']:.3f} ms")
+    return {"gloo": g, "nccl": n, "step_ms": step_ms}
+
+
+def serve_audio_phase(dev, model, counted):
+    """AUDIO_STREAMS ragged synthetic waveforms served by the bench's causal
+    model (bf16) through ``StreamServer(capacity=AUDIO_STREAMS)``, fed in
+    0.32 s pieces through one ``StreamingFbank`` per stream as the audio
+    arrives, against the same server fed each whole waveform's offline
+    ``fbank_cpu`` features: tokens identical.  Times the host's fbank and
+    the chunk step per tick."""
+    import torch
+
+    from fast_rnnt_tpu_torch.data import StreamingFbank, fbank_cpu
+    from fast_rnnt_tpu_torch.models import StreamServer, StreamingConfig
+
+    scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=SERVE_MAX_LEN)
+    wavs = synth_wavs(AUDIO_STREAMS, 2.0, 10.0, np.random.default_rng(2))
+    audio_s = sum(len(w) for w in wavs) / SAMPLE_RATE
+    offline = StreamServer(model, scfg, AUDIO_STREAMS)
+    for i, w in enumerate(wavs):
+        offline.submit(i, fbank_cpu(w, n_mels=model.cfg.feature_dim))
+    want = offline.run()
+
+    piece = int(AUDIO_PIECE_S * SAMPLE_RATE)
+
+    def streamed():
+        server = StreamServer(model, scfg, AUDIO_STREAMS)
+        fbanks = [StreamingFbank(n_mels=model.cfg.feature_dim) for _ in wavs]
+        for i in range(len(wavs)):
+            server.submit(i, np.zeros((0, model.cfg.feature_dim), np.float32), final=False)
+        pos, out, fb_ms, step_ms = 0, {}, [], []
+        while not server.idle:
+            t0 = time.perf_counter()
+            live = [i for i, w in enumerate(wavs) if pos < len(w)]
+            for i in live:
+                server.extend(i, fbanks[i].process(wavs[i][pos : pos + piece]))
+                if pos + piece >= len(wavs[i]):
+                    server.finish(i)
+            pos += piece
+            t1 = time.perf_counter()
+            out.update(server.step())
+            torch.cuda.synchronize()
+            if live:
+                fb_ms.append((t1 - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return out, fb_ms, step_ms
+
+    (got, fb_ms, step_ms), _, wall_ms, _, _ = counted(streamed, "serve-audio", {})
+    bad = [i for i in range(len(wavs)) if not np.array_equal(got.get(i), want[i])]
+    if bad:
+        raise Failed(f"serve-audio: streams {bad} served from streamed fbank differ from the same "
+                     f"server on offline fbank_cpu features")
+    phase("serve-audio", f"{AUDIO_STREAMS} synthetic waveforms of 2-10 s ({audio_s:.1f} s of audio) "
+          f"through StreamServer(capacity={AUDIO_STREAMS}), the bench's causal model in bf16, chunk "
+          f"{SERVE_CHUNK}, fed in {AUDIO_PIECE_S} s pieces through one StreamingFbank per stream: every "
+          f"stream's tokens ({sum(len(v) for v in got.values())} in all) identical to the same server on "
+          f"each whole waveform's offline fbank_cpu features; no kernel launches; {len(step_ms)} ticks "
+          f"in {wall_ms:.1f} ms ({audio_s / (wall_ms / 1e3):.1f} audio-seconds/s); host fbank of the "
+          f"streams' pieces per tick median {np.median(fb_ms):.3f} ms (max {max(fb_ms):.3f}), the "
+          f"server's chunk step with its synchronise median {np.median(step_ms):.3f} ms (max "
+          f"{max(step_ms):.3f})")
+    return float(np.median(fb_ms)), float(np.median(step_ms))
+
+
+def example_phase():
+    """examples/torch_train_and_decode.py at its defaults on the card: greedy
+    and beam token accuracy each at least EXAMPLE_MIN_ACC."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(HERE, "examples", "torch_train_and_decode.py")],
+                         capture_output=True, text=True, timeout=DP_TIMEOUT_S, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise Failed(f"example: exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    if min(last["greedy_accuracy"], last["beam_accuracy"]) < EXAMPLE_MIN_ACC:
+        raise Failed(f"example: accuracy {last} < {EXAMPLE_MIN_ACC}")
+    losses = [ln for ln in res.stdout.splitlines() if ln.startswith("step")]
+    phase("example", f"examples/torch_train_and_decode.py ({last['steps']} steps, {last['ranks']} rank, on "
+          f"the card) in {wall:.1f} s with its start-up: {losses[0].strip()} ... {losses[-1].strip()}; "
+          f"greedy token accuracy {last['greedy_accuracy']:.3f}, beam (H=4) {last['beam_accuracy']:.3f} "
+          f"(each >= {EXAMPLE_MIN_ACC})")
+
+
 def headline_kernels(am, lm, sym, bnd):
     """Each kernel against its plain version at the main path's shapes, with
     CUDA-event times of both.  The tensors made here are freed on return, so
@@ -1970,18 +2337,7 @@ def main():
       f"plain {cons[1]:.2e}")
 
     # --- 4. the paths: forward only, training, smoothed training ------------
-    counters = {
-        "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
-        "wavefront_bwd": (wavefront.LAUNCHES, "bwd"),
-        "latbuild_fwd": (latbuild.LAUNCHES, "fwd"),
-        "ranges": (ranges.LAUNCHES, "ranges"),
-        "latbuild_bwd": (latbuild.LAUNCHES, "bwd"),
-        "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
-        "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
-        "wavefront_fused": (wavefront.LAUNCHES, "fused"),
-        "wavefront_scan_fwd": (wavefront.LAUNCHES, "scan_fwd"),
-        "wavefront_scan_bwd": (wavefront.LAUNCHES, "scan_bwd"),
-    }
+    counters = launch_counters()
 
     def counted(fn, path, want):
         """Run ``fn`` once with every launch count set to 0 just before and
@@ -2437,7 +2793,7 @@ def main():
 
     # the transducer model's training step at full width, its convergence
     # and decoding on a copy task, and forced alignment of the headline lattice
-    launches_model = model_train_phase(dev, t, counted)
+    launches_model, model_ms = model_train_phase(dev, t, counted)
     model_converge_phase(dev)
     alignment_phase(dev, lm, am, sym, bnd)
 
@@ -2448,7 +2804,14 @@ def main():
     serve_beam_phase(dev, models["float32"], counted)
     serve_converge_phase(dev, counted)
     serve_time_phase(dev, models["bf16"], run_stats)
+
+    # audio in: the host library, serving from audio, two ranks, the example
+    data_phase()
+    serve_audio_phase(dev, models["bf16"], counted)
     del models
+    torch.cuda.empty_cache()
+    dp = dp_train_phase(dev, model_ms)
+    example_phase()
 
     # --- 5. where the steps' time goes (measurements) ----------------------
     for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
@@ -2512,7 +2875,8 @@ def main():
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": report[name].get("library_ms"),
-         "model_train_launches": launches_model[name]}
+         "model_train_launches": launches_model[name],
+         "dp_train_launches": dp["gloo"][0]["launches"].get(name, 0)}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2522,6 +2886,10 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--dp-worker"]:  # one rank of dp_train_phase
+            sys.path.insert(0, HERE)
+            dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+            sys.exit(0)
         sys.exit(main())
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

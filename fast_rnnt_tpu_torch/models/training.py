@@ -10,8 +10,14 @@
 On CUDA tensors the loss runs the port's kernels: the lattice build and
 its backward, the fused recursion (stage 1's occupancies), the ranges
 kernel, and the recursion's forward and backward phases (stage 2).  The
-model's own layers are plain PyTorch.  One device, no mesh: data
-parallelism is not ported yet.
+model's own layers are plain PyTorch.
+
+With a mesh (``parallel.make_mesh``), each rank runs the step on its shard
+of the batch (``parallel.shard_batch``) and the gradients and metrics are
+all-reduced with SUM, as the JAX step's ``psum`` sums them: the loss is a
+sum over the batch, so the global gradient is the sum of the shards'.
+(``DistributedDataParallel`` would average them instead, a factor of the
+world size away.)
 
 ``optax.adamw(lr)`` corresponds to ``torch.optim.AdamW(params, lr,
 betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)`` (optax's default decay
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import rnnt_loss_pruned, rnnt_loss_simple
+from ..parallel.sharding import all_reduce_sum, broadcast_from_first
 from ..ops.pruning import do_rnnt_pruning, get_rnnt_prune_ranges
 from .transducer import LayerNorm, PrunedTransducer, TransducerConfig
 
@@ -150,10 +157,19 @@ def make_train_step(
     model: PrunedTransducer,
     optimizer: torch.optim.Optimizer,
     loss_cfg: LossConfig = LossConfig(),
+    mesh=None,
 ) -> Callable[[Tuple[torch.Tensor, ...]], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one optimizer step on ``batch =
     (features, feature_lens, symbols, symbol_lens)``; the metrics come back
-    detached, on the model's device (reading them syncs the host)."""
+    detached, on the model's device (reading them syncs the host).
+
+    With a ``mesh``, ``batch`` is this rank's shard: the parameters and
+    buffers are broadcast from the mesh's first rank once, here; each step
+    all-reduces every gradient (in one flat buffer) and the metrics with
+    SUM before the optimizer step, so every rank takes the same step."""
+    if mesh is not None:
+        broadcast_from_first([*model.parameters(), *model.buffers()], mesh)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch):
         feats, feat_lens, syms, sym_lens = batch
@@ -162,7 +178,13 @@ def make_train_step(
             model, feats, feat_lens, syms, sym_lens, loss_cfg
         )
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            for p, g in zip(params, all_reduce_sum(grads, mesh)):
+                p.grad = g
+            metrics = dict(zip(metrics, all_reduce_sum(list(metrics.values()), mesh)))
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step
