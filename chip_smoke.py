@@ -9,8 +9,12 @@ shapes, with the recursion kernels also in bfloat16 and float16 storage,
 the build kernels also on bf16 and f16 lm and am, the sweep pair seeded
 with ones against the fused kernel bit for bit, and the row-scan pair;
 the golden path-enumeration vectors; the headline shape, with the sweep
-pair timed against the row scans, unbanded and banded), then drives these
-paths at B=30, T=1000, S=100,
+pair timed against the row scans, unbanded and banded), runs the parity
+gate (``fast_rnnt_tpu_torch.utils.parity``) at the headline shape before
+the first timing (``parity``: the shipped route against the plain route on
+the card, each route's launches counted, ``enforce_parity``, then a run
+with the fused kernel's occupancies scaled by 1.01 that must fail it),
+then drives these paths at B=30, T=1000, S=100,
 C=500, s_range=5, on inputs made exactly as ``bench.py`` makes them
 (seed 0), each with every launch count set to 0 just before and read just
 after:
@@ -64,6 +68,13 @@ after:
     offline, accuracy 95%) and ``serve-time`` (the bf16 chunk step at
     capacities 8, 32 and 128, greedy, and beam 4 at 128: step time, RTF,
     streams at real time, launches, host reads, device busy);
+  * ``profiling``: ``fast_rnnt_tpu_torch.utils.profiling`` on the card:
+    the train step by ``benchmark_on_device`` beside ``cuda_ms`` with and
+    without a head start, the forward's ``compiled_memory_mb`` beside the
+    main path's counted peak, a ``trace_to`` run under
+    ``annotate("train_step")`` into ``build/trace/`` that must hold the
+    span and the six main-path kernels, and the bf16 chunk step at 32
+    streams by ``benchmark_carried_on_device``;
   * audio in: ``data`` (the host C++ library built by g++ from
     ``fast_rnnt_tpu_torch/csrc/host`` into ``build/host/``; streamed fbank
     bit-equal to offline), ``serve-audio`` (32 synthetic waveforms fed to
@@ -75,7 +86,9 @@ after:
     the one card, worker processes of this script over gloo with CUDA
     tensors, then one rank on NCCL: the six loss kernels once per rank
     per step, the all-reduced gradients equal to the sum of the shards'
-    single-process gradients bit for bit, the loss falls) and
+    single-process gradients bit for bit, the loss falls, and on each gloo
+    rank a ``collective_census`` of one step: three all-reduces, no other
+    collective, no lattice-sized tensor moved) and
     ``example`` (``examples/torch_train_and_decode.py`` at 300 steps on
     the card: greedy and beam token accuracy at least 0.95).
 
@@ -1473,13 +1486,14 @@ def serve_time_phase(dev, model, run_stats):
     config) at each SERVE_TIME capacity: CUDA events, the median of 10
     single steps after a warm-up, each step from the same state (4 chunks
     in, so the attention window is full); launches, host reads and device
-    busy per step from ``torch.profiler`` over 3 steps."""
+    busy per step from ``torch.profiler`` over 3 steps.  Returns the ms of
+    each (capacity, beam)."""
     import torch
 
     from fast_rnnt_tpu_torch.models import StreamingConfig, streaming_init, streaming_step
 
     chunk_s = SERVE_CHUNK * 0.01
-    rows = []
+    rows, step_ms = [], {}
     for cap, beam in SERVE_TIME:
         scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=SERVE_MAX_LEN, beam=beam)
         rng = np.random.default_rng(0)
@@ -1493,7 +1507,7 @@ def serve_time_phase(dev, model, run_stats):
         def step():
             return streaming_step(model, scfg, state, feats, lens)
 
-        ms = cuda_ms(step, reps=REPS, inner=1)
+        ms = step_ms[cap, beam] = cuda_ms(step, reps=REPS, inner=1)
         prof = profile_step(step, reps=3)  # ~3,700 launches a step: the profiler's events are slow
         if prof is None:
             raise Failed(f"serve-time: the profiler saw no device activity at capacity {cap}")
@@ -1510,6 +1524,118 @@ def serve_time_phase(dev, model, run_stats):
           f"reads and device busy from torch.profiler over 3 steps: " + "; ".join(rows)
           + f"; the {SERVE_STREAMS}-stream bf16 serve run: {audio_per_s:.1f} audio-seconds/s "
           f"({steps} steps in {wall_ms:.1f} ms), peak {peak:.1f} MiB")
+    return step_ms
+
+
+TRACE_DIR = os.path.join(HERE, "build", "trace")
+
+
+def sweep_phase(name):
+    """The phase (1 forward, 2 backward, 3 both) in a profiler's name of a
+    ``sweep_kernel`` instantiation, or None for another kernel: the last
+    template argument, ``3``, ``(Phases)3`` or ``kBoth``."""
+    import re
+
+    m = re.search(r"sweep_kernel<([^<>]*)>", name)
+    if m is None:
+        return None
+    last = re.sub(r"^\(\w+\)", "", m.group(1).split(",")[-1].strip())
+    return {"1": 1, "2": 2, "3": 3, "kFwd": 1, "kBwd": 2, "kBoth": 3}.get(last)
+
+
+def profiling_phase(dev, am, lm, sym, bnd, fwd_peak, model, serve_ms):
+    """``fast_rnnt_tpu_torch.utils.profiling`` on the card: ``bench.py``'s
+    train step by ``benchmark_on_device`` beside ``cuda_ms`` without and
+    with a head start; the forward step's ``compiled_memory_mb`` beside the
+    main path's counted peak (``fwd_peak``: peak and MiB allocated before);
+    a ``trace_to`` run of one train step under ``annotate("train_step")``
+    into build/trace/, which must hold the span and the six main-path
+    kernels; and the bf16 chunk step at 32 streams by
+    ``benchmark_carried_on_device`` beside ``serve-time``'s figure."""
+    import shutil
+
+    import torch
+
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned
+    from fast_rnnt_tpu_torch.models import StreamingConfig, streaming_init, streaming_step
+    from fast_rnnt_tpu_torch.utils import (
+        annotate,
+        benchmark_on_device,
+        compiled_memory_mb,
+        device_memory_stats,
+        trace_to,
+    )
+    from fast_rnnt_tpu_torch.utils.profiling import benchmark_carried_on_device
+
+    def forward(a, l, s, b):
+        return rnnt_loss_simple_pruned(l, a, s, 0, S_RANGE, b, reduction="none")
+
+    def train(a, l):  # bench.py's step
+        simple, pruned, _ = forward(a, l, sym, bnd)
+        return torch.autograd.grad(0.5 * simple.sum() + pruned.sum(), (a, l))
+
+    am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
+    est_ms = 1e3 * benchmark_on_device(train, am_g, lm_g)
+    events_ms = cuda_ms(lambda: train(am_g, lm_g))
+    head_ms = cuda_ms(lambda: train(am_g, lm_g), head_start=True)
+
+    torch._C._cuda_clearCublasWorkspaces()
+    mem = compiled_memory_mb(forward, am, lm, sym, bnd)
+    stats = device_memory_stats()
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with trace_to(TRACE_DIR) as prof:
+        with annotate("train_step"):
+            train(am_g, lm_g)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise Failed(f"profiling: trace_to wrote {files}, not one trace")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
+    seen = {
+        "latbuild_fwd": any("latbuild_fwd_kernel" in k for k in kernels),
+        "latbuild_bwd": any("latbuild_bwd_" in k for k in kernels),
+        "ranges": any("ranges_argmax_kernel" in k for k in kernels),
+        "wavefront_fwd": any(sweep_phase(k) == 1 for k in kernels),
+        "wavefront_bwd": any(sweep_phase(k) == 2 for k in kernels),
+        "wavefront_fused": any(sweep_phase(k) == 3 for k in kernels),
+    }
+    span = sum(e.get("name") == "train_step" for e in events)
+    if not span or not all(seen.values()) or not any(e.name == "train_step" for e in prof.events()):
+        raise Failed(f"profiling: the trace holds the train_step span {span} times and the kernels "
+                     f"{seen}; its kernel names: {[k[:80] for k in kernels]}")
+
+    # a hypothesis buffer the chain cannot fill (a full one stops emission,
+    # and greedy then takes 8 trips a step, not up to 40), so that the
+    # chained steps are serve-time's step
+    cap = 32
+    scfg = StreamingConfig(chunk=SERVE_CHUNK, max_len=4 * SERVE_MAX_LEN)
+    rng = np.random.default_rng(0)
+    feats = torch.tensor(rng.normal(size=(cap, SERVE_CHUNK, model.cfg.feature_dim))
+                         .astype(np.float32), device=dev)
+    lens = torch.full((cap,), SERVE_CHUNK, dtype=torch.int32, device=dev)
+    state = streaming_init(model, scfg, cap)
+    for _ in range(4):  # serve-time's starting state: the attention window full
+        state, _ = streaming_step(model, scfg, state, feats, lens)
+    carried_ms = 1e3 * benchmark_carried_on_device(
+        lambda st, f, n: streaming_step(model, scfg, st, f, n)[0], state, feats, lens, iters=5)
+
+    peak, base = fwd_peak
+    phase("profiling", f"train step (bench.py's: grad of 0.5*simple + pruned, B={B} T={T} S={S} "
+          f"C={C}): benchmark_on_device {est_ms:.4f} ms (median over 3 trials of the slope between "
+          f"20 and 60 steps behind a head start sized from the host's enqueue time); cuda_ms "
+          f"{events_ms:.4f} ms (10 steps, no head start); cuda_ms(head_start=True) {head_ms:.4f} ms "
+          f"(10 steps behind a fixed {HEAD_START:,}-cycle wait).  Forward step compiled_memory_mb: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mem.items()) + f" MiB, beside main-path's counted "
+          f"peak {peak:.1f} MiB ({peak - base:.1f} MiB above what was allocated before it); "
+          f"device_memory_stats " + ", ".join(f"{k} {v:.1f}" for k, v in stats.items()) + ".  "
+          f"trace_to -> {os.path.relpath(files[0], HERE)}: the train_step span ({span} events) and "
+          f"the kernels {sorted(seen)} ({len(kernels)} kernel names).  bf16 chunk step at {cap} "
+          f"streams, greedy: benchmark_carried_on_device {carried_ms:.3f} ms (slope between 5 and 15 "
+          f"chained steps, max_len {scfg.max_len}) beside serve-time's {serve_ms[cap, 0]:.3f} ms "
+          f"(median of single steps from one state)")
 
 
 # --- audio in: the host library, data-parallel training, serving audio -------
@@ -1518,6 +1644,10 @@ SAMPLE_RATE, HOP_S = 16000, 0.01
 # the dp-train cell: 8 utterances of 6-10 s, two ranks of 4 on the one card
 DP_UTTS, DP_WORLD, DP_STEPS, DP_TIMED = 8, 2, 3, 5
 DP_TIMEOUT_S = 600
+# all-reduces in one data-parallel step: the gradients (one float32 buffer),
+# the float metrics (loss, simple_loss, pruned_loss) and the integer frame
+# count, which all_reduce_sum buckets apart by dtype
+DP_ALLREDUCES = 3
 # serve-audio: 32 ragged streams fed in 0.32 s pieces (= SERVE_CHUNK frames)
 AUDIO_STREAMS, AUDIO_PIECE_S = 32, 0.32
 EXAMPLE_MIN_ACC = 0.95
@@ -1558,7 +1688,8 @@ def dp_worker(rank, world, out_dir, backend):
     """One rank of the dp-train cell (``chip_smoke.py --dp-worker``): the
     sum of the shards' single-process gradients on a copy of the model,
     then the data-parallel step on this rank's shard under the launch
-    counters, DP_STEPS steps, DP_TIMED timed steps; writes rank<r>.json."""
+    counters, DP_STEPS steps, one step under ``torch.profiler`` with shapes
+    for ``collective_census``, DP_TIMED timed steps; writes rank<r>.json."""
     import copy
 
     import torch
@@ -1568,6 +1699,7 @@ def dp_worker(rank, world, out_dir, backend):
     from fast_rnnt_tpu_torch.ops.kernels import _build
     from fast_rnnt_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
     from fast_rnnt_tpu_torch.parallel.sharding import all_reduce_sum
+    from fast_rnnt_tpu_torch.utils import collective_census
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1618,6 +1750,12 @@ def dp_worker(rank, world, out_dir, backend):
     max_diff = max(float((g - w).abs().max()) for g, w in zip(grads, want))
     top = max(float(w.abs().max()) for w in want)
     losses = [metrics["loss"].item()] + [step(local)["loss"].item() for _ in range(DP_STEPS - 1)]
+    # the collectives of one step, by the profiler's events with their shapes
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        step(local)
+    t_enc = -(-local[0].shape[1] // 4)  # the encoder's frames: ceil(T_in / 4)
+    census = collective_census(prof, lattice_dims=(t_enc, t_enc + 1))
 
     times = []
     for _ in range(DP_TIMED):
@@ -1640,7 +1778,8 @@ def dp_worker(rank, world, out_dir, backend):
         "rank": rank, "world": world, "backend": got_backend, "shard": list(local[0].shape),
         "launches": launches, "deterministic": deterministic,
         "n_grads": len(grads), "mismatched": len(mismatched), "max_diff": max_diff, "top": top,
-        "frames": int(metrics["frames"]), "losses": losses, "step_ms": float(np.median(times)),
+        "frames": int(metrics["frames"]), "losses": losses, "census": census, "census_t": t_enc,
+        "step_ms": float(np.median(times)),
         "step_ms_all": times, "allreduce_ms": float(np.median(reduce_ms)),
         "grad_mib": sum(g.numel() * g.element_size() for g in grads) / 2**20,
         "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
@@ -1742,6 +1881,13 @@ def dp_train_phase(dev, model_ms):
                              f"{'is' if x['deterministic'] else 'is not'} deterministic)")
             if not all(np.isfinite(x["losses"])) or not x["losses"][-1] < x["losses"][0]:
                 raise Failed(f"{tag}: losses {x['losses']}")
+            census = x["census"]
+            if backend == "gloo" and (census["all-reduce"] != DP_ALLREDUCES or census["lattice_moves"]
+                                      or any(v for k, v in census.items()
+                                             if k not in ("all-reduce", "lattice_moves"))):
+                raise Failed(f"{tag}: collective census of one step {census}, expected "
+                             f"{DP_ALLREDUCES} all-reduces, no other collective and no lattice move "
+                             f"(lattice dims {x['census_t']}, {x['census_t'] + 1})")
         if any(x["losses"] != ranks[0]["losses"] for x in ranks):
             raise Failed(f"dp-train ({backend}): the ranks' all-reduced losses differ")
         results[backend] = ranks
@@ -1761,7 +1907,10 @@ def dp_train_phase(dev, model_ms):
           f"vs model-train's single-process B={MODEL_B} T_in={MODEL_T_IN} step {model_ms:.3f} ms; "
           f"gradient all-reduce of {g[0]['grad_mib']:.1f} MiB alone {max(x['allreduce_ms'] for x in g):.3f} "
           f"ms; {audio_s / (step_ms / 1e3):.1f} audio-seconds/s; peak {max(x['peak_mib'] for x in g):.1f} "
-          f"MiB per rank.  One rank on NCCL: the same checks, launches {json.dumps(n['launches'])}, "
+          f"MiB per rank; collective census of one step on each gloo rank "
+          f"{json.dumps({k: v for k, v in g[0]['census'].items() if v})} (expected {DP_ALLREDUCES} "
+          f"all-reduces: gradients, float metrics, frame count), no lattice move (dims "
+          f"{g[0]['census_t']}, {g[0]['census_t'] + 1}).  One rank on NCCL: the same checks, launches {json.dumps(n['launches'])}, "
           f"gradients equal, step {n['step_ms']:.3f} ms, all-reduce {n['allreduce_ms']:.3f} ms")
     return {"gloo": g, "nccl": n, "step_ms": step_ms}
 
@@ -1844,6 +1993,74 @@ def example_phase():
           f"the card) in {wall:.1f} s with its start-up: {losses[0].strip()} ... {losses[-1].strip()}; "
           f"greedy token accuracy {last['greedy_accuracy']:.3f}, beam (H=4) {last['beam_accuracy']:.3f} "
           f"(each >= {EXAMPLE_MIN_ACC})")
+
+
+# the kernels of the main path: the parity gate's shipped route must launch
+# each of them, its plain route none
+MAIN_KERNELS = ("latbuild_fwd", "latbuild_bwd", "wavefront_fused", "wavefront_fwd", "wavefront_bwd",
+                "ranges")
+
+
+def parity_phase(am, lm, sym, bnd):
+    """``onchip_parity_gate`` at the headline shape, with each route's
+    launches counted (the gate's route switch wrapped), every metric printed
+    beside its limit, then ``enforce_parity``; then the gate once more with
+    the fused kernel's occupancies scaled by 1.01 (swapped in here, as
+    ``arm()`` swaps the recursion), which must make ``enforce_parity``
+    raise."""
+    from fast_rnnt_tpu_torch.ops.kernels import wavefront
+    from fast_rnnt_tpu_torch.utils import parity
+
+    counters = launch_counters()
+    routes = {}
+    gate_routes = parity._routes
+
+    @contextlib.contextmanager
+    def counted_routes(impl, build_impl):
+        before = {name: d[k] for name, (d, k) in counters.items()}
+        with gate_routes(impl, build_impl):
+            yield
+        got = routes.setdefault(impl or "shipped", dict.fromkeys(counters, 0))
+        for name, (d, k) in counters.items():
+            got[name] += d[k] - before[name]
+
+    t0 = time.perf_counter()
+    with patched(parity, _routes=counted_routes):
+        metrics = parity.onchip_parity_gate(am, lm, sym, bnd, S_RANGE)
+    gate_s = time.perf_counter() - t0
+    shipped, plain = routes["shipped"], routes["plain"]
+    if any(shipped[k] == 0 for k in MAIN_KERNELS) or any(plain.values()):
+        raise Failed(f"parity: launches on the shipped route {shipped}, on the plain route {plain}: "
+                     f"the shipped route must launch each of {MAIN_KERNELS}, the plain route none")
+    limits = {**parity.TOLERANCES, **parity.MINIMUMS}
+    shown = "; ".join(f"{k} {v if isinstance(v, int) else format(v, '.3e')}" + (f" (limit {'>=' if k in parity.MINIMUMS else '<='} "
+                                        f"{limits[k]})" if k in limits else "")
+                      for k, v in metrics.items())
+    parity.enforce_parity(metrics)  # FloatingPointError fails the run
+
+    fused = wavefront.fused_rows
+
+    def scaled(*args):
+        n = wavefront.LAUNCHES["fused"]
+        scores, gx, gy = fused(*args)
+        if wavefront.LAUNCHES["fused"] > n:  # the kernel's occupancies only
+            gx, gy = 1.01 * gx, 1.01 * gy
+        return scores, gx, gy
+
+    with patched(wavefront, fused_rows=scaled):
+        bad = parity.onchip_parity_gate(am, lm, sym, bnd, S_RANGE)
+    try:
+        parity.enforce_parity(bad)
+    except FloatingPointError:
+        failed = sorted(k for k, v in bad.items() if k in limits and not (
+            v >= limits[k] if k in parity.MINIMUMS else v <= limits[k]))
+    else:
+        raise Failed(f"parity: the gate passed with the fused kernel's occupancies scaled by 1.01: {bad}")
+    phase("parity", f"onchip_parity_gate at B={B} T={T} S={S} C={C} s_range={S_RANGE} (seed 0) in "
+          f"{gate_s:.1f} s: {shown}; launches on the shipped route {json.dumps(shipped)}, on the plain "
+          f"route none; enforce_parity passed.  With the fused kernel's occupancies scaled by 1.01 it "
+          f"raised on {failed} (" + ", ".join(f"{k} {bad[k]:.3e}" for k in failed) + ")")
+    return metrics
 
 
 def headline_kernels(am, lm, sym, bnd):
@@ -2305,9 +2522,12 @@ def main():
         raise Failed("no golden vectors under tests/golden")
     phase("golden", f"{len(gfiles)} path-enumeration vectors ok; max abs err {gerr:.3e}")
 
-    # headline shape: each kernel against its plain version, with times
+    # the parity gate at the headline shape, before the first timing
     am_np, lm_np, sym_np, bnd_np = make_inputs(seed=0)
     am, lm, sym, bnd = t(am_np, lm_np, sym_np, bnd_np)
+    parity_phase(am, lm, sym, bnd)
+
+    # headline shape: each kernel against its plain version, with times
     report, n_flip, cons = headline_kernels(am, lm, sym, bnd)
     # the library yardsticks' cuBLAS workspaces (32 MiB for the float32
     # calls, 32 more for the bf16 ones) stay allocated: freed here, they are
@@ -2803,7 +3023,8 @@ def main():
     run_stats = serve_phase(dev, models, counted)
     serve_beam_phase(dev, models["float32"], counted)
     serve_converge_phase(dev, counted)
-    serve_time_phase(dev, models["bf16"], run_stats)
+    serve_ms = serve_time_phase(dev, models["bf16"], run_stats)
+    profiling_phase(dev, am, lm, sym, bnd, (peak_mb, base_mb), models["bf16"], serve_ms)
 
     # audio in: the host library, serving from audio, two ranks, the example
     data_phase()

@@ -5,7 +5,8 @@ lattice build (simple and smoothed, with their backward), the recursion
 windows, plain PyTorch versions of each for CPU tensors, the real-joiner
 recipe (``do_rnnt_pruning``, ``rnnt_loss_pruned``, ``rnnt_loss``) and
 Viterbi forced alignment.  The conformer transducer that trains with the
-loss, and its decoders, are in ``fast_rnnt_tpu_torch.models``."""
+loss, and its decoders, are in ``fast_rnnt_tpu_torch.models``; the on-card
+parity gate and the timing helpers in ``fast_rnnt_tpu_torch.utils``."""
 
 from .ops.alignment import viterbi_alignment, viterbi_scores
 from .ops.lattice import (
@@ -18,6 +19,7 @@ from .ops.lattice import (
     get_rnnt_logprobs_smoothed,
     get_rnnt_logprobs_smoothed_rows,
     roll_by_shifts,
+    set_lattice_build_impl,
 )
 from .ops.losses import (
     rnnt_loss,
@@ -42,7 +44,10 @@ from .ops.recursion import (
     mutual_information_rows,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__",
     # recursion core
     "mutual_information_recursion",
     "mutual_information_rows",
@@ -58,6 +63,7 @@ __all__ = [
     "get_rnnt_logprobs_smoothed",
     "get_rnnt_logprobs_smoothed_rows",
     "roll_by_shifts",
+    "set_lattice_build_impl",
     # pruning pipeline
     "adjust_pruning_lower_bound",
     "do_rnnt_pruning",

@@ -12,7 +12,8 @@ plain tensor work outside the kernels, and the constrained variant is
 composed in plain torch: build "modified", add ``py[1:]`` to px.
 
 A CPU tensor runs the plain versions, which are ordinary differentiable
-torch.  A CUDA tensor runs the kernels: the forward writes the backward's
+torch, and so does any tensor under ``lattice.set_lattice_build_impl(
+"plain")``.  A CUDA tensor runs the kernels: the forward writes the backward's
 residuals (the normalizer denominator D, the frame maxima and, smoothed,
 the unigram denominator) only when autograd needs a gradient, and the
 backward launches the VJP kernels on them.
@@ -44,6 +45,7 @@ import torch
 from ..lattice import (
     _TINY,
     _assert_fp32_matmul,
+    _build_kernel_route,
     _build_rows_plain,
     _build_smoothed_rows_plain,
     _kill_t_end,
@@ -259,14 +261,15 @@ class _BuildFn(torch.autograd.Function):
 
 class _BuildPartsFn(torch.autograd.Function):
     """The smoothed build: (lm, am, uni) -> (px, py, normd), its VJP the
-    kernels' own: the CUDA kernels on a CUDA tensor, their plain versions
-    (``lattice_rows_parts_plain``, ``lattice_rows_bwd_plain``) on a CPU
-    one."""
+    kernels' own: the CUDA kernels on the kernel route, their plain
+    versions (``lattice_rows_parts_plain``, ``lattice_rows_bwd_plain``)
+    otherwise; the backward takes the forward's route."""
 
     @staticmethod
     def forward(ctx, lm, am, symbols, te_fix, uni, blank, modified):
         save = any(ctx.needs_input_grad[i] for i in (0, 1, 4))
-        if am.is_cuda:
+        ctx.kernel = _build_kernel_route(am)
+        if ctx.kernel:
             px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save)
         else:
             (px, py, nd), res = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified), ()
@@ -278,7 +281,7 @@ class _BuildPartsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpx, dpy, dnd):
         lm, am, symbols, te_fix, uni, *res = ctx.saved_tensors
-        if am.is_cuda:
+        if ctx.kernel:
             d_lm, d_am, d_uni = build_bwd(
                 lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd
             )
@@ -306,11 +309,12 @@ def lattice_rows(
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """s-major ``(px_rows [S, B, T(+1)], py_rows [S+1, B, T])``; the kernel
-    on a CUDA tensor, the plain einsum build on a CPU tensor."""
+    on a CUDA tensor, the plain einsum build on a CPU tensor or under
+    ``set_lattice_build_impl("plain")``."""
     if rnnt_type == "constrained":
         px, py = lattice_rows(lm, am, symbols, termination_symbol, "modified")
         px = px + py[1:]
-    elif not am.is_cuda:
+    elif not _build_kernel_route(am):
         px, py = lattice_rows_plain(lm, am, symbols, termination_symbol, rnnt_type, boundary)
     else:
         te_fix = _te_fix(boundary, am.shape[0], rnnt_type == "regular", am.device)

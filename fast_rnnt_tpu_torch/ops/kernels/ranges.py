@@ -9,7 +9,9 @@ utterance), in one call.
 
 A CPU tensor runs the plain version (``pruning._window_starts_plain``: the
 cumsum-difference argmax, then ``adjust_pruning_lower_bound``); a CUDA
-tensor launches the kernels or raises.  ``window_argmax_kernel_order`` is
+tensor launches the kernels or raises.  The route follows
+``recursion.set_default_impl``, as the JAX package's ranges follow its
+recursion impl.  ``window_argmax_kernel_order`` is
 the kernels' raw argmax in their own float32 summation order, the
 reference that their starts are held to exactly on the card.
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..pruning import _window_starts_plain
+from ..recursion import _kernel_route
 from . import _build
 from .wavefront import _STORAGE  # storage dtype -> the kernels' dtype code
 
@@ -58,7 +61,7 @@ def window_starts(
     ``py_grad_rows`` (S+1, B, T) and ``px_grad_rows`` (S, B, T') (only
     ``[:, :, :T]`` is read), both float32, bf16 or float16, summed in
     float32; ``K`` is the window width (1 <= K <= S+1)."""
-    if not py_grad_rows.is_cuda:
+    if not _kernel_route(py_grad_rows):
         return _window_starts_plain(py_grad_rows, px_grad_rows, K, boundary, adjust_step)
     S1, B, T = py_grad_rows.shape
     S, Bx, T1x = px_grad_rows.shape

@@ -15,6 +15,8 @@ of the first two; no package path calls it, and it keeps a T cap.
 
 A CPU tensor runs the plain version (``recursion._forward_rows_plain`` /
 ``_backward_rows_plain``); a CUDA tensor launches the kernel or raises.
+``recursion.set_default_impl("plain")`` sends every tensor to the plain
+version, and ``"cuda"`` makes a CPU tensor raise.
 
 Dtypes on a CUDA tensor: px/py are float32, bfloat16 or float16 storage
 (both the same); the kernels compute in float32, p, ans_grad and the
@@ -29,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..recursion import _backward_rows_plain, _forward_rows_plain
+from ..recursion import _backward_rows_plain, _forward_rows_plain, _kernel_route
 from . import _build
 
 __all__ = [
@@ -135,7 +137,7 @@ def forward_rows(
     float32).  ``px_rows``/``py_rows`` are unmasked; the boundary and the
     optional band ``lo <= s < lo + K`` are masked inside.  On a CUDA tensor:
     the sweep kernel's forward phase, any T."""
-    if not px_rows.is_cuda:
+    if not _kernel_route(px_rows):
         return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
     _check_index(S, B, T, S + 1)
@@ -169,7 +171,7 @@ def backward_rows(
     the storage dtype of px/py.  On a CUDA tensor: the sweep kernel's
     backward phase, any T; it reads p only inside each rectangle, and hands
     rows between its strips through a (2, B, T+1) float32 scratch."""
-    if not px_rows.is_cuda:
+    if not _kernel_route(px_rows):
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
     S, B, T1, T, code = _check_cuda(
         px_rows, py_rows, boundary, lo,
@@ -203,7 +205,7 @@ def forward_rows_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward_rows` by the row-scan kernel (T <= 14,271); the plain
     version on a CPU tensor."""
-    if not px_rows.is_cuda:
+    if not _kernel_route(px_rows):
         return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, nt, code = _check_split(px_rows, py_rows, boundary, lo)
     p_rows = torch.empty((S + 1, B, T + 1), dtype=torch.float32, device=px_rows.device)
@@ -233,7 +235,7 @@ def backward_rows_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`backward_rows` by the row-scan kernel (T <= 14,271); the plain
     version on a CPU tensor."""
-    if not px_rows.is_cuda:
+    if not _kernel_route(px_rows):
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
     S, B, T1, T, nt, code = _check_split(
         px_rows, py_rows, boundary, lo,
@@ -285,7 +287,7 @@ def fused_rows(
     backward's two hand-off rows go to a float32 scratch tensor (S+3, B,
     T+1) that is not returned; the kernel keeps no row in shared memory, so
     T has no cap beyond the scratch's int32 indexing."""
-    if not px_rows.is_cuda:
+    if not _kernel_route(px_rows):
         return fused_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
     _check_index(S, B, T, S + 3)

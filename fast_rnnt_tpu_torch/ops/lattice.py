@@ -11,6 +11,10 @@ on a CUDA tensor requires TF32 to be off (``torch.backends.cuda.matmul.
 allow_tf32`` False, PyTorch's default), which it asserts.  The joiner-logit
 lattices need no matmul: the JAX package's one-hot einsums there were TPU
 gather workarounds, and the port gathers, which is exact.
+
+Build route: the kernels of ``kernels/latbuild.py`` on a CUDA tensor, the
+plain einsum builds on a CPU tensor; :func:`set_lattice_build_impl` pins
+either, forward and VJP together.
 """
 
 from __future__ import annotations
@@ -35,12 +39,42 @@ __all__ = [
     "get_rnnt_logprobs_smoothed_rows",
     "roll_by_shifts",
     "scatter_window",
+    "set_lattice_build_impl",
 ]
 
 RNNT_TYPES = ("regular", "modified", "constrained")
 
 # Guard for log(0) in the normalizer: the smallest normal float32.
 _TINY = float(np.finfo(np.float32).tiny)
+
+
+# The simple and smoothed builds' route (the JAX package's switch,
+# fast_rnnt_tpu/ops/lattice.py:84): "auto", the kernels on a CUDA tensor and
+# the plain builds on a CPU tensor; "kernel", the kernels (a CPU tensor
+# raises); "plain", the plain builds on any device.
+_BUILD_IMPLS = ("auto", "kernel", "plain")
+_LATTICE_BUILD_IMPL = "auto"
+
+
+def set_lattice_build_impl(impl: str) -> None:
+    """Select the simple and smoothed lattice builds' route, forward and
+    VJP: ``"auto"`` | ``"kernel"`` | ``"plain"``.  Nothing reroutes
+    silently: ``"kernel"`` on a CPU tensor raises ValueError, and so does
+    an unknown name."""
+    global _LATTICE_BUILD_IMPL
+    if impl not in _BUILD_IMPLS:
+        raise ValueError(f"lattice build impl must be one of {_BUILD_IMPLS}, got {impl!r}")
+    _LATTICE_BUILD_IMPL = impl
+
+
+def _build_kernel_route(x: torch.Tensor) -> bool:
+    """Whether the builds run their kernels on ``x`` (see
+    :func:`set_lattice_build_impl`)."""
+    if _LATTICE_BUILD_IMPL == "plain":
+        return False
+    if _LATTICE_BUILD_IMPL == "kernel" and not x.is_cuda:
+        raise ValueError(f'set_lattice_build_impl("kernel"): a tensor on {x.device} has no kernel')
+    return x.is_cuda
 
 
 def _check_rnnt_type(rnnt_type: str) -> None:
@@ -234,8 +268,9 @@ def get_rnnt_logprobs_rows(
       boundary: optional int [B, 4] rows [s_begin, t_begin, s_end, t_end].
       out_dtype: optional storage dtype of the returned lattice.
 
-    On a CUDA tensor the build always runs the kernel of
-    ``kernels/latbuild.py``; on a CPU tensor, the plain einsum build.
+    On a CUDA tensor the build runs the kernel of ``kernels/latbuild.py``;
+    on a CPU tensor, or under ``set_lattice_build_impl("plain")``, the
+    plain einsum build.
     """
     _check_rnnt_type(rnnt_type)
     from .kernels import latbuild
@@ -262,10 +297,10 @@ def get_rnnt_logprobs_smoothed_rows(
 
     On a CUDA tensor the am-heavy part runs the smoothed build kernel of
     ``kernels/latbuild.py`` (``lattice_rows_smoothed``); on a CPU tensor,
-    the plain einsum build.
+    or under ``set_lattice_build_impl("plain")``, the plain einsum build.
     """
     _check_rnnt_type(rnnt_type)
-    if not am.is_cuda:
+    if not _build_kernel_route(am):
         return _build_smoothed_rows_plain(
             lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale,
             boundary, rnnt_type,

@@ -2,8 +2,9 @@
 simple and smoothed losses of the additive joiner, the band-native pruned
 loss and the two-stage pruned pipelines, and the losses of a real joiner's
 logits (full, chunked and pruned).  Same argument order, defaults and
-reductions as the JAX package; no ``impl`` argument: the port dispatches on
-the tensor's device."""
+reductions as the JAX package; no ``impl`` argument: the port routes by
+the tensor's device and the process-wide switches
+``recursion.set_default_impl`` and ``lattice.set_lattice_build_impl``."""
 
 from __future__ import annotations
 

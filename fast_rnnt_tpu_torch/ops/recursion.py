@@ -16,7 +16,10 @@ occupancy-backward launch where the occupancies are asked for
 backward phase alone, seeded with the score gradient, on demand under
 autograd (or the fused launch, with ``_FUSE_SCORES_VJP``); on a CPU tensor
 they run the plain versions below (S+1 sequential rows, each solved by a
-doubling scan over t, see ``numerics.py``).
+doubling scan over t, see ``numerics.py``).  :func:`set_default_impl`
+picks that route for the recursion and the pruning ranges: ``"plain"``
+runs the plain versions on any device (the parity gate's independent path
+on the card), ``"cuda"`` requires the kernels.
 
 Dtype policy (the JAX package's, ``recursion.py:468-495``): float32 runs
 as it is; bfloat16 and float16 are storage, read and widened to float32 by
@@ -28,7 +31,8 @@ float dtype runs the plain path.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,7 +45,47 @@ __all__ = [
     "occupancy_roundtrip_check",
     "cummin",
     "monotonic_lower_bound",
+    "set_default_impl",
 ]
+
+# The route of the recursion and pruning-ranges wrappers (the JAX package's
+# process default, fast_rnnt_tpu/ops/recursion.py:435): None, the kernels
+# on a CUDA tensor and the plain versions on a CPU tensor; "cuda", the
+# kernels (a CPU tensor raises); "plain", the plain versions on any device.
+_IMPLS = ("cuda", "plain")
+_DEFAULT_IMPL: Optional[str] = None
+
+
+def set_default_impl(impl: Optional[str]) -> None:
+    """Pin (``"cuda"`` or ``"plain"``) or reset (``None``) the route of the
+    recursion and the pruning ranges for every later call, forward and
+    VJP.  Nothing reroutes silently: ``"cuda"`` on a CPU tensor raises
+    ValueError, and so does an unknown name."""
+    global _DEFAULT_IMPL
+    if impl is not None and impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS} or None")
+    _DEFAULT_IMPL = impl
+
+
+@contextlib.contextmanager
+def _pinned(impl: Optional[str]) -> Iterator[None]:
+    """``set_default_impl(impl)`` inside the block, the previous route after."""
+    prev = _DEFAULT_IMPL
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_impl(prev)
+
+
+def _kernel_route(x: torch.Tensor) -> bool:
+    """Whether the recursion and ranges wrappers launch their kernels on
+    ``x`` (see :func:`set_default_impl`)."""
+    if _DEFAULT_IMPL == "plain":
+        return False
+    if _DEFAULT_IMPL == "cuda" and not x.is_cuda:
+        raise ValueError(f'set_default_impl("cuda"): a tensor on {x.device} has no kernel')
+    return x.is_cuda
 
 # The scores op under autograd (pipeline stage 2) keeps p and runs the
 # backward kernel when the gradient is asked for.  With this switch (the JAX
@@ -289,7 +333,8 @@ class _MIRowsScores(torch.autograd.Function):
     @staticmethod
     def forward(ctx, px_rows, py_rows, boundary, lo, K):
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        if not needs_grad and not px_rows.is_cuda:
+        ctx.kernel = _kernel_route(px_rows)  # the backward takes the same route
+        if not needs_grad and not ctx.kernel:
             return _forward_scores_rows_plain(px_rows, py_rows, boundary, lo, K)
         from .kernels import wavefront
 
@@ -313,9 +358,10 @@ class _MIRowsScores(torch.autograd.Function):
             scale = g_scores[None, :, None].to(gx.dtype)
             return scale * gx, scale * gy, None, None, None
         px_rows, py_rows, boundary, lo, p_rows = ctx.saved_tensors
-        gx, gy = wavefront.backward_rows(
-            px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K
-        )
+        with _pinned("cuda" if ctx.kernel else "plain"):
+            gx, gy = wavefront.backward_rows(
+                px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K
+            )
         return gx, gy, None, None, None
 
 
@@ -404,7 +450,7 @@ def mutual_information_recursion(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Mutual-information recursion between pairs of sequences, (B, S, T)-
     major (the JAX package's public API; no ``impl`` argument: the port
-    dispatches on the tensor's device).
+    routes by the tensor's device and :func:`set_default_impl`).
 
     Args:
       px: [B, S, T+1] (regular) or [B, S, T] (modified/constrained)

@@ -4,7 +4,8 @@
 Each rank joins a gloo group through a ``file://`` store in the test's
 directory, runs one case on its slice of a batch that every rank builds
 from the same seed, and saves what the parent compares to
-``<dir>/rank<r>.pt``.
+``<dir>/rank<r>.pt`` (tests/test_torch_parallel.py and, for the
+collective census, tests/test_torch_profiling.py).
 
 Run (by the tests):  python -m tests._torch_mp_worker <case> <rank> <world> <dir>
 """
@@ -44,6 +45,7 @@ from fast_rnnt_tpu_torch.parallel import (  # noqa: E402
     make_mesh,
     shard_batch,
 )
+from fast_rnnt_tpu_torch.utils import collective_census  # noqa: E402
 
 
 # --- inputs, made the same way by the parent test -------------------------
@@ -224,7 +226,27 @@ def case_serve(mesh, rank, world, spec):
     return {"state": new_state, "hyps": hyps, "lens": lens}
 
 
-CASES = {"sharding": case_sharding, "train": case_train, "slice": case_slice, "serve": case_serve}
+def case_census(mesh, rank, world, spec):
+    """``collective_census`` of ``spec["steps"]`` steps of the two-rank
+    ``make_train_step`` (after one untraced step), under a profiler with
+    shapes; the lattice dims are the encoder's T and T+1."""
+    cfg = TransducerConfig(dtype=torch.float32, **TRAIN_CFG)
+    model = init_model(cfg, device="cpu", generator=torch.Generator().manual_seed(spec["seed"]))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    step = make_train_step(model, opt, LossConfig(s_range=3), mesh)
+    batch = shard_batch(train_batch(spec["seed"]), mesh)
+    step(batch)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        for _ in range(spec["steps"]):
+            step(batch)
+    T = -(-batch[0].shape[1] // 4)  # the encoder's frames: ceil(T_in / 4)
+    shapes = [e.input_shapes for e in prof.events() if e.name.startswith("gloo:")]
+    return {"census": collective_census(prof, lattice_dims=(T, T + 1)), "T": T, "shapes": shapes}
+
+
+CASES = {"sharding": case_sharding, "train": case_train, "slice": case_slice, "serve": case_serve,
+         "census": case_census}
 
 
 def main():

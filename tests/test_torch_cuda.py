@@ -18,7 +18,8 @@ forward-only build's memory; the smoothed build on bf16 lm and am; the
 pruning-window kernels on edge and long shapes, in every storage dtype;
 the transducer model's loss (its six kernel launches, against the same
 model on the CPU), its decoders and the forced alignment on the card;
-streaming and ``StreamServer`` on the card at the tiny causal width."""
+streaming and ``StreamServer`` on the card at the tiny causal width; the
+route switches and the parity gate at a small shape."""
 
 import numpy as np
 import pytest
@@ -872,3 +873,65 @@ def test_streaming_reset_on_cuda_restores_fresh_state(dev):
         assert torch.equal(a[0], f[0]) and torch.equal(a[1], o[1])
         n += 1
     assert n == len(list(leaves(state))) > 5
+
+
+def _launch_counts():
+    return [dict(m.LAUNCHES) for m in (wavefront, latbuild, ranges)]
+
+
+@pytest.mark.parametrize("loss_fn", [ft.rnnt_loss_simple_pruned, ft.rnnt_loss_smoothed_pruned],
+                         ids=["simple", "smoothed"])
+def test_route_switches_on_cuda(dev, monkeypatch, loss_fn):
+    """On CUDA tensors the default and "cuda" / "kernel" routes launch the
+    kernels, forward and VJP, with the same bits; both switches on "plain"
+    launch none and give the CPU route's losses and gradients (the loss and
+    lattice tolerances: the card sums in other orders)."""
+    from fast_rnnt_tpu_torch.ops import lattice, recursion
+
+    monkeypatch.setattr(recursion, "_DEFAULT_IMPL", None)
+    monkeypatch.setattr(lattice, "_LATTICE_BUILD_IMPL", "auto")
+    am, lm, sym, bnd = loss_inputs(41, B=3, T=40, S=7, C=20)
+
+    def run(device):
+        tam, tlm, tsym, tbnd = from_numpy(am, lm, sym, bnd, device=device)
+        tam.requires_grad_(), tlm.requires_grad_()
+        s, p, r = loss_fn(tlm, tam, tsym, 0, 3, boundary=tbnd, reduction="none")
+        g = torch.autograd.grad(s.sum() + p.sum(), (tam, tlm))
+        torch.cuda.synchronize()
+        return [x.detach().cpu() for x in (s, p, r, *g)]
+
+    before = _launch_counts()
+    shipped = run(dev)
+    assert _launch_counts() != before
+    recursion.set_default_impl("cuda")
+    lattice.set_lattice_build_impl("kernel")
+    pinned = run(dev)
+    assert all(torch.equal(a, b) for a, b in zip(pinned, shipped))
+
+    recursion.set_default_impl("plain")
+    lattice.set_lattice_build_impl("plain")
+    before = _launch_counts()
+    plain = run(dev)
+    assert _launch_counts() == before
+    cpu = run("cpu")
+    # the utterances whose ranges agree (a near-tie may flip one)
+    agree = (plain[2] == cpu[2]).reshape(len(am), -1).all(dim=1)
+    assert agree.any()
+    for a, b in zip(plain[:2], cpu[:2]):
+        assert_loss_close(a[agree], b[agree])
+    for a, b in zip(plain[3:], cpu[3:]):
+        assert_close(a[agree], b[agree], 1e-4, 1e-4)
+
+
+def test_parity_gate_on_cuda_small(dev):
+    """The gate at tests/test_parity_gate.py's size on the card: the kernel
+    route against the plain route passes enforce_parity (chip_smoke runs it
+    at the headline shape)."""
+    from fast_rnnt_tpu_torch.utils.parity import enforce_parity, onchip_parity_gate
+
+    am, lm, sym, bnd = loss_inputs(0, B=4, T=64, S=12, C=32)
+    before = _launch_counts()
+    got = onchip_parity_gate(*from_numpy(am, lm, sym, bnd, device=dev), s_range=4)
+    assert _launch_counts() != before
+    assert got["golden_cases"] == 5
+    enforce_parity(got)
