@@ -38,12 +38,20 @@ after:
     step's; then with bf16 pruned logits (a bf16 lattice in the recursion),
     held to the float32 recipe;
   * the unpruned ``rnnt_loss`` of full logits at B=4;
+  * ``precision``: ``set_matmul_precision`` at "highest" (3xTF32), "high"
+    (1xTF32) and "default" (one bf16 pass): the build kernels against
+    their plain emulation at each level, their times, the lattices and
+    the train step's loss against "highest", bf16 lm and am bit-equal
+    across the levels; ``bench.py``'s train step with ``impl="plain"``
+    (no kernel launched) and ``impl="cuda"`` (the six);
   * ``model-train``: the pruned transducer's training step
     (``models.make_train_step``) at the full width of ``TransducerConfig()``
     (6 conformer layers, d_model 256, vocab 500, bf16 compute) on
     ``benchmarks/harness.py``'s batch (B=8, T_in=1000, S=100, s_range=5,
-    seed 0), AdamW(1e-3, weight_decay 1e-4): the six loss kernels once
-    each, the losses and their gradients w.r.t. the loss's inputs held to
+    seed 0), AdamW(1e-3, weight_decay 1e-4): a first step with
+    ``LossConfig(impl="plain")`` on a copy launches no loss kernel and
+    gives the kernel step's simple loss to rel 1e-4; the six loss kernels
+    once each, the losses and their gradients w.r.t. the loss's inputs held to
     the plain versions on copies on the CPU (fed the card's ranges), 10
     more steps whose loss falls, then step time, audio-seconds/s, peak
     memory and the device-time split of the loss kernels and the model's
@@ -114,6 +122,7 @@ and prints no result: there is no CPU fallback.
 """
 
 import contextlib
+import copy
 import glob
 import json
 import os
@@ -228,15 +237,16 @@ def in_turns(*steps):
     return [cuda_ms(fn) for fn in order]
 
 
-def _split_rows(px_rows, py_rows, boundary, lo=None, K=0):
+def _split_rows(px_rows, py_rows, boundary, lo=None, K=0, impl=None):
     """The sweep pair (forward, then the backward seeded with ones), in the
     fused kernel's place for the ``split`` arm."""
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
 
-    p, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K)
-    gx, gy = wavefront.backward_rows(px_rows, py_rows, p, boundary, torch.ones_like(scores), lo, K)
+    p, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K, impl=impl)
+    gx, gy = wavefront.backward_rows(px_rows, py_rows, p, boundary, torch.ones_like(scores), lo, K,
+                                     impl=impl)
     return scores, gx, gy
 
 
@@ -406,7 +416,7 @@ def scan_diff(got, want, name):
     return arm_diff(got, want, name)
 
 
-def kernel_bounds(bnd, build_rate=3, esize=4):
+def kernel_bounds(bnd, build_rate=3, esize=4, bf16_ops=False):
     """Bound of each kernel at this run's headline inputs: each input read
     once, each output written once, fp32 (4 bytes).  The build kernels need
     every frame; their products run on the tensor cores, float32 operands
@@ -416,10 +426,11 @@ def kernel_bounds(bnd, build_rate=3, esize=4):
     design, for comparison.  The recursion and ranges kernels read only the
     cells inside each utterance's boundary (s <= s_end, t <= t_end), and
     their per-cell operation counts are taken from the code (log-add: 7,
-    occupancy: 10, window sum: 2)."""
+    occupancy: 10, window sum: 2).  ``bf16_ops``: the products at the bf16
+    peak on float32 am and lm (the "default" matmul precision)."""
     if build_rate == 0:
         mm = dict(rate=FP32_FLOP_PER_S)
-    elif esize == 2:
+    elif esize == 2 or bf16_ops:
         mm = dict(rate=BF16_FLOP_PER_S / build_rate)
     else:
         mm = dict(rate=TF32_FLOP_PER_S / build_rate)
@@ -897,6 +908,16 @@ def model_train_phase(dev, t, counted):
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
     loss_cfg = LossConfig(s_range=S_RANGE)
     step = make_train_step(model, opt, loss_cfg)
+    # the same first step with the losses' per-call impl="plain", on a copy
+    # of the model and optimizer: no loss kernel runs, and its simple loss is
+    # the kernel route's within rel 1e-4 (stage 2 may differ at near-tie
+    # ranges)
+    model_p = copy.deepcopy(model)
+    opt_p = torch.optim.AdamW(model_p.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4)
+    step_p = make_train_step(model_p, opt_p, LossConfig(s_range=S_RANGE, impl="plain"))
+    metrics_p, _, plain_first_ms, _, _ = counted(lambda: step_p(batch), "model-train (impl plain)", {})
+    del model_p, opt_p, step_p
 
     # the loss's inputs, kept with their gradients by wrappers of the two
     # losses on the training module
@@ -936,6 +957,9 @@ def model_train_phase(dev, t, counted):
             (("loss", total_c), ("simple_loss", simple_c), ("pruned_loss", pruned_c))}
     if max(rels.values()) > 1e-4:
         raise Failed(f"model-train: losses vs the plain versions on the CPU, rel err {rels} > 1e-4")
+    rel_plain = {k: rel_err(metrics_p[k], metrics[k]) for k in ("simple_loss", "pruned_loss")}
+    if rel_plain["simple_loss"] > 1e-4:
+        raise Failed(f"model-train: LossConfig(impl='plain') step's simple loss rel err {rel_plain} > 1e-4")
     g_err = worst(*(grad_err(a.grad.cpu(), b.grad, f"model-train d {n}", TRAIN_GRAD_TOL)
                     for a, b, n in ((s_lm, lm_c, "simple_lm"), (s_am, am_c, "simple_am"),
                                     (logits, lg_c, "logits"))))
@@ -956,7 +980,10 @@ def model_train_phase(dev, t, counted):
           f"B={MODEL_B} T_in={MODEL_T_IN} ({T_enc} encoder frames) S={MODEL_S} s_range={S_RANGE}, "
           f"AdamW(1e-3, weight_decay 1e-4), seed 0: launches {json.dumps(launches)}; loss "
           f"{metrics['loss'].item():.3f} (simple {metrics['simple_loss'].item():.3f}, pruned "
-          f"{metrics['pruned_loss'].item():.3f}), rel err vs the plain versions on the CPU on the same "
+          f"{metrics['pruned_loss'].item():.3f}); the step with LossConfig(impl=\"plain\") on a copy: no "
+          f"loss kernel launched, simple loss rel {rel_plain['simple_loss']:.3e} (tol 1e-4), pruned rel "
+          f"{rel_plain['pruned_loss']:.3e}, first call {plain_first_ms:.1f} ms; rel err vs the plain "
+          f"versions on the CPU on the same "
           f"inputs and ranges: total {rels['loss']:.3e} simple {rels['simple_loss']:.3e} pruned "
           f"{rels['pruned_loss']:.3e} (tol 1e-4); gradients w.r.t. simple_lm, simple_am and the "
           f"pruned logits max abs err {g_err[0]:.3e} ({g_err[1]:.3e} of max, tol {TRAIN_GRAD_TOL}); "
@@ -1584,10 +1611,17 @@ def profiling_phase(dev, am, lm, sym, bnd, fwd_peak, model, serve_ms):
     stats = device_memory_stats()
 
     shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    # the profiler keeps the device's activity inside the host's window of
+    # the block, the two clocks matched approximately: a margin on each side
+    # of the step keeps its first and last kernels in the window (a run
+    # without it lost the step's backward kernels once in five)
     with trace_to(TRACE_DIR) as prof:
+        time.sleep(0.05)
         with annotate("train_step"):
             train(am_g, lm_g)
         torch.cuda.synchronize()
+        time.sleep(0.1)
     files = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
     if len(files) != 1:
         raise Failed(f"profiling: trace_to wrote {files}, not one trace")
@@ -2003,32 +2037,44 @@ MAIN_KERNELS = ("latbuild_fwd", "latbuild_bwd", "wavefront_fused", "wavefront_fw
 
 def parity_phase(am, lm, sym, bnd):
     """``onchip_parity_gate`` at the headline shape, with each route's
-    launches counted (the gate's route switch wrapped), every metric printed
-    beside its limit, then ``enforce_parity``; then the gate once more with
-    the fused kernel's occupancies scaled by 1.01 (swapped in here, as
-    ``arm()`` swaps the recursion), which must make ``enforce_parity``
-    raise."""
+    launches counted, every metric printed beside its limit, then
+    ``enforce_parity``; then the gate once more with the fused kernel's
+    occupancies scaled by 1.01 (swapped in here, as ``arm()`` swaps the
+    recursion), which must make ``enforce_parity`` raise.  The gate picks
+    each call's route by its ``impl`` argument; the launches from one of its
+    calls up to the next (a loss's backward included) count for the route
+    of that call."""
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
     from fast_rnnt_tpu_torch.utils import parity
 
     counters = launch_counters()
     routes = {}
-    gate_routes = parity._routes
+    open_seg = []  # [route, counts at its start]
 
-    @contextlib.contextmanager
-    def counted_routes(impl, build_impl):
-        before = {name: d[k] for name, (d, k) in counters.items()}
-        with gate_routes(impl, build_impl):
-            yield
-        got = routes.setdefault(impl or "shipped", dict.fromkeys(counters, 0))
-        for name, (d, k) in counters.items():
-            got[name] += d[k] - before[name]
+    def close():
+        if open_seg:
+            route, before = open_seg.pop()
+            got = routes.setdefault(route, dict.fromkeys(counters, 0))
+            for name, (d, k) in counters.items():
+                got[name] += d[k] - before[name]
 
+    def segment(fn):
+        def run(*args, **kw):
+            close()
+            open_seg.append((kw.get("impl") or "shipped", {name: d[k] for name, (d, k) in counters.items()}))
+            return fn(*args, **kw)
+        return run
+
+    names = ("rnnt_loss_simple_pruned", "get_rnnt_logprobs_rows", "mutual_information_rows",
+             "get_rnnt_logprobs", "mutual_information_recursion")
     t0 = time.perf_counter()
-    with patched(parity, _routes=counted_routes):
+    with patched(parity, **{n: segment(getattr(parity, n)) for n in names}):
         metrics = parity.onchip_parity_gate(am, lm, sym, bnd, S_RANGE)
+        close()
     gate_s = time.perf_counter() - t0
     shipped, plain = routes["shipped"], routes["plain"]
+    if set(routes) != {"shipped", "plain"}:
+        raise Failed(f"parity: the gate's calls took the routes {sorted(routes)}")
     if any(shipped[k] == 0 for k in MAIN_KERNELS) or any(plain.values()):
         raise Failed(f"parity: launches on the shipped route {shipped}, on the plain route {plain}: "
                      f"the shipped route must launch each of {MAIN_KERNELS}, the plain route none")
@@ -2040,9 +2086,9 @@ def parity_phase(am, lm, sym, bnd):
 
     fused = wavefront.fused_rows
 
-    def scaled(*args):
+    def scaled(*args, **kw):
         n = wavefront.LAUNCHES["fused"]
-        scores, gx, gy = fused(*args)
+        scores, gx, gy = fused(*args, **kw)
         if wavefront.LAUNCHES["fused"] > n:  # the kernel's occupancies only
             gx, gy = 1.01 * gx, 1.01 * gy
         return scores, gx, gy
@@ -2061,6 +2107,155 @@ def parity_phase(am, lm, sym, bnd):
           f"route none; enforce_parity passed.  With the fused kernel's occupancies scaled by 1.01 it "
           f"raised on {failed} (" + ", ".join(f"{k} {bad[k]:.3e}" for k in failed) + ")")
     return metrics
+
+
+LEVELS = ("highest", "high", "default")
+
+
+def bounded_err(got, want, extra, name, atol=1e-4, rtol=1e-5):
+    """finite_err's check with ``extra`` (broadcast to ``want``) added to each
+    element's bound: max |got - want| over the finite entries."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or torch.isnan(got).any():
+        raise Failed(f"{name}: -inf pattern differs or NaN")
+    fin = torch.isfinite(want)
+    d = (got - want).abs()
+    lim = atol + rtol * want.abs() + torch.as_tensor(extra, dtype=torch.float64, device=want.device)
+    if (d[fin] > lim.expand_as(d)[fin]).any():
+        raise Failed(f"{name}: max abs err {d[fin].max().item():.3e} over 1e-4 + 1e-5|x| + the rounding "
+                     "flips' bound")
+    return d[fin].max().item() if fin.any() else 0.0
+
+
+def flip_bound(lm, am, level):
+    """The build's rounded exp operands on the two routes: the kernel's own
+    (``latbuild.round_exps``, its device code) against the plain emulation's
+    (``torch.exp``, then the rounding).  Returns (how many differ, per cell
+    (S+1, B, T) the bound on |log D_kernel - log D_plain| that follows:
+    log(1 + dD / D) with dD the products' change from the differing
+    operands, both operands taken at their larger value)."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild
+    from fast_rnnt_tpu_torch.ops.lattice import _PREC_CODE, _round_operand
+
+    ops = []
+    for x in (lm, am):
+        m = x.amax(2)
+        ops.append((latbuild.round_exps(x, m, _PREC_CODE[level]),
+                    _round_operand(torch.exp(x - m[..., None]), level)))
+    n = int(sum((k != q).sum() for k, q in ops))
+    if n == 0:
+        return 0, 0.0
+    (kl, pl), (ka, pa) = ops
+    dD = (torch.einsum("bsc,btc->sbt", (kl - pl).abs(), torch.maximum(ka, pa))
+          + torch.einsum("bsc,btc->sbt", torch.maximum(kl, pl), (ka - pa).abs()))
+    return n, torch.log1p(dD / torch.einsum("bsc,btc->sbt", pl, pa))
+
+
+def precision_phase(am, lm, sym, bnd, counted):
+    """``set_matmul_precision`` at the headline shape, for each level: the
+    build kernels (forward with residuals, backward; the smoothed build's
+    forward and backward) against their plain emulation at that level (the
+    lattices to 1e-4 + 1e-5|x| plus the bound that the differing rounded
+    operands allow, printed beside their count; the gradients to GRAD_TOL of
+    max, the backward on the forward's residual D, as the kernels take it),
+    max |dpx| and |dpy| and the train step's loss against "highest", and
+    the kernels' times; bf16 lm and am bit-equal across the levels.  Then
+    ``bench.py``'s train step with ``impl="plain"`` (no kernel) and
+    ``impl="cuda"`` (the six once each).  Returns {kernel: {level: ms}}."""
+    import torch
+
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned, set_matmul_precision
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild
+
+    te = bnd[:, 3].contiguous()
+    gen = torch.Generator(device=am.device).manual_seed(3)
+    dpx = torch.randn((S, B, T + 1), device=am.device, generator=gen)
+    dpy = torch.randn((S + 1, B, T), device=am.device, generator=gen)
+    dnd = torch.randn((S + 1, B, T), device=am.device, generator=gen)
+    lmp = torch.exp(lm - lm.amax(2, keepdim=True))
+    uni = (lmp / lmp.sum(2, keepdim=True)).mean((0, 1)) + float(np.finfo(np.float32).tiny)
+    del lmp
+    lm16, am16 = lm.bfloat16(), am.bfloat16()
+
+    def bench_step(impl=None):
+        a, l = am.clone().requires_grad_(), lm.clone().requires_grad_()
+        s_, p_, r_ = rnnt_loss_simple_pruned(l, a, sym, 0, S_RANGE, bnd, reduction="none", impl=impl)
+        loss = 0.5 * s_.sum() + p_.sum()
+        return loss.detach(), torch.autograd.grad(loss, (a, l)), r_
+
+    times = {k: {} for k in ("latbuild_fwd", "latbuild_bwd", "latbuild_fwd_parts", "latbuild_bwd_parts")}
+    lines, ref = [], {}
+    try:
+        for level in LEVELS:
+            set_matmul_precision(level)
+            n_flip, fb = flip_bound(lm, am, level)
+            fb_px = fb if isinstance(fb, float) else torch.cat([fb[:S], torch.zeros_like(fb[:S, :, :1])], 2)
+            px_k, py_k, _, res = latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)
+            px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
+            e_fwd = max(bounded_err(px_k, px_p, fb_px, f"{level} build px"),
+                        bounded_err(py_k, py_p, fb, f"{level} build py"))
+            g_k = latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)[:2]
+            g_p = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, d=res[0])[:2]
+            e_bwd = worst(*(grad_err(a, b, f"{level} build bwd {n}") for a, b, n in zip(g_k, g_p, ("d_lm", "d_am"))))
+            *o_k, res_s = latbuild.build_fwd(lm, am, sym, te, 0, False, uni, save=True)
+            o_p = latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)
+            e_pf = max(bounded_err(a, b, x, f"{level} parts {n}") for a, b, x, n in zip(
+                o_k, o_p, (fb_px, fb, fb), ("px", "py", "normd")))
+            del o_k, o_p
+            gs_k = latbuild.build_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd)
+            gs_p = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd, res_s[0])
+            e_pb = worst(*(grad_err(a, b, f"{level} parts bwd {n}")
+                           for a, b, n in zip(gs_k, gs_p, ("d_lm", "d_am", "d_uni"))))
+            del g_k, g_p, gs_k, gs_p
+            loss, _, _ = bench_step()
+            if level == "highest":
+                ref = dict(px=px_k, py=py_k, loss=loss)
+            d_px = (px_k - ref["px"]).nan_to_num(0.0, 0.0, 0.0).abs().max().item()
+            d_py = (py_k - ref["py"]).abs().max().item()
+            d_loss = rel_err(loss, ref["loss"])
+            del px_k, py_k, px_p, py_p
+            # bf16 lm and am ignore the level: the same bits at every one
+            b16 = (*latbuild.lattice_rows(lm16, am16, sym, 0, "regular", bnd),
+                   *latbuild.build_fwd(lm16, am16, sym, te, 0, False, uni)[:3])
+            if level == "highest":
+                ref["bf16"] = b16
+            elif not all(torch.equal(a, b) for a, b in zip(b16, ref["bf16"])):
+                raise Failed(f"precision: bf16 lm and am give other bits at {level!r} than at 'highest'")
+            times["latbuild_fwd"][level] = kernel_ms(lambda: latbuild.build_fwd(lm, am, sym, te, 0, False))
+            times["latbuild_bwd"][level] = kernel_ms(
+                lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy))
+            times["latbuild_fwd_parts"][level] = kernel_ms(
+                lambda: latbuild.build_fwd(lm, am, sym, te, 0, False, uni))
+            times["latbuild_bwd_parts"][level] = kernel_ms(
+                lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd))
+            del res, res_s
+            flips = ("" if level == "highest" else
+                     f"rounded operands differing between the routes {n_flip} of {B * (T + S + 1) * C}, "
+                     f"their bound on |d log D| {0.0 if isinstance(fb, float) else fb.max().item():.3e} "
+                     f"(added to the lattice tolerance); ")
+            lines.append(
+                f"{level}: {flips}vs plain emulation build fwd {e_fwd:.3e} (tol 1e-4 + 1e-5|x|) bwd "
+                f"{e_bwd[1]:.3e} of max (tol {GRAD_TOL}), parts fwd {e_pf:.3e} bwd {e_pb[1]:.3e} of max; vs "
+                f"highest max |dpx| {d_px:.3e} |dpy| {d_py:.3e}, train-step loss rel {d_loss:.3e}; kernel ms "
+                + ", ".join(f"{k} {v[level]:.4f}" for k, v in times.items()))
+    finally:
+        set_matmul_precision("highest")
+    del ref, lm16, am16, dpx, dpy, dnd
+
+    six = {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+           "wavefront_bwd": 1, "ranges": 1}
+    (loss_p, _, r_p), _, plain_ms, _, _ = counted(lambda: bench_step("plain"), "precision (impl plain)", {})
+    (loss_c, _, r_c), got_c, _, _, _ = counted(lambda: bench_step("cuda"), "precision (impl cuda)", six)
+    phase("precision", f"set_matmul_precision at B={B} T={T} S={S} C={C} (seed 0): " + "; ".join(lines)
+          + f"; bf16 lm and am: px, py (and the smoothed build's) bit-equal across the three levels; "
+          f"bench.py's train step with impl=\"plain\": no launch (first call {plain_ms:.1f} ms), with "
+          f"impl=\"cuda\": {json.dumps(got_c)}; their losses rel {rel_err(loss_p, loss_c):.3e}, ranges "
+          f"{'equal' if torch.equal(r_p, r_c) else 'differing at near-ties'}")
+    return times
 
 
 def headline_kernels(am, lm, sym, bnd):
@@ -3011,6 +3206,16 @@ def main():
           f"split {joint['split'][3]:.1f} MiB")
     del joint
 
+    # the matmul precision levels of the build kernels, and the per-call
+    # routes of the train step
+    prec_times = precision_phase(am, lm, sym, bnd, counted)
+    # bounds at each level: the forward's products in one TF32 or bf16 pass
+    # ("high", "default"); the backward's d_am and d_lm products stay 3xTF32
+    one_pass = {"high": kernel_bounds(bnd, 1), "default": kernel_bounds(bnd, 1, bf16_ops=True)}
+    prec_bounds = {name: {level: (bounds[name] if level == "highest" or "bwd" in name
+                                  else one_pass[level][name])[0] for level in LEVELS}
+                   for name in prec_times}
+
     # the transducer model's training step at full width, its convergence
     # and decoding on a copy task, and forced alignment of the headline lattice
     launches_model, model_ms = model_train_phase(dev, t, counted)
@@ -3097,7 +3302,9 @@ def main():
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": report[name].get("library_ms"),
          "model_train_launches": launches_model[name],
-         "dp_train_launches": dp["gloo"][0]["launches"].get(name, 0)}
+         "dp_train_launches": dp["gloo"][0]["launches"].get(name, 0),
+         **({"ms_by_precision": prec_times[name], "bound_ms_by_precision": prec_bounds[name]}
+            if name in prec_times else {})}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

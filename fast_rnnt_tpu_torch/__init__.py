@@ -18,8 +18,10 @@ from .ops.lattice import (
     get_rnnt_logprobs_rows,
     get_rnnt_logprobs_smoothed,
     get_rnnt_logprobs_smoothed_rows,
+    matmul_precision,
     roll_by_shifts,
     set_lattice_build_impl,
+    set_matmul_precision,
 )
 from .ops.losses import (
     rnnt_loss,
@@ -42,6 +44,8 @@ from .ops.recursion import (
     monotonic_lower_bound,
     mutual_information_recursion,
     mutual_information_rows,
+    register_impl,
+    set_default_impl,
 )
 
 __version__ = "0.1.0"
@@ -53,6 +57,8 @@ __all__ = [
     "mutual_information_rows",
     "cummin",
     "monotonic_lower_bound",
+    "register_impl",
+    "set_default_impl",
     # lattice construction
     "fix_for_boundary",
     "get_rnnt_logprobs",
@@ -62,8 +68,10 @@ __all__ = [
     "get_rnnt_logprobs_rows",
     "get_rnnt_logprobs_smoothed",
     "get_rnnt_logprobs_smoothed_rows",
+    "matmul_precision",
     "roll_by_shifts",
     "set_lattice_build_impl",
+    "set_matmul_precision",
     # pruning pipeline
     "adjust_pruning_lower_bound",
     "do_rnnt_pruning",

@@ -32,6 +32,15 @@
 // the exps bf16(exp(am - amax)) of the float32 shift, the shifted gathers
 // bf16(am[t, c] - amax) and the unigram row rounded to bf16, every sum
 // float32.
+// Float32 inputs take one of three operand modes (OP, the matmul precision
+// levels, wgmma.cuh) for D's product and duni's: 2, 3xTF32 (the images'
+// hi and lo parts); 1, one TF32 pass (the hi part alone, the A fragments
+// rounded by cvt.rna); 0, one bf16 pass (a bf16 image of lmp and bf16 A
+// fragments from the float32 am tile, as bf16 inputs run it).  duni's
+// scalar products round both operands the same way (2: float32).  The
+// rounded exps are CUDA's expf (operand_exp), the exp torch.exp takes, so
+// the plain emulation rounds the same values.  bf16 inputs have the one
+// mode 0.  The epilogue is the same in every mode.
 //
 // Design.  D is, per utterance, an (S+1) x T x C product, run here on the
 // tensor cores (wgmma, wgmma.cuh).  `lm_parts_kernel` first takes the lm
@@ -77,15 +86,18 @@ constexpr int kFwdStages = 3;
 // The lm side, one block per (row s, utterance): lmmax[s] = max_c lm[s, c],
 // pylm[s] = lm[s, blank], pxlm[s] = lm[s, sym_s] (0 for a symbol outside
 // [0, C)), and the products' B operand exp(lm[s, c] - lmmax[s]) written
-// straight into its image (TF32 hi / lo parts, or bf16), zero-padded to G
-// groups and nK chunks (the padding rows' blocks write only zeros).
-template <bool BF16, bool PALLAS>
+// straight into its image (operand mode OP: TF32 hi / lo parts, the hi part
+// alone, or bf16), zero-padded to G groups and nK chunks (the padding rows'
+// blocks write only zeros).
+template <bool BF16, bool PALLAS, int OP>
 __global__ void __launch_bounds__(128)
 lm_parts_kernel(const void* __restrict__ lm_v, const int* __restrict__ sym, int S, int C, int blank,
                 int nK, int G, float* __restrict__ lmmax, float* __restrict__ pylm,
                 float* __restrict__ pxlm, void* __restrict__ img_hi, void* __restrict__ img_lo) {
+  static_assert(!BF16 || OP == 0, "bf16 inputs have one operand mode");
   using Tin = std::conditional_t<BF16, __nv_bfloat16, float>;
-  constexpr int epc = 16 / sizeof(Tin), KC = 128 / sizeof(Tin);
+  constexpr int kOpE = OP == 0 ? 2 : 4;  // bytes of an operand element
+  constexpr int epc = 16 / kOpE, KC = 128 / kOpE;
   __shared__ float red[4];
   const int s = blockIdx.x, b = blockIdx.y, S1 = S + 1, tid = threadIdx.x;
   const bool live = s < S1;
@@ -108,10 +120,12 @@ lm_parts_kernel(const void* __restrict__ lm_v, const int* __restrict__ sym, int 
   }
   const size_t base = (size_t)b * nK;  // the utterance's first chunk
   for (int c = tid; c < nK * KC; c += 128) {
-    const float v = (live && c < C) ? shifted_exp<BF16, PALLAS>(ld_f(row + c), m) : 0.f;
+    const float v = (live && c < C) ? operand_exp<BF16, PALLAS, OP>(ld_f(row + c), m) : 0.f;
     const size_t i = ((((base + c / KC) * G + s / 8) * (KC / epc) + (c % KC) / epc) * 8 + s % 8) * epc + c % epc;
-    if constexpr (BF16) {
+    if constexpr (OP == 0) {
       static_cast<__nv_bfloat16*>(img_hi)[i] = __float2bfloat16_rn(v);
+    } else if constexpr (OP == 1) {
+      static_cast<uint32_t*>(img_hi)[i] = to_tf32(v);
     } else {
       uint32_t h, l;
       split_tf32(v, h, l);
@@ -129,7 +143,7 @@ enum { kam_global = 0, kam_bulk = 1, kam_threads = 2 };
 
 constexpr int kFwdThreads = 128;  // one warpgroup
 
-template <bool BF16, bool PALLAS, int NB8>
+template <bool BF16, bool PALLAS, int OP, int NB8>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ img_lo,
                     const float* __restrict__ pxlm, const float* __restrict__ pylm,
@@ -139,10 +153,13 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
                     int modified, int G, int nK, int am_mode, float* __restrict__ px,
                     float* __restrict__ py, float* __restrict__ nd, float* __restrict__ d_out,
                     float* __restrict__ amax_out, float* __restrict__ duni_out) {
+  static_assert(!BF16 || OP == 0, "bf16 inputs have one operand mode");
   using Tin = std::conditional_t<BF16, __nv_bfloat16, float>;
-  constexpr int kParts = BF16 ? 1 : 2;
-  constexpr int kE = sizeof(Tin);
-  constexpr int KC = 128 / kE, KSTEP = 32 / kE;
+  constexpr bool kBfOp = OP == 0;            // bf16 products (else TF32)
+  constexpr int kParts = OP == 2 ? 2 : 1;    // image parts: hi (and lo)
+  constexpr int kE = sizeof(Tin);            // bytes of an am element
+  constexpr int kOpE = kBfOp ? 2 : 4;        // bytes of an operand element
+  constexpr int KC = 128 / kOpE, KSTEP = 32 / kOpE;
   constexpr int NCOL = 8 * NB8;           // rows s of the block
   constexpr uint32_t kPart = NB8 * 1024;  // one chunk of the block's B rows
   extern __shared__ __align__(128) unsigned char smem[];
@@ -165,7 +182,7 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
   const Tin* am_rows = static_cast<const Tin*>(am_v) + ((size_t)b * T + t0) * C;
   const size_t img_off = ((size_t)b * nK * G + n0 / 8) * 1024;
   const unsigned char* hi_b = static_cast<const unsigned char*>(img_hi) + img_off;
-  const unsigned char* lo_b = BF16 ? nullptr : static_cast<const unsigned char*>(img_lo) + img_off;
+  const unsigned char* lo_b = OP == 2 ? static_cast<const unsigned char*>(img_lo) + img_off : nullptr;
   // the residuals (B, T) are written once, by the first N tile
   const bool row_owner = blockIdx.y == 0;
 
@@ -174,7 +191,7 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
     unsigned char* dst = ring + st * kParts * kPart;
     mbar_expect_tx(&bars[st], kParts * kPart);
     bulk_copy(dst, hi_b + (size_t)k * G * 1024, kPart, &bars[st]);
-    if constexpr (!BF16) bulk_copy(dst + kPart, lo_b + (size_t)k * G * 1024, kPart, &bars[st]);
+    if constexpr (OP == 2) bulk_copy(dst + kPart, lo_b + (size_t)k * G * 1024, kPart, &bars[st]);
   };
   if (tid == 0) {
     for (int i = 0; i <= kFwdStages; ++i) mbar_init(&bars[i], 1);
@@ -228,10 +245,11 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
     for (int d = 1; d < kPer; d <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
     if (part == 0) amax_s[r] = m;
     if (uni != nullptr) {
-      // PALLAS: bf16 operands (the unigram row and the exps), exact products
+      // both operands (the unigram row and the exps) rounded in the
+      // operand mode (PALLAS: bf16), exact products but in mode 2
       auto term = [&](int c, float uu) {
         const float e = expf(ld_f(row + c) - m);
-        return PALLAS ? fmaf(bf16r(uni[c]), bf16r(e), uu) : fmaf(uni[c], e, uu);
+        return fmaf(op_round<OP>(uni[c]), op_round<OP>(e), uu);
       };
       float uu[8];
 #pragma unroll
@@ -263,19 +281,19 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
   const float m0 = amax_s[r0], m1 = amax_s[r1];
   const int o0 = min(r0, max(nrows - 1, 0)) * C, o1 = min(r1, max(nrows - 1, 0)) * C;
   auto amp = [&](float a, float mx, bool ok) -> float {
-    const float e = shifted_exp<BF16, PALLAS>(a, mx);
+    const float e = operand_exp<BF16, PALLAS, OP>(a, mx);
     return ok ? e : 0.f;
   };
   // the chunk's fragments: every load first, then the exps and splits
   auto frag_from = [&](const Tin* base, int k, uint32_t(&h)[4][4], uint32_t(&l)[4][4]) {
-    constexpr int kCols = BF16 ? 4 : 2;  // columns per row in a k-step
+    constexpr int kCols = kBfOp ? 4 : 2;  // columns per row in a k-step
     float a0[4][kCols], a1[4][kCols];
     int cc[4][kCols];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
-        const int c = k * KC + ks * KSTEP + (BF16 ? 2 * q + (i & 1) + 8 * (i >> 1) : q + 4 * i);
+        const int c = k * KC + ks * KSTEP + (kBfOp ? 2 * q + (i & 1) + 8 * (i >> 1) : q + 4 * i);
         cc[ks][i] = c;
         const int cl = min(c, C - 1);
         a0[ks][i] = ld_f(base + o0 + cl);
@@ -289,11 +307,16 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
         e0[i] = amp(a0[ks][i], m0, v0 && cc[ks][i] < C);
         e1[i] = amp(a1[ks][i], m1, v1 && cc[ks][i] < C);
       }
-      if constexpr (BF16) {
+      if constexpr (kBfOp) {
         h[ks][0] = pack_bf16(e0[0], e0[1]);
         h[ks][1] = pack_bf16(e1[0], e1[1]);
         h[ks][2] = pack_bf16(e0[2], e0[3]);
         h[ks][3] = pack_bf16(e1[2], e1[3]);
+      } else if constexpr (OP == 1) {
+        h[ks][0] = to_tf32(e0[0]);
+        h[ks][1] = to_tf32(e1[0]);
+        h[ks][2] = to_tf32(e0[1]);
+        h[ks][3] = to_tf32(e1[1]);
       } else {
         split_tf32(e0[0], h[ks][0], l[ks][0]);
         split_tf32(e1[0], h[ks][1], l[ks][1]);
@@ -305,7 +328,7 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
   float acc[4 * NB8];
 #pragma unroll
   for (int i = 0; i < 4 * NB8; ++i) acc[i] = 0.f;
-  mainloop<BF16, !BF16, !BF16, NB8>(
+  mainloop<kBfOp, OP == 2, OP == 2, NB8>(
       acc, nK, kPart,
       [&](int k) { mbar_wait(&bars[k % kFwdStages], (k / kFwdStages) & 1); },
       [&](int k, uint32_t(&h)[4][4], uint32_t(&l)[4][4]) {
@@ -393,16 +416,16 @@ latbuild_fwd_kernel(const void* __restrict__ img_hi, const void* __restrict__ im
     for (int s = n0 + tid; s < min(n0 + NCOL, S); s += kFwdThreads) px[((size_t)s * B + b) * T1 + T] = kNegInf;
 }
 
-template <bool BF16, bool PALLAS, int NB8>
+template <bool BF16, bool PALLAS, int OP, int NB8>
 int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, const void* uni,
                int B, int S, int T, int C, int blank, int modified, float* side, void* img_hi,
                void* img_lo, void* px, void* py, void* nd, void* d_out, void* amax_out,
                void* duni_out, cudaStream_t st) {
   using Tin = std::conditional_t<BF16, __nv_bfloat16, float>;
-  constexpr int kE = sizeof(Tin), KC = 128 / kE, kParts = BF16 ? 1 : 2;
+  constexpr int kE = sizeof(Tin), KC = OP == 0 ? 64 : 32, kParts = OP == 2 ? 2 : 1;
   const int S1 = S + 1, G = image_groups(S1), nK = even_chunks(C, KC);
   float *lmmax = side, *pylm = side + (size_t)B * S1, *pxlm = side + 2 * (size_t)B * S1;
-  lm_parts_kernel<BF16, PALLAS><<<dim3((unsigned)(G * 8), (unsigned)B), 128, 0, st>>>(
+  lm_parts_kernel<BF16, PALLAS, OP><<<dim3((unsigned)(G * 8), (unsigned)B), 128, 0, st>>>(
       lm, static_cast<const int*>(sym), S, C, blank, nK, G, lmmax, pylm, pxlm, img_hi, img_lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -419,8 +442,8 @@ int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, 
                       : reinterpret_cast<uintptr_t>(am) % 16 == 0 && T % m == 0 ? kam_bulk
                                                                                    : kam_threads;
   const size_t bytes = ring + misc + (am_mode != kam_global ? tile : 0);
-  auto kern = latbuild_fwd_kernel<BF16, PALLAS, NB8>;
-  if ((err = allow_max_smem<latbuild_fwd_kernel<BF16, PALLAS, NB8>>()) != cudaSuccess) return (int)err;
+  auto kern = latbuild_fwd_kernel<BF16, PALLAS, OP, NB8>;
+  if ((err = allow_max_smem<latbuild_fwd_kernel<BF16, PALLAS, OP, NB8>>()) != cudaSuccess) return (int)err;
   const int t_tiles = (T + 63) / 64;
   const dim3 grid((unsigned)(t_tiles > 0 ? t_tiles : 1), (unsigned)(G / NB8), (unsigned)B);
   kern<<<grid, kFwdThreads, bytes, st>>>(
@@ -431,14 +454,14 @@ int launch_fwd(const void* lm, const void* sym, const void* te, const void* am, 
   return (int)cudaGetLastError();
 }
 
-template <bool BF16, bool PALLAS>
+template <bool BF16, bool PALLAS, int OP>
 int launch_fwd_nb8(const void* lm, const void* sym, const void* te, const void* am, const void* uni,
                    int B, int S, int T, int C, int blank, int modified, float* side, void* img_hi,
                    void* img_lo, void* px, void* py, void* nd, void* d_out, void* amax_out,
                    void* duni_out, cudaStream_t st) {
 #define FRT_FWD(N)                                                                              \
   case N:                                                                                       \
-    return launch_fwd<BF16, PALLAS, N>(lm, sym, te, am, uni, B, S, T, C, blank, modified, side, \
+    return launch_fwd<BF16, PALLAS, OP, N>(lm, sym, te, am, uni, B, S, T, C, blank, modified, side, \
                                        img_hi, img_lo, px, py, nd, d_out, amax_out, duni_out, st);
   switch (pick_nb8(S + 1)) {
     FRT_FWD(4)
@@ -455,24 +478,52 @@ int launch_fwd_nb8(const void* lm, const void* sym, const void* te, const void* 
 // lm (B, S+1, C) and am (B, T, C), both float32 or both bf16 (bf16 = 1);
 // symbols (B, S) and te (B,) int32 (te = -1: no t_end column); uni (C,)
 // f32 or NULL (plain build); bf16 with uni rounds as the Pallas smoothed
-// build does.  Scratch: side, 3 B (S+1) f32
-// (lmmax, pylm, pxlm), and img_hi, img_lo (float32 only) of the sizes
-// frt_latbuild_sizes gives.  Out: px (S, B, T or T+1), py (S+1, B, T) f32;
-// nd (S+1, B, T) when uni is given; the residuals d (S+1, B, T), amax (B, T)
-// and duni (B, T, smoothed only) where their pointers are not NULL.
+// build does.  prec, the operand mode of float32 inputs: 0 one bf16 pass,
+// 1 one TF32 pass, 2 3xTF32 (bf16 inputs ignore it).  Scratch: side, 3 B
+// (S+1) f32 (lmmax, pylm, pxlm), and img_hi, img_lo (float32 at prec 2
+// only) of the sizes frt_latbuild_sizes gives.  Out: px (S, B, T or T+1),
+// py (S+1, B, T) f32; nd (S+1, B, T) when uni is given; the residuals d
+// (S+1, B, T), amax (B, T) and duni (B, T, smoothed only) where their
+// pointers are not NULL.
 extern "C" int frt_latbuild_fwd(const void* lm, const void* sym, const void* te, const void* am,
                                 const void* uni, int B, int S, int T, int C, int blank,
-                                int modified, int bf16, void* side, void* img_hi, void* img_lo,
-                                void* px, void* py, void* nd, void* d_out, void* amax_out,
-                                void* duni_out, void* stream) {
+                                int modified, int bf16, int prec, void* side, void* img_hi,
+                                void* img_lo, void* px, void* py, void* nd, void* d_out,
+                                void* amax_out, void* duni_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sd = static_cast<float*>(side);
-  if (bf16 && uni != nullptr)
-    return launch_fwd_nb8<true, true>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
-                                      img_lo, px, py, nd, d_out, amax_out, duni_out, st);
-  if (bf16)
-    return launch_fwd_nb8<true, false>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
-                                       img_lo, px, py, nd, d_out, amax_out, duni_out, st);
-  return launch_fwd_nb8<false, false>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi,
-                                      img_lo, px, py, nd, d_out, amax_out, duni_out, st);
+#define FRT_FWD_MODE(BF, PA, OP)                                                                 \
+  return launch_fwd_nb8<BF, PA, OP>(lm, sym, te, am, uni, B, S, T, C, blank, modified, sd, img_hi, \
+                                    img_lo, px, py, nd, d_out, amax_out, duni_out, st);
+  if (bf16 && uni != nullptr) FRT_FWD_MODE(true, true, 0)
+  if (bf16) FRT_FWD_MODE(true, false, 0)
+  if (prec == 0) FRT_FWD_MODE(false, false, 0)
+  if (prec == 1) FRT_FWD_MODE(false, false, 1)
+  FRT_FWD_MODE(false, false, 2)
+#undef FRT_FWD_MODE
+}
+
+// The forward's exp operands, for a check of its operand modes: out[r, c]
+// = exp(x[r, c] - m[r]) as the products of float32 inputs take it in
+// operand mode prec (rounded to bf16 or TF32 in modes 0 and 1), x (rows,
+// cols) float32.
+__global__ void round_exps_kernel(const float* __restrict__ x, const float* __restrict__ m, long rows,
+                                  int cols, int prec, float* __restrict__ out) {
+  const long n = rows * cols;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n; i += (long)gridDim.x * blockDim.x) {
+    const float a = x[i], mx = m[i / cols];
+    out[i] = prec == 0   ? op_round<0>(operand_exp<false, false, 0>(a, mx))
+             : prec == 1 ? op_round<1>(operand_exp<false, false, 1>(a, mx))
+                         : operand_exp<false, false, 2>(a, mx);
+  }
+}
+
+extern "C" int frt_round_exps(const void* x, const void* m, long long rows, int cols, int prec, void* out,
+                              void* stream) {
+  const long long n = rows * cols;
+  if (n == 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  round_exps_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(m), rows, cols, prec, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

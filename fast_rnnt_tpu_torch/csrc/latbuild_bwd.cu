@@ -29,6 +29,13 @@
 // operand keeps both parts), and d_am's factor amp is exp(am - amax) in
 // float32, unrounded.
 //
+// The matmul precision (prec, frt_latbuild_bwd) reaches d_uni's product
+// alone, as the Pallas kernel's precision argument does (:401): at 2 it is
+// the d_lm product's row S+1; at 1 (one TF32 pass) and 0 (one bf16 pass) a
+// kernel of its own takes it, rd and the exps rounded as such a pass
+// rounds them.  The d_am and d_lm products are 3xTF32 at every level, as
+// the Pallas kernel's fixed splits are, and D is the forward's residual.
+//
 // Design.  The Pallas kernel carries d_lm in VMEM across a sequential t
 // grid; blocks here run in no order, so each output has exactly one owner
 // block and no atomics are used (d_lm, d_uni and d_am are deterministic):
@@ -99,7 +106,7 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
                          int S, int T, int modified, int Sp, int Sc, int Gw, int nKt,
                          float* __restrict__ wT, void* __restrict__ wimg_hi,
                          void* __restrict__ wimg_lo, float* __restrict__ colsum,
-                         float* __restrict__ rsx, float* __restrict__ rsy) {
+                         float* __restrict__ rsx, float* __restrict__ rsy, float* __restrict__ rd) {
   using Tw = std::conditional_t<BF16, __nv_bfloat16, float>;
   constexpr int epc = 16 / sizeof(Tw), KC = 128 / sizeof(Tw);
   constexpr int AS = KC + 4;
@@ -151,9 +158,12 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
       __syncthreads();
       if (sl == 0 && live) {
         colsum[(size_t)b * T + t] = red[0][0][tl] + red[0][1][tl] + red[0][2][tl] + red[0][3][tl];
-        if (dnd != nullptr)
-          ws[tl * Sc + S1 - s0] = -(red[1][0][tl] + red[1][1][tl] + red[1][2][tl] + red[1][3][tl]) /
-                                  duni[(size_t)b * T + t];
+        if (dnd != nullptr) {
+          const float r = -(red[1][0][tl] + red[1][1][tl] + red[1][2][tl] + red[1][3][tl]) /
+                          duni[(size_t)b * T + t];
+          ws[tl * Sc + S1 - s0] = r;
+          if (rd != nullptr) rd[(size_t)b * T + t] = r;
+        }
       }
     }
     __syncthreads();
@@ -602,7 +612,7 @@ latbuild_bwd_lm_kernel(const void* __restrict__ lmp_v, const int* __restrict__ s
       const int jl = 8 * j + 2 * q + (e & 1), s = n0 + jl;
       if (r >= ncol || s >= S1x) continue;
       if (s == S1) {  // the smoothed build's unigram row: the d_uni partial
-        duni_part[(size_t)b * C + c] = acc[4 * j + e];
+        if (duni_part != nullptr) duni_part[(size_t)b * C + c] = acc[4 * j + e];
         continue;
       }
       float v = lp[4 * j + e] * acc[4 * j + e];
@@ -610,6 +620,38 @@ latbuild_bwd_lm_kernel(const void* __restrict__ lmp_v, const int* __restrict__ s
       if (c == blank) v += side_gy[jl];
       d_lm[((size_t)b * S1 + s) * C + c] = v;
     }
+  }
+}
+
+// d_uni's product in one TF32 (OP 1) or bf16 (OP 0) pass, float32 inputs:
+// duni_part[b, c] = sum_t op(rd[t]) op(exp(am[t, c] - amax[t])), each
+// operand rounded as such a pass rounds it (the exps as the forward's duni
+// takes them), the products exact in float32.  A block per (32 columns,
+// utterance), its 8 warps each over every 8th frame, the 8 partials summed
+// in a fixed order.
+template <int OP>
+__global__ void __launch_bounds__(256)
+latbuild_bwd_duni_kernel(const float* __restrict__ am, const float* __restrict__ amax,
+                         const float* __restrict__ rd, int T, int C, float* __restrict__ duni_part) {
+  __shared__ float part[8][32];
+  const int b = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const float* am_b = am + (size_t)b * T * C;
+  const float* mx = amax + (size_t)b * T;
+  const float* r = rd + (size_t)b * T;
+  float acc = 0.f;
+  if (c < C) {
+#pragma unroll 4
+    for (int t = w; t < T; t += 8)
+      acc = fmaf(op_round<OP>(r[t]), op_round<OP>(expf(am_b[(size_t)t * C + c] - mx[t])), acc);
+  }
+  part[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && c < C) {
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v += part[i][lane];
+    duni_part[(size_t)b * C + c] = v;
   }
 }
 
@@ -691,9 +733,12 @@ cudaError_t launch_lm(const void* lmp, const void* sym, const void* am, const vo
 template <bool BF16, bool PALLAS>
 int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am, const void* amax,
                const void* d, const void* duni, const void* dpx, const void* dpy, const void* dnd,
-               int B, int S, int T, int C, int blank, int modified, void* wT, void* wimg_hi,
+               int B, int S, int T, int C, int blank, int modified, int prec, void* wT, void* wimg_hi,
                void* wimg_lo, void* limg_hi, void* limg_lo, void* colsum, void* rsx, void* rsy,
-               void* d_am, void* d_lm, void* duni_part, cudaStream_t st) {
+               void* rd, void* d_am, void* d_lm, void* duni_part, cudaStream_t st) {
+  // d_uni in a one-pass mode: its own kernel, after the d_lm product
+  const bool own_duni = !BF16 && dnd != nullptr && prec < 2;
+  if (own_duni && rd == nullptr) return (int)cudaErrorInvalidValue;
   using Tin = std::conditional_t<BF16, __nv_bfloat16, float>;
   constexpr int kParts = BF16 ? 1 : 2;
   const Sizes z(S, T, C, BF16, dnd != nullptr);
@@ -709,7 +754,8 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
       static_cast<const float*>(d), static_cast<const float*>(duni), static_cast<const float*>(dpx),
       static_cast<const float*>(dpy), static_cast<const float*>(dnd), static_cast<const int*>(te), B,
       S, T, modified, z.Sp, Sc, z.Gw, z.nKt, static_cast<float*>(wT), wimg_hi, wimg_lo,
-      static_cast<float*>(colsum), static_cast<float*>(rsx), static_cast<float*>(rsy));
+      static_cast<float*>(colsum), static_cast<float*>(rsx), static_cast<float*>(rsy),
+      own_duni ? static_cast<float*>(rd) : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   constexpr int kAmStage = 64 * ((BF16 ? 64 : 32) + 4) * 4 + kParts * kTileC / 8 * 1024;
@@ -729,10 +775,12 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
       modified, z.nKs, z.Gc, am_mode, tile_map, d_am);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  void* lm_duni = own_duni ? nullptr : duni_part;
 #define FRT_LM(N)                                                                                  \
   case N:                                                                                          \
-    return (int)launch_lm<BF16, PALLAS, N>(lmp, sym, am, amax, wimg_hi, wimg_lo, rsx, rsy, z, B, S, \
-                                           T, C, blank, d_lm, duni_part, st);
+    err = launch_lm<BF16, PALLAS, N>(lmp, sym, am, amax, wimg_hi, wimg_lo, rsx, rsy, z, B, S, T, C, \
+                                     blank, d_lm, lm_duni, st);                                    \
+    break;
   switch (pick_nb8(z.S1x)) {
     FRT_LM(4)
     FRT_LM(8)
@@ -741,18 +789,32 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
       FRT_LM(16)
   }
 #undef FRT_LM
+  if (err != cudaSuccess || !own_duni) return (int)err;
+  if constexpr (!BF16) {
+    const dim3 grid((unsigned)((C + 31) / 32), (unsigned)B);
+    auto args = [&](auto kern) {
+      kern<<<grid, 256, 0, st>>>(static_cast<const float*>(am), static_cast<const float*>(amax),
+                                 static_cast<const float*>(rd), T, C, static_cast<float*>(duni_part));
+    };
+    if (prec == 0)
+      args(latbuild_bwd_duni_kernel<0>);
+    else
+      args(latbuild_bwd_duni_kernel<1>);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Scratch sizes, for B utterances: out[0] bytes of each part of the
-// forward's lmp image, out[1] floats of wT (per 64-frame tile and 32-row
+// forward's lmp image (its chunks 64 bf16 or 32 TF32 columns, by the
+// operand mode prec), out[1] floats of wT (per 64-frame tile and 32-row
 // (64 bf16) chunk of s, a 64 x (KC + 4) tile), out[2] bytes of each part of
 // the w image, out[3] bytes of each part of the lmp^T image, out[4] P.
-extern "C" int frt_latbuild_sizes(int B, int S, int T, int C, int bf16, int smoothed,
+extern "C" int frt_latbuild_sizes(int B, int S, int T, int C, int bf16, int smoothed, int prec,
                                   long long* out) {
   const Sizes z(S, T, C, bf16, smoothed);
-  out[0] = (long long)B * even_chunks(C, z.KC) * image_groups(S + 1) * 1024;
+  out[0] = (long long)B * even_chunks(C, bf16 || prec == 0 ? 64 : 32) * image_groups(S + 1) * 1024;
   out[1] = (long long)B * z.tiles * z.nKs * kPrepT * (z.KC + 4);
   out[2] = (long long)B * z.nKt * z.Gw * 1024;
   out[3] = (long long)B * z.nKs * z.Gc * 1024;
@@ -766,28 +828,29 @@ extern "C" int frt_latbuild_sizes(int B, int S, int T, int C, int bf16, int smoo
 // (B, S) and te (B,) int32 (te = -1: no t_end column); am (B, T, C); the
 // forward's residuals amax (B, T), d (S+1, B, T) and, smoothed, duni (B, T)
 // (float32); cotangents dpx (S, B, T or T+1), dpy (S+1, B, T) and,
-// smoothed, dnd (S+1, B, T) (NULL for the plain build), float32.  Scratch,
-// of the sizes frt_latbuild_sizes gives: wT (f32), wimg_hi and wimg_lo,
-// limg_hi and (float32 only) limg_lo, colsum (B, T), rsx and rsy (B, P,
-// S+1).  Out: d_am (B, T, C) in am's dtype, d_lm (B, S+1, C) f32 and,
-// smoothed, duni_part (B, C).  T >= 1.
+// smoothed, dnd (S+1, B, T) (NULL for the plain build), float32.  prec, the
+// operand mode of d_uni's product for float32 inputs (0 one bf16 pass, 1
+// one TF32 pass, 2 3xTF32; the other products are 3xTF32 at every mode).
+// Scratch, of the sizes frt_latbuild_sizes gives: wT (f32), wimg_hi and
+// wimg_lo, limg_hi and (float32 only) limg_lo, colsum (B, T), rsx and rsy
+// (B, P, S+1), and rd (B, T) f32 for the smoothed build on float32 inputs
+// at prec 0 or 1 (else NULL).  Out: d_am (B, T, C) in am's dtype, d_lm (B,
+// S+1, C) f32 and, smoothed, duni_part (B, C).  T >= 1.
 extern "C" int frt_latbuild_bwd(const void* lmp, const void* sym, const void* te,
                                 const void* am, const void* amax, const void* d,
                                 const void* duni, const void* dpx, const void* dpy,
                                 const void* dnd, int B, int S, int T, int C, int blank,
-                                int modified, int bf16, void* wT, void* wimg_hi, void* wimg_lo,
-                                void* limg_hi, void* limg_lo, void* colsum, void* rsx, void* rsy,
-                                void* d_am, void* d_lm, void* duni_part, void* stream) {
+                                int modified, int bf16, int prec, void* wT, void* wimg_hi,
+                                void* wimg_lo, void* limg_hi, void* limg_lo, void* colsum,
+                                void* rsx, void* rsy, void* rd, void* d_am, void* d_lm,
+                                void* duni_part, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && dnd != nullptr)
-    return launch_bwd<true, true>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-                                  modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
-                                  d_am, d_lm, duni_part, st);
-  if (bf16)
-    return launch_bwd<true, false>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-                                   modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
-                                   d_am, d_lm, duni_part, st);
-  return launch_bwd<false, false>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-                                  modified, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy,
-                                  d_am, d_lm, duni_part, st);
+#define FRT_BWD(BF, PA)                                                                               \
+  return launch_bwd<BF, PA>(lmp, sym, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank, modified, \
+                            prec, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx, rsy, rd, d_am,  \
+                            d_lm, duni_part, st);
+  if (bf16 && dnd != nullptr) FRT_BWD(true, true)
+  if (bf16) FRT_BWD(true, false)
+  FRT_BWD(false, false)
+#undef FRT_BWD
 }

@@ -20,6 +20,11 @@
 // lo_x hi_y + hi_x lo_y + hi_x hi_y, three TF32 wgmmas accumulating in
 // float32 (the lo lo term, ~2^-22 |x y|, is dropped): ~2^-21 relative per
 // product, as CUTLASS's "fast accurate" 3xTF32 GEMMs.
+//
+// Operand modes of float32 inputs (the matmul precision levels): 2, 3xTF32
+// as above; 1, the hi parts alone, one TF32 pass (both operands rounded by
+// cvt.rna: to nearest, ties away from zero); 0, one bf16 pass (both rounded
+// to nearest even).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -114,6 +119,17 @@ FRT_DEV void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
 
 FRT_DEV float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
+FRT_DEV float tf32r(float x) { return __uint_as_float(to_tf32(x)); }
+
+// x as an operand of a product in operand mode OP: bf16 (0), TF32 (1) or
+// float32 (2: a scalar product's own precision)
+template <int OP>
+FRT_DEV float op_round(float x) {
+  if constexpr (OP == 0) return bf16r(x);
+  if constexpr (OP == 1) return tf32r(x);
+  return x;
+}
+
 FRT_DEV uint32_t bf16_bits(float x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
 }
@@ -140,6 +156,17 @@ template <bool BF16, bool PALLAS = false>
 FRT_DEV float shifted_exp(float a, float m) {
   if constexpr (BF16 && PALLAS) return bf16r(expf(a - m));
   return BF16 ? bf16r(expf(bf16r(a - m))) : __expf(a - m);
+}
+
+// exp(a - m) as the products take it in operand mode OP (float32 inputs):
+// shifted_exp's __expf in mode 2, whose error is below 3xTF32's; where the
+// value is rounded to TF32 or bf16 (modes 1 and 0), CUDA's expf, the exp
+// torch.exp computes, so that the rounding meets the value the plain
+// emulation rounds (an exp one ulp apart can round to the next step)
+template <bool BF16, bool PALLAS, int OP>
+FRT_DEV float operand_exp(float a, float m) {
+  if constexpr (BF16 || OP == 2) return shifted_exp<BF16, PALLAS>(a, m);
+  return expf(a - m);
 }
 
 template <typename T>

@@ -53,11 +53,17 @@ _TRUNC_STD = 0.87962566103423978
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
+    """The loss's settings, the JAX package's.  ``impl`` is the losses'
+    per-call route, passed to both (None: the process switches and the
+    tensors' device; "cuda"; "plain", the plain versions on any device, the
+    build included; or a ``register_impl`` name)."""
+
     s_range: int = 5
     simple_scale: float = 0.5
     pruned_scale: float = 1.0
     rnnt_type: str = "regular"
     delay_penalty: float = 0.0
+    impl: Optional[str] = None
 
 
 def make_boundary(out_lens: torch.Tensor, symbol_lens: torch.Tensor) -> torch.Tensor:
@@ -92,9 +98,10 @@ def pruned_transducer_loss(
         delay_penalty=loss_cfg.delay_penalty,
         reduction="sum",
         calc_gradients=True,
+        impl=loss_cfg.impl,
     )
     # the occupancies are not differentiable: they only pick the int ranges
-    ranges = get_rnnt_prune_ranges(px_grad, py_grad, boundary, loss_cfg.s_range)
+    ranges = get_rnnt_prune_ranges(px_grad, py_grad, boundary, loss_cfg.s_range, impl=loss_cfg.impl)
     am_pruned, lm_pruned = do_rnnt_pruning(am, lm, ranges)
     logits = model.join(am_pruned, lm_pruned)
     pruned_loss = rnnt_loss_pruned(
@@ -106,6 +113,7 @@ def pruned_transducer_loss(
         rnnt_type=loss_cfg.rnnt_type,
         delay_penalty=loss_cfg.delay_penalty,
         reduction="sum",
+        impl=loss_cfg.impl,
     )
     total = loss_cfg.simple_scale * simple_loss + loss_cfg.pruned_scale * pruned_loss
     metrics = {

@@ -50,15 +50,17 @@ _SIGNATURES = {
     # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+3 rows),
     # scores, pxg, pyg, threads, dtype, stream
     "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],
-    # lm, symbols, te, am, uni, B, S, T, C, blank, modified, bf16, side,
-    # img_hi, img_lo, px, py, nd, d, amax, duni, stream
-    "frt_latbuild_fwd": [P] * 5 + [I] * 7 + [P] * 10,
+    # lm, symbols, te, am, uni, B, S, T, C, blank, modified, bf16, prec,
+    # side, img_hi, img_lo, px, py, nd, d, amax, duni, stream
+    "frt_latbuild_fwd": [P] * 5 + [I] * 8 + [P] * 10,
     # lmp, symbols, te, am, amax, d, duni, dpx, dpy, dnd, B, S, T, C, blank,
-    # modified, bf16, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum, rsx,
-    # rsy, d_am, d_lm, duni_part, stream
-    "frt_latbuild_bwd": [P] * 10 + [I] * 7 + [P] * 12,
-    # B, S, T, C, bf16, smoothed, out (int64[5])
-    "frt_latbuild_sizes": [I] * 6 + [P],
+    # modified, bf16, prec, wT, wimg_hi, wimg_lo, limg_hi, limg_lo, colsum,
+    # rsx, rsy, rd, d_am, d_lm, duni_part, stream
+    "frt_latbuild_bwd": [P] * 10 + [I] * 8 + [P] * 13,
+    # B, S, T, C, bf16, smoothed, prec, out (int64[5])
+    "frt_latbuild_sizes": [I] * 7 + [P],
+    # x, m, rows, cols, prec, out, stream: the forward's rounded exps
+    "frt_round_exps": [P, P, ctypes.c_longlong, I, I, P, P],
     # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, raw (scratch), out,
     # threads, dtype, stream
     "frt_ranges": [P, P, P, I, I, I, I, I, I, P, P, I, I, P],

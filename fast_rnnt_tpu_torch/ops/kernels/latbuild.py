@@ -19,7 +19,10 @@ the unigram denominator) only when autograd needs a gradient, and the
 backward launches the VJP kernels on them.
 
 The kernels take float32 lm and am (products in 3xTF32 on the tensor
-cores, see ``csrc/wgmma.cuh``), or bf16 lm and am (bf16 products, float32
+cores, see ``csrc/wgmma.cuh``; under ``lattice.set_matmul_precision``'s
+"high" and "default" the forward's products and the smoothed backward's
+unigram product in one TF32 or one bf16 pass, each operand rounded, ``prec``
+below), or bf16 lm and am (bf16 products, float32
 sums), the JAX package's bf16 mode: px and py come out float32, the
 gradients in the inputs' dtypes.  In that mode the backward keeps the
 forward's float32 residual D (the JAX package recomputes it).  The plain
@@ -44,15 +47,18 @@ import torch
 
 from ..lattice import (
     _TINY,
+    _PREC_CODE,
     _assert_fp32_matmul,
     _build_kernel_route,
     _build_rows_plain,
     _build_smoothed_rows_plain,
     _kill_t_end,
     _normalizers_plain,
+    _operand_precision,
     _pad_px,
     _px_gathers,
     _py_gathers,
+    _round_operand,
     _smoothing_scales,
     _symbol_index,
 )
@@ -68,6 +74,7 @@ __all__ = [
     "lattice_rows_smoothed_plain",
     "build_fwd",
     "build_bwd",
+    "round_exps",
     "LAUNCHES",
 ]
 
@@ -80,13 +87,23 @@ _KINDS = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=64)
-def _scratch_sizes(B: int, S: int, T: int, C: int, bf16: bool, smoothed: bool):
+def _scratch_sizes(B: int, S: int, T: int, C: int, bf16: bool, smoothed: bool, prec: int):
     """Scratch of the build kernels, from ``frt_latbuild_sizes``: bytes of
     each part of the forward's lmp image, floats of wT, bytes of each part
     of the w and lmp^T images, the number P of row-sum partials."""
     out = (ctypes.c_longlong * 5)()
-    _build.load_library().frt_latbuild_sizes(B, S, T, C, int(bf16), int(smoothed), out)
+    _build.load_library().frt_latbuild_sizes(B, S, T, C, int(bf16), int(smoothed), prec, out)
     return tuple(int(x) for x in out)
+
+
+def _prec_code(am: torch.Tensor, prec: Optional[int]) -> int:
+    """The kernels' operand mode (0 "default", 1 "high", 2 "highest"):
+    ``prec`` where given, else the matmul precision's for float32 am; bf16
+    am takes its one bf16 mode at every setting (the kernels' bf16 mode
+    has no other)."""
+    if am.dtype == torch.bfloat16:
+        return 2
+    return _PREC_CODE[_operand_precision(am.dtype)] if prec is None else int(prec)
 
 
 def _lm_probs(lm: torch.Tensor, smoothed: bool = False) -> torch.Tensor:
@@ -145,11 +162,14 @@ def _check_cotangent(name, x, shape, dev):
     return x.contiguous()
 
 
-def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, save: bool = False):
+def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, save: bool = False,
+              prec: Optional[int] = None):
     """Launch the forward kernel.  Returns ``(px, py, nd, residuals)``:
     ``nd`` (S+1, B, T) only with ``uni`` (the smoothed build), else None;
     ``residuals`` = (D (S+1, B, T), amax (B, T), duni (B, T) or None) only
-    with ``save``, else None."""
+    with ``save``, else None.  ``prec`` is the operand mode of D and duni's
+    products for float32 lm and am (0 bf16, 1 TF32, 2 3xTF32; None: the
+    matmul precision's)."""
     B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
     dev = am.device
     am = am.contiguous()
@@ -166,17 +186,19 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
         return px, py, nd, res
     d, amax, duni = res if save else (None, None, None)
     bf16 = am.dtype == torch.bfloat16
+    prec = _prec_code(am, prec)
     lib = _build.load_library()
     p = _build.ptr
     # the lm side (lmmax, pylm, pxlm) and exp(lm - lmmax) as the products' B
-    # operand, in the wgmma layout (csrc/wgmma.cuh), both made by the kernel
-    nbytes = _scratch_sizes(B, S, T, C, bf16, False)[0]
+    # operand, in the wgmma layout (csrc/wgmma.cuh), both made by the kernel;
+    # a TF32 lo part only for 3xTF32
+    nbytes = _scratch_sizes(B, S, T, C, bf16, False, prec)[0]
     side = torch.empty(3 * B * (S + 1), **f32)
     img_hi = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    img_lo = None if bf16 else torch.empty_like(img_hi)
+    img_lo = torch.empty_like(img_hi) if not bf16 and prec == 2 else None
     err = lib.frt_latbuild_fwd(
         p(lm.contiguous()), p(sym), p(te_fix), p(am), p(None if uni is None else uni.contiguous()),
-        B, S, T, C, int(blank), int(modified), int(bf16), p(side), p(img_hi), p(img_lo),
+        B, S, T, C, int(blank), int(modified), int(bf16), prec, p(side), p(img_hi), p(img_lo),
         p(px), p(py), p(nd), p(d), p(amax), p(duni), _build.stream_ptr(dev),
     )
     _build.check(err, "latbuild_fwd")
@@ -185,12 +207,13 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
 
 
 def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
-              uni=None, dnd=None):
+              uni=None, dnd=None, prec: Optional[int] = None):
     """Launch the VJP kernels on the forward's ``residuals``.  Returns
     ``(d_lm (B, S+1, C) float32, d_am (B, T, C) in am's dtype, d_uni (C,) or
     None)``: d_lm as the kernel sums it (the autograd route casts it to lm's
     dtype); ``uni`` and ``dnd`` together select the smoothed build's
-    backward."""
+    backward.  ``prec`` (as :func:`build_fwd`'s) sets d_uni's product
+    alone: the d_am and d_lm products keep 3xTF32 at every setting."""
     if (uni is None) != (dnd is None):
         raise ValueError("uni and dnd go together (the smoothed build's backward)")
     B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
@@ -208,6 +231,7 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
     d_am = torch.empty((B, T, C), dtype=am.dtype, device=dev)
     d_lm = torch.empty((B, S + 1, C), **f32)
     d_uni_part = torch.zeros((B, C), **f32) if uni is not None else None
+    prec = _prec_code(am, prec)
     if B == 0 or T == 0:
         d_lm.zero_()
     else:
@@ -218,7 +242,7 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         lmp = lmp.contiguous()
         lib = _build.load_library()
         p = _build.ptr
-        _, n_wT, w_bytes, l_bytes, P = _scratch_sizes(B, S, T, C, bf16, uni is not None)
+        _, n_wT, w_bytes, l_bytes, P = _scratch_sizes(B, S, T, C, bf16, uni is not None, prec)
         u8 = dict(dtype=torch.uint8, device=dev)
         wT = torch.empty(n_wT, **f32)
         wimg_hi, wimg_lo = torch.empty(w_bytes, **u8), torch.empty(w_bytes, **u8)
@@ -227,52 +251,79 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         colsum = torch.empty((B, T), **f32)
         rsx = torch.empty((B, P, S + 1), **f32)
         rsy = torch.empty((B, P, S + 1), **f32)
+        # d_uni's weights rd (B, T), for its one-pass product
+        rd = torch.empty((B, T), **f32) if uni is not None and not bf16 and prec < 2 else None
         err = lib.frt_latbuild_bwd(
             p(lmp), p(sym), p(te_fix), p(am.contiguous()), p(amax), p(d), p(duni),
-            p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified), int(bf16),
+            p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified), int(bf16), prec,
             p(wT), p(wimg_hi), p(wimg_lo), p(limg_hi), p(limg_lo), p(colsum), p(rsx), p(rsy),
-            p(d_am), p(d_lm), p(d_uni_part), _build.stream_ptr(dev),
+            p(rd), p(d_am), p(d_lm), p(d_uni_part), _build.stream_ptr(dev),
         )
         _build.check(err, "latbuild_bwd")
         LAUNCHES["bwd" if uni is None else "bwd_parts"] += 1
     return d_lm, d_am, None if uni is None else d_uni_part.sum(dim=0)
 
 
+def round_exps(x: torch.Tensor, m: torch.Tensor, prec: int) -> torch.Tensor:
+    """The forward kernel's product operands for float32 inputs, made by
+    its own device code: ``exp(x - m[..., None])`` rounded as operand mode
+    ``prec`` rounds it (0 bf16, 1 TF32, 2 float32), x (..., C) float32 on
+    the card.  For a check of the modes against their plain emulation;
+    not counted among the launches."""
+    if not x.is_cuda or x.dtype != torch.float32 or m.dtype != torch.float32:
+        raise TypeError("round_exps takes float32 CUDA tensors")
+    x, m = x.contiguous(), m.contiguous()
+    out = torch.empty_like(x)
+    C = x.shape[-1]
+    err = _build.load_library().frt_round_exps(
+        _build.ptr(x), _build.ptr(m), x.numel() // max(C, 1), C, int(prec), _build.ptr(out),
+        _build.stream_ptr(x.device),
+    )
+    _build.check(err, "round_exps")
+    return out
+
+
 class _BuildFn(torch.autograd.Function):
     """The CUDA build: (lm, am) -> (px, py), its VJP a kernel too."""
 
     @staticmethod
-    def forward(ctx, lm, am, symbols, te_fix, blank, modified):
+    def forward(ctx, lm, am, symbols, te_fix, blank, modified, prec):
         save = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        px, py, _, res = build_fwd(lm, am, symbols, te_fix, blank, modified, save=save)
+        px, py, _, res = build_fwd(lm, am, symbols, te_fix, blank, modified, save=save, prec=prec)
         if save:
             ctx.save_for_backward(lm, am, symbols, te_fix, *res[:2])
-            ctx.blank, ctx.modified = blank, modified
+            ctx.blank, ctx.modified, ctx.prec = blank, modified, prec
         return px, py
 
     @staticmethod
     def backward(ctx, dpx, dpy):
         lm, am, symbols, te_fix, d, amax = ctx.saved_tensors
         d_lm, d_am, _ = build_bwd(
-            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy
+            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy, prec=ctx.prec
         )
-        return d_lm.to(lm.dtype), d_am, None, None, None, None
+        return d_lm.to(lm.dtype), d_am, None, None, None, None, None
 
 
 class _BuildPartsFn(torch.autograd.Function):
     """The smoothed build: (lm, am, uni) -> (px, py, normd), its VJP the
     kernels' own: the CUDA kernels on the kernel route, their plain
     versions (``lattice_rows_parts_plain``, ``lattice_rows_bwd_plain``)
-    otherwise; the backward takes the forward's route."""
+    otherwise (``kernel``; None: the build switch and the device); the
+    backward takes the forward's route and operand precision ``prec`` (a
+    level name; None: the matmul precision's for am's dtype)."""
 
     @staticmethod
-    def forward(ctx, lm, am, symbols, te_fix, uni, blank, modified):
+    def forward(ctx, lm, am, symbols, te_fix, uni, blank, modified, kernel=None, prec=None):
         save = any(ctx.needs_input_grad[i] for i in (0, 1, 4))
-        ctx.kernel = _build_kernel_route(am)
-        if ctx.kernel:
-            px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save)
+        if kernel is None:
+            kernel = _build_kernel_route(am)
+        if prec is None:
+            prec = _operand_precision(am.dtype)
+        ctx.kernel, ctx.prec = kernel, prec
+        if kernel:
+            px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save, _PREC_CODE[prec])
         else:
-            (px, py, nd), res = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified), ()
+            (px, py, nd), res = lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank, modified, prec), ()
         if save:
             ctx.save_for_backward(lm, am, symbols, te_fix, uni, *res)
             ctx.blank, ctx.modified = blank, modified
@@ -283,13 +334,14 @@ class _BuildPartsFn(torch.autograd.Function):
         lm, am, symbols, te_fix, uni, *res = ctx.saved_tensors
         if ctx.kernel:
             d_lm, d_am, d_uni = build_bwd(
-                lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd
+                lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd,
+                _PREC_CODE[ctx.prec],
             )
         else:
             d_lm, d_am, d_uni = lattice_rows_bwd_plain(
-                lm, am, symbols, te_fix, dpx, dpy, ctx.blank, ctx.modified, uni, dnd
+                lm, am, symbols, te_fix, dpx, dpy, ctx.blank, ctx.modified, uni, dnd, prec=ctx.prec
             )
-        return d_lm.to(lm.dtype), d_am, None, None, d_uni, None, None
+        return d_lm.to(lm.dtype), d_am, None, None, d_uni, None, None, None, None
 
 
 def _te_fix(boundary, B: int, regular: bool, device) -> torch.Tensor:
@@ -307,41 +359,49 @@ def lattice_rows(
     rnnt_type: str = "regular",
     boundary: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """s-major ``(px_rows [S, B, T(+1)], py_rows [S+1, B, T])``; the kernel
-    on a CUDA tensor, the plain einsum build on a CPU tensor or under
-    ``set_lattice_build_impl("plain")``."""
+    on a CUDA tensor, the plain einsum build on a CPU tensor, under
+    ``set_lattice_build_impl("plain")`` or with ``impl="plain"``."""
     if rnnt_type == "constrained":
-        px, py = lattice_rows(lm, am, symbols, termination_symbol, "modified")
+        px, py = lattice_rows(lm, am, symbols, termination_symbol, "modified", impl=impl)
         px = px + py[1:]
-    elif not _build_kernel_route(am):
+    elif not _build_kernel_route(am, impl):
         px, py = lattice_rows_plain(lm, am, symbols, termination_symbol, rnnt_type, boundary)
     else:
         te_fix = _te_fix(boundary, am.shape[0], rnnt_type == "regular", am.device)
+        prec = _PREC_CODE[_operand_precision(am.dtype)]  # float16 lm and am: "highest"
         px, py = _BuildFn.apply(
-            *_f16_as_f32(lm, am), symbols, te_fix, int(termination_symbol), rnnt_type == "modified"
+            *_f16_as_f32(lm, am), symbols, te_fix, int(termination_symbol), rnnt_type == "modified", prec
         )
     if out_dtype is not None:
         px, py = px.to(out_dtype), py.to(out_dtype)
     return px, py
 
 
-def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
+def lattice_rows_parts_plain(lm, am, symbols, te_fix, uni, blank: int, modified: bool,
+                             prec: Optional[str] = None):
     """The plain version of the smoothed build kernel: (px, py, normd) with
     ``normd[s, t] = norm[s, t] - log sum_c uni[c] exp(am[t, c])``, float32;
     ordinary differentiable torch in (lm, am, uni).  bf16 lm and am are
     rounded where the Pallas smoothed build rounds them (``_parts_plain_bf16``);
-    float16 lm and am are taken as float32, as that build takes them."""
+    float16 lm and am are taken as float32, as that build takes them.  For
+    float32 lm and am both products' operands are rounded at level ``prec``
+    (None: the matmul precision's), as the kernel rounds them."""
     if am.dtype == torch.bfloat16:
         return _parts_plain_bf16(lm, am, symbols, te_fix, uni, blank, modified)
+    if prec is None:
+        prec = _operand_precision(am.dtype)
     lm, am = _f16_as_f32(lm, am)
-    normalizers, am_max, am_probs, _, _ = _normalizers_plain(lm, am)
+    normalizers, am_max, am_probs, _, _ = _normalizers_plain(lm, am, prec)
     px_am, px_lm = _px_gathers(lm, am, symbols)
     px = _pad_px(px_am + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
     if not modified:
         px = _kill_t_end(px, te_fix)
     py = _py_gathers(lm, am, blank) - normalizers
-    amonly = torch.log(torch.einsum("btc,c->bt", am_probs, uni)) + am_max[:, :, 0]
+    amonly = torch.einsum("btc,c->bt", _round_operand(am_probs, prec), _round_operand(uni, prec))
+    amonly = torch.log(amonly) + am_max[:, :, 0]
     return px, py, normalizers - amonly[None]
 
 
@@ -372,7 +432,7 @@ def _parts_plain_bf16(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
 
 
 def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modified: bool,
-                           uni=None, dnd=None, d=None):
+                           uni=None, dnd=None, d=None, prec: Optional[str] = None):
     """The plain version of the VJP kernels, the formulas of
     ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``
     for cotangents (dpx, dpy) and, with the smoothed build's unigram row,
@@ -386,13 +446,23 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
     am are taken as float32.  ``d``, the forward's residual D (S+1, B, T)
     as the kernels take it, replaces the recomputed normalizer denominator
     (the smoothed build's bf16 w then rounds from the same float32 value
-    as in the kernels)."""
+    as in the kernels).  For float32 lm and am the unigram products, d_uni's
+    and the recomputed unigram denominator, and a recomputed D round their
+    operands at level ``prec`` (None: the matmul precision's), as the
+    forward kernel that made the residuals and the d_uni kernel do; the d_am
+    and d_lm products keep full precision at every level, as the kernels'
+    3xTF32 products do."""
     _assert_fp32_matmul(am)
     B, T, C = am.shape
     S = symbols.shape[1]
     blank %= C
     pallas = uni is not None and am.dtype == torch.bfloat16
     rnd = _bf16_round if pallas else (lambda x: x)
+    if prec is None or am.dtype != torch.float32:
+        prec = _operand_precision(am.dtype)
+
+    def knob(x):
+        return _round_operand(x, prec)
 
     def shifted_exp(x):
         if pallas:
@@ -407,7 +477,7 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
         amf = am.detach().float()
         amp_f = torch.exp(amf - amf.amax(dim=2, keepdim=True))
     if d is None:
-        d = torch.einsum("bsc,btc->bst", lmp, amp) + _TINY
+        d = torch.einsum("bsc,btc->bst", knob(lmp), knob(amp)) + _TINY
     else:
         d = d.float().permute(1, 0, 2)
     # cotangents B-major; dpx zeroed on the constant -inf columns
@@ -432,9 +502,9 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
     d_uni = None
     if uni is not None:
         u = rnd(uni.detach().float())
-        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", amp, u)
+        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", knob(amp), knob(u))
         d_am = d_am + amp_f * (rd[:, :, None] * u)
-        d_uni = torch.einsum("bt,btc->c", rnd(rd), amp)
+        d_uni = torch.einsum("bt,btc->c", knob(rnd(rd)), knob(amp))
     return d_lm, d_am.to(am.dtype), d_uni
 
 
@@ -447,15 +517,16 @@ def lattice_rows_smoothed(
     am_only_scale: float = 0.1,
     boundary: Optional[torch.Tensor] = None,
     rnnt_type: str = "regular",
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smoothed s-major rows (port of ``lattice_rows_fused_smoothed``): the
     smoothed build kernels return (px, py, normd) and its VJP on a CUDA
-    tensor (their plain versions on a CPU tensor); the unigram statistics
-    and the three-way interpolation are plain torch, differentiable end to
-    end."""
+    tensor (their plain versions on a CPU tensor or with ``impl="plain"``);
+    the unigram statistics and the three-way interpolation are plain torch,
+    differentiable end to end."""
     if rnnt_type == "constrained":
         px, py = lattice_rows_smoothed(
-            lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, None, "modified"
+            lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, None, "modified", impl
         )
         return px + py[1:], py
     B, T, C = am.shape
@@ -471,7 +542,8 @@ def lattice_rows_smoothed(
     # included, as the reference does
     uni = (lmp / lmsum[:, :, None]).mean(dim=(0, 1)) + _TINY
     uni_log = torch.log(uni)
-    px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified)
+    px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified,
+                                        _build_kernel_route(am, impl), _operand_precision(am.dtype))
 
     # per-(b, s) columns, s-major (S?, B, 1)
     sym, valid = _symbol_index(symbols, C)

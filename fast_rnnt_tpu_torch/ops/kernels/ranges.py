@@ -9,14 +9,17 @@ utterance), in one call.
 
 A CPU tensor runs the plain version (``pruning._window_starts_plain``: the
 cumsum-difference argmax, then ``adjust_pruning_lower_bound``); a CUDA
-tensor launches the kernels or raises.  The route follows
-``recursion.set_default_impl``, as the JAX package's ranges follow its
-recursion impl.  ``window_argmax_kernel_order`` is
-the kernels' raw argmax in their own float32 summation order, the
-reference that their starts are held to exactly on the card.
+tensor launches the kernels or raises.  The route follows the per-call
+``impl`` and ``recursion.set_default_impl``, as the JAX package's ranges
+follow its recursion impl: a registered recursion takes the plain version.
+``window_argmax_kernel_order`` is the kernels' raw argmax in their own
+float32 summation order, the reference that their starts are held to
+exactly on the card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -56,12 +59,14 @@ def window_starts(
     K: int,
     boundary: torch.Tensor,
     adjust_step: int,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, T) int32 repaired window starts from the occupancies
     ``py_grad_rows`` (S+1, B, T) and ``px_grad_rows`` (S, B, T') (only
     ``[:, :, :T]`` is read), both float32, bf16 or float16, summed in
-    float32; ``K`` is the window width (1 <= K <= S+1)."""
-    if not _kernel_route(py_grad_rows):
+    float32; ``K`` is the window width (1 <= K <= S+1); ``impl`` the
+    route, as the recursion's."""
+    if not _kernel_route(py_grad_rows, impl):
         return _window_starts_plain(py_grad_rows, px_grad_rows, K, boundary, adjust_step)
     S1, B, T = py_grad_rows.shape
     S, Bx, T1x = px_grad_rows.shape

@@ -15,8 +15,9 @@ of the first two; no package path calls it, and it keeps a T cap.
 
 A CPU tensor runs the plain version (``recursion._forward_rows_plain`` /
 ``_backward_rows_plain``); a CUDA tensor launches the kernel or raises.
-``recursion.set_default_impl("plain")`` sends every tensor to the plain
-version, and ``"cuda"`` makes a CPU tensor raise.
+``impl="plain"`` (per call, or ``recursion.set_default_impl("plain")``)
+sends every tensor to the plain version, and ``"cuda"`` makes a CPU tensor
+raise.
 
 Dtypes on a CUDA tensor: px/py are float32, bfloat16 or float16 storage
 (both the same); the kernels compute in float32, p, ans_grad and the
@@ -131,13 +132,14 @@ def forward_rows(
     boundary: torch.Tensor,
     lo: Optional[torch.Tensor] = None,
     K: int = 0,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward lattice, s-major: returns (p_rows [S+1, B, T+1] float32,
     -inf outside each utterance's boundary rectangle, and scores [B]
     float32).  ``px_rows``/``py_rows`` are unmasked; the boundary and the
     optional band ``lo <= s < lo + K`` are masked inside.  On a CUDA tensor:
     the sweep kernel's forward phase, any T."""
-    if not _kernel_route(px_rows):
+    if not _kernel_route(px_rows, impl):
         return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
     _check_index(S, B, T, S + 1)
@@ -165,13 +167,14 @@ def backward_rows(
     ans_grad: torch.Tensor,
     lo: Optional[torch.Tensor] = None,
     K: int = 0,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Occupancy backward, s-major, seeded with ``ans_grad`` [B] at
     (s_end, t_end).  Returns (px_grad [S, B, T'], py_grad [S+1, B, T]) in
     the storage dtype of px/py.  On a CUDA tensor: the sweep kernel's
     backward phase, any T; it reads p only inside each rectangle, and hands
     rows between its strips through a (2, B, T+1) float32 scratch."""
-    if not _kernel_route(px_rows):
+    if not _kernel_route(px_rows, impl):
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
     S, B, T1, T, code = _check_cuda(
         px_rows, py_rows, boundary, lo,
@@ -202,10 +205,11 @@ def forward_rows_scan(
     boundary: torch.Tensor,
     lo: Optional[torch.Tensor] = None,
     K: int = 0,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`forward_rows` by the row-scan kernel (T <= 14,271); the plain
     version on a CPU tensor."""
-    if not _kernel_route(px_rows):
+    if not _kernel_route(px_rows, impl):
         return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, nt, code = _check_split(px_rows, py_rows, boundary, lo)
     p_rows = torch.empty((S + 1, B, T + 1), dtype=torch.float32, device=px_rows.device)
@@ -232,10 +236,11 @@ def backward_rows_scan(
     ans_grad: torch.Tensor,
     lo: Optional[torch.Tensor] = None,
     K: int = 0,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`backward_rows` by the row-scan kernel (T <= 14,271); the plain
     version on a CPU tensor."""
-    if not _kernel_route(px_rows):
+    if not _kernel_route(px_rows, impl):
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
     S, B, T1, T, nt, code = _check_split(
         px_rows, py_rows, boundary, lo,
@@ -279,6 +284,7 @@ def fused_rows(
     boundary: torch.Tensor,
     lo: Optional[torch.Tensor] = None,
     K: int = 0,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward and occupancy backward (seed 1) in one launch, s-major:
     returns (scores [B] float32, px_grad [S, B, T'], py_grad [S+1, B, T]),
@@ -287,7 +293,7 @@ def fused_rows(
     backward's two hand-off rows go to a float32 scratch tensor (S+3, B,
     T+1) that is not returned; the kernel keeps no row in shared memory, so
     T has no cap beyond the scratch's int32 indexing."""
-    if not _kernel_route(px_rows):
+    if not _kernel_route(px_rows, impl):
         return fused_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
     _check_index(S, B, T, S + 3)

@@ -3,18 +3,36 @@
 joiner, their (B, S, T)-major forms, and the lattices of a real joiner's
 full or pruned logits.
 
-Matmul precision: the JAX package contracts the normalizer at
-``Precision.HIGHEST`` (fp32-faithful).  The port keeps that contract: the
-CUDA build kernel runs its float32 products as 3xTF32 on the tensor cores
-(~2^-21 relative, ``csrc/wgmma.cuh``), and the plain build's einsum
-on a CUDA tensor requires TF32 to be off (``torch.backends.cuda.matmul.
-allow_tf32`` False, PyTorch's default), which it asserts.  The joiner-logit
-lattices need no matmul: the JAX package's one-hot einsums there were TPU
-gather workarounds, and the port gathers, which is exact.
+Matmul precision (:func:`set_matmul_precision`, the JAX package's knob,
+with ``jax.lax.Precision``'s names): it applies to the build's float32
+operand products, the normalizer denominator D and the smoothed build's
+unigram product, and only to float32 lm and am (bf16 and float16 inputs
+ignore it, as the Pallas build's ``_dot`` does, and give the same bits at
+every setting).  On Hopper the levels are:
+
+  ``"highest"`` (``"float32"``, the default): 3xTF32 on the tensor cores
+    (hi*hi + hi*lo + lo*hi, ~2^-21 relative a product, ``csrc/wgmma.cuh``);
+  ``"high"`` (``"tensorfloat32"``): 1xTF32, both operands rounded to TF32
+    (to nearest, ties away from zero), one pass;
+  ``"default"`` (``"bfloat16"``): one bf16 pass, both operands rounded to
+    bf16 (to nearest even), float32 accumulation and epilogue.
+
+The plain builds emulate the kernels: they round both exp operands as the
+kernels do and take a float32 product (the rounding's gradient is the
+identity, as in the backward kernels).  The backward's d_am and d_lm
+products keep their precision at every setting, as the Pallas kernel's
+fixed splits do; the smoothed backward's unigram product follows the knob.
+The plain einsum on a CUDA tensor requires TF32 to be off
+(``torch.backends.cuda.matmul.allow_tf32`` False, PyTorch's default),
+which it asserts: the emulation does its own rounding.  The symbol and
+blank gathers are exact at every setting: the JAX package's one-hot
+einsums there round only on a TPU (on the CPU and GPU backends they are
+exact), and the port gathers.
 
 Build route: the kernels of ``kernels/latbuild.py`` on a CUDA tensor, the
-plain einsum builds on a CPU tensor; :func:`set_lattice_build_impl` pins
-either, forward and VJP together.
+plain builds on a CPU tensor; :func:`set_lattice_build_impl` pins either,
+forward and VJP together, and a per-call ``impl`` ("plain", "cuda") wins
+over it for that call.
 """
 
 from __future__ import annotations
@@ -25,6 +43,7 @@ import numpy as np
 import torch
 
 from .numerics import NEG_INF
+from .recursion import _check_impl
 
 __all__ = [
     "band_mask_rows",
@@ -37,15 +56,70 @@ __all__ = [
     "get_rnnt_logprobs_rows",
     "get_rnnt_logprobs_smoothed",
     "get_rnnt_logprobs_smoothed_rows",
+    "matmul_precision",
     "roll_by_shifts",
     "scatter_window",
     "set_lattice_build_impl",
+    "set_matmul_precision",
 ]
 
 RNNT_TYPES = ("regular", "modified", "constrained")
 
 # Guard for log(0) in the normalizer: the smallest normal float32.
 _TINY = float(np.finfo(np.float32).tiny)
+
+
+# The build's float32 operand products (see the module docstring): the
+# names jax.lax.Precision accepts, each to its level; the kernels' code of
+# each level (csrc/latbuild.cu's prec).
+_PRECISIONS = {
+    "default": "default", "bfloat16": "default",
+    "high": "high", "tensorfloat32": "high",
+    "highest": "highest", "float32": "highest",
+}
+_PREC_CODE = {"default": 0, "high": 1, "highest": 2}
+_MATMUL_PRECISION = "highest"
+
+
+def set_matmul_precision(precision: str) -> None:
+    """Set the precision of the build's float32 operand products:
+    ``"default"`` | ``"high"`` | ``"highest"`` (or ``"bfloat16"`` |
+    ``"tensorfloat32"`` | ``"float32"``).  Takes effect at the next call;
+    any other name raises ValueError."""
+    global _MATMUL_PRECISION
+    if not isinstance(precision, str) or precision not in _PRECISIONS:
+        raise ValueError(f"matmul precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
+    _MATMUL_PRECISION = _PRECISIONS[precision]
+
+
+def matmul_precision() -> str:
+    """The level set by :func:`set_matmul_precision`: "default", "high" or
+    "highest"."""
+    return _MATMUL_PRECISION
+
+
+def _operand_precision(dtype: torch.dtype) -> str:
+    """The level of the products for lm and am of ``dtype``: the knob's for
+    float32, "highest" (no rounding of their own) for every other dtype."""
+    return _MATMUL_PRECISION if dtype == torch.float32 else "highest"
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero (add half of the 13 dropped bits to the
+    magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _round_operand(x: torch.Tensor, prec: str) -> torch.Tensor:
+    """A float32 product operand rounded as the build kernels round it at
+    level ``prec``; the rounding's gradient is the identity."""
+    if prec == "highest":
+        return x
+    r = x.detach()
+    r = r.bfloat16().float() if prec == "default" else _round_tf32(r)
+    return x + (r - x.detach())
 
 
 # The simple and smoothed builds' route (the JAX package's switch,
@@ -67,9 +141,18 @@ def set_lattice_build_impl(impl: str) -> None:
     _LATTICE_BUILD_IMPL = impl
 
 
-def _build_kernel_route(x: torch.Tensor) -> bool:
-    """Whether the builds run their kernels on ``x`` (see
-    :func:`set_lattice_build_impl`)."""
+def _build_kernel_route(x: torch.Tensor, impl: Optional[str] = None) -> bool:
+    """Whether the builds run their kernels on ``x`` for the per-call
+    ``impl``: "plain" and "cuda" win over :func:`set_lattice_build_impl`;
+    None, "auto" and a registered recursion leave the choice to it."""
+    if impl not in (None, "auto"):
+        _check_impl(impl)
+        if impl == "plain":
+            return False
+        if impl == "cuda":
+            if not x.is_cuda:
+                raise ValueError(f'impl "cuda": a tensor on {x.device} has no build kernel')
+            return True
     if _LATTICE_BUILD_IMPL == "plain":
         return False
     if _LATTICE_BUILD_IMPL == "kernel" and not x.is_cuda:
@@ -120,7 +203,7 @@ def _build_rows_plain(
     ``get_rnnt_logprobs_rows``), regular or modified.  The per-(s, t)
     normalizer is one [S+1, C] x [C, T] product per utterance."""
     modified = rnnt_type == "modified"
-    normalizers = _normalizers_plain(lm, am)[0]
+    normalizers = _normalizers_plain(lm, am, _operand_precision(am.dtype))[0]
     px_am, px_lm = _px_gathers(lm, am, symbols)
     # float32 px gathers (the JAX package's one-hot einsum emits float32)
     px = _pad_px(px_am.float() + px_lm, modified) - _pad_px(normalizers[:-1], modified, 0.0)
@@ -130,20 +213,24 @@ def _build_rows_plain(
     return px, py
 
 
-def _normalizers_plain(lm: torch.Tensor, am: torch.Tensor):
+def _normalizers_plain(lm: torch.Tensor, am: torch.Tensor, prec: str = "highest"):
     """(normalizers (S+1, B, T), am_max (B, T, 1), am_probs, lm_max (B, S+1,
     1), lm_probs): the joint normalizer log sum_c exp(lm + am) as one
     [S+1, C] x [C, T] product per utterance, on max-shifted exps.  The exps
     stay in the inputs' dtype (bf16 inputs: rounded as ``jnp.exp`` on bf16
     rounds them) and the product and the normalizers are float32, as the
-    JAX package's ``preferred_element_type=float32`` contraction gives."""
+    JAX package's ``preferred_element_type=float32`` contraction gives; the
+    product's operands rounded as the build kernel's at level ``prec`` (the
+    exps returned are not)."""
     _assert_fp32_matmul(am)
     # stability shifts only: the normalizer is shift-invariant
     am_max = am.amax(dim=2, keepdim=True).detach()
     lm_max = lm.amax(dim=2, keepdim=True).detach()
     am_probs = torch.exp(am - am_max)
     lm_probs = torch.exp(lm - lm_max)
-    normalizers = torch.log(torch.einsum("bsc,btc->sbt", lm_probs.float(), am_probs.float()) + _TINY)
+    normalizers = torch.log(torch.einsum(
+        "bsc,btc->sbt", _round_operand(lm_probs.float(), prec), _round_operand(am_probs.float(), prec)
+    ) + _TINY)
     normalizers = normalizers + lm_max.permute(1, 0, 2) + am_max.permute(2, 0, 1)
     return normalizers, am_max, am_probs, lm_max, lm_probs
 
@@ -203,7 +290,8 @@ def _build_smoothed_rows_plain(
     lattices, interpolated."""
     modified = rnnt_type != "regular"
     S = lm.shape[1] - 1
-    normalizers, am_max, am_probs, lm_max, lm_probs = _normalizers_plain(lm, am)
+    prec = _operand_precision(am.dtype)
+    normalizers, am_max, am_probs, lm_max, lm_probs = _normalizers_plain(lm, am, prec)
     am_max_r = am_max.permute(2, 0, 1)  # (1, B, T)
     lm_max_r = lm_max.permute(1, 0, 2)  # (S+1, B, 1)
     # unigram LM: mean of the normalized lm probs over (B, S+1), padding
@@ -212,7 +300,9 @@ def _build_smoothed_rows_plain(
     unigram = (lm_probs / lmonly_norm).mean(dim=(0, 1)) + _TINY  # (C,)
     # the am-only normalizer contracts into float32, as the JAX package's
     # preferred_element_type=float32 einsum does (bf16 exps stay bf16)
-    amonly_norm = torch.log(torch.einsum("btc,c->bt", am_probs.float(), unigram.float()))[None]
+    amonly_norm = torch.log(torch.einsum(
+        "btc,c->bt", _round_operand(am_probs.float(), prec), _round_operand(unigram.float(), prec)
+    ))[None]
     amonly_norm = amonly_norm + am_max_r
     uni_log = torch.log(unigram)
     lmonly_norm = torch.log(lmonly_norm).permute(1, 0, 2) + lm_max_r  # (S+1, B, 1)
@@ -255,6 +345,7 @@ def get_rnnt_logprobs_rows(
     rnnt_type: str = "regular",
     boundary: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce the simple (additive-joiner) RNN-T problem to s-major
     ``px_rows`` [S, B, T+1] (regular) or [S, B, T] (modified/constrained)
@@ -267,6 +358,10 @@ def get_rnnt_logprobs_rows(
       termination_symbol: blank id in [0, C).
       boundary: optional int [B, 4] rows [s_begin, t_begin, s_end, t_end].
       out_dtype: optional storage dtype of the returned lattice.
+      impl: this call's route, forward and VJP: "plain" (the plain build on
+        any device), "cuda" (the kernel; a CPU tensor raises), or None,
+        "auto" or a registered recursion (:func:`set_lattice_build_impl`,
+        then the tensor's device).
 
     On a CUDA tensor the build runs the kernel of ``kernels/latbuild.py``;
     on a CPU tensor, or under ``set_lattice_build_impl("plain")``, the
@@ -276,7 +371,7 @@ def get_rnnt_logprobs_rows(
     from .kernels import latbuild
 
     return latbuild.lattice_rows(
-        lm, am, symbols, termination_symbol, rnnt_type, boundary, out_dtype=out_dtype
+        lm, am, symbols, termination_symbol, rnnt_type, boundary, out_dtype=out_dtype, impl=impl
     )
 
 
@@ -289,6 +384,7 @@ def get_rnnt_logprobs_smoothed_rows(
     am_only_scale: float = 0.1,
     boundary: Optional[torch.Tensor] = None,
     rnnt_type: str = "regular",
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """s-major smoothed lattice: ``combined * (1 - l - a) + lm_only * l +
     am_only * a`` over the additive joiner's combined, lm-only and am-only
@@ -297,10 +393,11 @@ def get_rnnt_logprobs_smoothed_rows(
 
     On a CUDA tensor the am-heavy part runs the smoothed build kernel of
     ``kernels/latbuild.py`` (``lattice_rows_smoothed``); on a CPU tensor,
-    or under ``set_lattice_build_impl("plain")``, the plain einsum build.
+    or under ``set_lattice_build_impl("plain")`` or ``impl="plain"``, the
+    plain einsum build (``impl`` as :func:`get_rnnt_logprobs_rows`'s).
     """
     _check_rnnt_type(rnnt_type)
-    if not _build_kernel_route(am):
+    if not _build_kernel_route(am, impl):
         return _build_smoothed_rows_plain(
             lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale,
             boundary, rnnt_type,
@@ -309,7 +406,7 @@ def get_rnnt_logprobs_smoothed_rows(
 
     return latbuild.lattice_rows_smoothed(
         lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale,
-        boundary, rnnt_type,
+        boundary, rnnt_type, impl,
     )
 
 
@@ -339,11 +436,12 @@ def get_rnnt_logprobs(
     termination_symbol: int,
     rnnt_type: str = "regular",
     boundary: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, T)-major :func:`get_rnnt_logprobs_rows`: px [B, S, T+1]
     (regular) or [B, S, T], py [B, S+1, T], as views of the s-major rows
-    (the build kernel on a CUDA tensor)."""
-    px, py = get_rnnt_logprobs_rows(lm, am, symbols, termination_symbol, rnnt_type, boundary)
+    (the build kernel on a CUDA tensor; ``impl`` as there)."""
+    px, py = get_rnnt_logprobs_rows(lm, am, symbols, termination_symbol, rnnt_type, boundary, impl=impl)
     return px.movedim(0, 1), py.movedim(0, 1)
 
 

@@ -2,9 +2,15 @@
 simple and smoothed losses of the additive joiner, the band-native pruned
 loss and the two-stage pruned pipelines, and the losses of a real joiner's
 logits (full, chunked and pruned).  Same argument order, defaults and
-reductions as the JAX package; no ``impl`` argument: the port routes by
-the tensor's device and the process-wide switches
-``recursion.set_default_impl`` and ``lattice.set_lattice_build_impl``."""
+reductions as the JAX package.  Each loss takes ``impl``, its route for
+this call, forward and VJP: None or "auto" leaves it to the process-wide
+switches (``recursion.set_default_impl`` for the recursion and the ranges,
+``lattice.set_lattice_build_impl`` for the build) and then the tensor's
+device; "cuda" runs the kernels (a CPU tensor raises ValueError); "plain"
+runs the plain versions on any device, the builds included; a name given
+to ``recursion.register_impl`` runs that recursion (the ranges then take
+the plain search, and the build keeps its own route).  The JAX package's
+"xla" and "pallas" raise ValueError naming "plain" and "cuda"."""
 
 from __future__ import annotations
 
@@ -85,12 +91,12 @@ def _reduce(negated_loss: torch.Tensor, reduction: Optional[str]) -> torch.Tenso
 
 
 def _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type, delay_penalty,
-                    reduction, calc_gradients) -> LossOrLossAndGrads:
+                    reduction, calc_gradients, impl) -> LossOrLossAndGrads:
     """The unpruned recursion on a built lattice, as the simple and smoothed
     losses share it; occupancies come back (B, S, T')-major."""
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
     bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device)
-    out = mutual_information_rows(px_rows, py_rows, bnd, calc_gradients=calc_gradients)
+    out = mutual_information_rows(px_rows, py_rows, bnd, calc_gradients=calc_gradients, impl=impl)
     if calc_gradients:
         negated_loss, (gx_rows, gy_rows) = out
         return _reduce(negated_loss, reduction), (gx_rows.movedim(0, 1), gy_rows.movedim(0, 1))
@@ -107,6 +113,7 @@ def rnnt_loss_simple(
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
 ) -> LossOrLossAndGrads:
     """Simple RNN-T loss (the joiner is just lm + am).  With
     ``calc_gradients`` also returns the occupancies ``(px_grad [B, S, T'],
@@ -119,10 +126,10 @@ def rnnt_loss_simple(
         termination_symbol=termination_symbol, boundary=boundary,
     )
     px_rows, py_rows = get_rnnt_logprobs_rows(
-        lm, am, symbols, termination_symbol, rnnt_type, boundary
+        lm, am, symbols, termination_symbol, rnnt_type, boundary, impl=impl
     )
     return _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type,
-                           delay_penalty, reduction, calc_gradients)
+                           delay_penalty, reduction, calc_gradients, impl)
 
 
 def rnnt_loss_smoothed(
@@ -137,6 +144,7 @@ def rnnt_loss_smoothed(
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
 ) -> LossOrLossAndGrads:
     """Smoothed simple RNN-T loss with lm-only / am-only interpolation
     (reference rnnt_loss.py:1369-1494); results as :func:`rnnt_loss_simple`."""
@@ -145,18 +153,19 @@ def rnnt_loss_smoothed(
         termination_symbol=termination_symbol, boundary=boundary,
     )
     px_rows, py_rows = get_rnnt_logprobs_smoothed_rows(
-        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type
+        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type,
+        impl=impl,
     )
     return _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type,
-                           delay_penalty, reduction, calc_gradients)
+                           delay_penalty, reduction, calc_gradients, impl)
 
 
 def _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction,
-                    calc_gradients) -> LossOrLossAndGrads:
+                    calc_gradients, impl) -> LossOrLossAndGrads:
     """The (B, S, T)-major recursion on a built lattice, as the joiner-logit
     losses share it."""
     px = _apply_delay_penalty(px, boundary, rnnt_type, delay_penalty)
-    out = mutual_information_recursion(px, py, boundary, calc_gradients=calc_gradients)
+    out = mutual_information_recursion(px, py, boundary, calc_gradients=calc_gradients, impl=impl)
     if calc_gradients:
         negated_loss, grads = out
         return _reduce(negated_loss, reduction), grads
@@ -172,6 +181,7 @@ def rnnt_loss(
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
 ) -> LossOrLossAndGrads:
     """Unpruned RNN-T loss from a full joiner output [B, T, S+1, C]
     (reference rnnt_loss.py:454-551); results as :func:`rnnt_loss_simple`."""
@@ -180,7 +190,8 @@ def rnnt_loss(
         termination_symbol=termination_symbol, boundary=boundary,
     )
     px, py = get_rnnt_logprobs_joint(logits, symbols, termination_symbol, boundary, rnnt_type)
-    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients,
+                           impl)
 
 
 def rnnt_loss_chunked(
@@ -195,6 +206,7 @@ def rnnt_loss_chunked(
     reduction: Optional[str] = "mean",
     chunk: int = 64,
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
 ) -> LossOrLossAndGrads:
     """Unpruned real-joiner RNN-T loss without materializing the joiner
     output: the joiner runs on ``chunk`` frames at a time under
@@ -224,7 +236,8 @@ def rnnt_loss_chunked(
     if rnnt_type == "regular":
         px = _neg_inf_column(px)
     px, py = _finish(px, py, rnnt_type, boundary)
-    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients,
+                           impl)
 
 
 def rnnt_loss_pruned(
@@ -236,6 +249,7 @@ def rnnt_loss_pruned(
     rnnt_type: str = "regular",
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Pruned RNN-T loss from a pruned joiner output [B, T, s_range, C]
     (reference rnnt_loss.py:1022-1130), the loss only; differentiable
@@ -248,7 +262,7 @@ def rnnt_loss_pruned(
     )
     px, py = get_rnnt_logprobs_pruned(logits, symbols, ranges, termination_symbol, boundary,
                                       rnnt_type)
-    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, False)
+    return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, False, impl)
 
 
 def rnnt_loss_pruned_simple(
@@ -261,6 +275,7 @@ def rnnt_loss_pruned_simple(
     rnnt_type: str = "regular",
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
+    impl: Optional[str] = None,
     lattice_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Pruned RNN-T loss for the additive joiner, band-native: equal to the
@@ -279,15 +294,15 @@ def rnnt_loss_pruned_simple(
     lo = ranges[:, :, 0]
     px_rows, py_rows = _stage2_rows(
         lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
-        lattice_dtype, lo, K,
+        lattice_dtype, lo, K, impl,
     )
     bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device)
-    neg = mutual_information_rows(px_rows, py_rows, bnd, lo=lo, s_range=K)
+    neg = mutual_information_rows(px_rows, py_rows, bnd, lo=lo, s_range=K, impl=impl)
     return _reduce(neg, reduction)
 
 
 def _stage2_rows(lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
-                 lattice_dtype, lo, K):
+                 lattice_dtype, lo, K, impl):
     """The pruned stage's rows: the simple lattice (constrained: its px plus
     the band-masked py[1:], added after masking as the reference's pruned
     lattice does), delay-penalised and stored in ``lattice_dtype``."""
@@ -295,7 +310,7 @@ def _stage2_rows(lm, am, symbols, termination_symbol, boundary, rnnt_type, delay
     # fuse the storage cast into the build when nothing is added to px
     cast = lattice_dtype if (delay_penalty <= 0.0 and rnnt_type != "constrained") else None
     px_rows, py_rows = get_rnnt_logprobs_rows(
-        lm, am, symbols, termination_symbol, base_type, boundary, out_dtype=cast
+        lm, am, symbols, termination_symbol, base_type, boundary, out_dtype=cast, impl=impl
     )
     if rnnt_type == "constrained":
         px_rows = px_rows + band_mask_rows_smajor(py_rows, lo, K)[1:]
@@ -315,6 +330,7 @@ def rnnt_loss_simple_pruned(
     rnnt_type: str = "regular",
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
+    impl: Optional[str] = None,
     lattice_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-stage pruned RNN-T loss for the additive joiner, building the
@@ -344,13 +360,13 @@ def rnnt_loss_simple_pruned(
         # build the un-constrained base: the constrained px += py[1:] must
         # happen after band masking for the pruned stage
         px0_rows, py_rows = get_rnnt_logprobs_rows(
-            lm, am, symbols, termination_symbol, "modified", boundary
+            lm, am, symbols, termination_symbol, "modified", boundary, impl=impl
         )
         px_simple_rows = px0_rows + py_rows[1:]
     else:
         px_simple_rows, py_rows = get_rnnt_logprobs_rows(
             lm, am, symbols, termination_symbol, rnnt_type, boundary,
-            out_dtype=lattice_dtype if delay_penalty <= 0.0 else None,
+            out_dtype=lattice_dtype if delay_penalty <= 0.0 else None, impl=impl,
         )
         px0_rows = px_simple_rows
 
@@ -360,9 +376,9 @@ def rnnt_loss_simple_pruned(
         px0_rows = px0_rows.to(lattice_dtype)
         py_rows = py_rows.to(lattice_dtype)
     neg_simple, (gx_rows, gy_rows) = mutual_information_rows(
-        px_simple_rows, py_rows, boundary, calc_gradients=True
+        px_simple_rows, py_rows, boundary, calc_gradients=True, impl=impl
     )
-    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range)
+    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range, impl=impl)
     K = ranges.shape[2]
     lo = ranges[:, :, 0]
 
@@ -372,7 +388,7 @@ def rnnt_loss_simple_pruned(
         px_stage2 = px0_rows
     px_stage2 = _apply_delay_penalty_rows(px_stage2, boundary, rnnt_type, delay_penalty)
     neg_pruned = mutual_information_rows(
-        px_stage2, py_rows, boundary, lo=lo, s_range=K, calc_gradients=False
+        px_stage2, py_rows, boundary, lo=lo, s_range=K, calc_gradients=False, impl=impl
     )
     return _reduce(neg_simple, reduction), _reduce(neg_pruned, reduction), ranges
 
@@ -389,6 +405,7 @@ def rnnt_loss_smoothed_pruned(
     rnnt_type: str = "regular",
     delay_penalty: float = 0.0,
     reduction: Optional[str] = "mean",
+    impl: Optional[str] = None,
     lattice_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-stage pruned pipeline with a smoothed first stage, the
@@ -407,20 +424,21 @@ def rnnt_loss_smoothed_pruned(
         boundary, am.shape[0], symbols.shape[1], am.shape[1], device=am.device
     )
     px_sm, py_sm = get_rnnt_logprobs_smoothed_rows(
-        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type
+        lm, am, symbols, termination_symbol, lm_only_scale, am_only_scale, boundary, rnnt_type,
+        impl=impl,
     )
     px_sm = _apply_delay_penalty_rows(px_sm, boundary, rnnt_type, delay_penalty)
     if lattice_dtype is not None:
         px_sm, py_sm = px_sm.to(lattice_dtype), py_sm.to(lattice_dtype)
     neg_smoothed, (gx_rows, gy_rows) = mutual_information_rows(
-        px_sm, py_sm, boundary, calc_gradients=True
+        px_sm, py_sm, boundary, calc_gradients=True, impl=impl
     )
-    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range)
+    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range, impl=impl)
     K = ranges.shape[2]
     lo = ranges[:, :, 0]
     px_rows, py_rows = _stage2_rows(
         lm, am, symbols, termination_symbol, boundary, rnnt_type, delay_penalty,
-        lattice_dtype, lo, K,
+        lattice_dtype, lo, K, impl,
     )
-    neg_pruned = mutual_information_rows(px_rows, py_rows, boundary, lo=lo, s_range=K)
+    neg_pruned = mutual_information_rows(px_rows, py_rows, boundary, lo=lo, s_range=K, impl=impl)
     return _reduce(neg_smoothed, reduction), _reduce(neg_pruned, reduction), ranges

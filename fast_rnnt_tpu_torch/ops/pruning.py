@@ -5,7 +5,7 @@ step-bounded (Pruned RNN-T paper, arXiv:2206.13236, section 3.2)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,11 +84,14 @@ def get_rnnt_prune_ranges_rows(
     py_grad_rows: torch.Tensor,
     boundary: torch.Tensor,
     s_range: int,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Per-frame symbol windows [B, T, s_range] from s-major occupancies
     (px_grad [S, B, T'], py_grad [S+1, B, T]).  ``s_range`` must be a Python
     int; above S it is clamped to S + 1.  The windows are integers, so no
-    gradient flows back through them."""
+    gradient flows back through them.  ``impl`` is the recursion's per-call
+    route: the kernels for "cuda" (or None on a CUDA tensor), the plain
+    search for "plain" and for a registered recursion."""
     S, B, T1 = px_grad_rows.shape
     T = py_grad_rows.shape[-1]
     if not isinstance(s_range, int):
@@ -110,6 +113,7 @@ def get_rnnt_prune_ranges_rows(
         s_range,
         boundary.to(torch.int32).contiguous(),
         adjust_step,
+        impl=impl,
     )
     return s_begin[:, :, None] + torch.arange(s_range, dtype=torch.int32, device=s_begin.device)
 
@@ -141,8 +145,10 @@ def get_rnnt_prune_ranges(
     py_grad: torch.Tensor,
     boundary: torch.Tensor,
     s_range: int,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """(B, S, T)-major :func:`get_rnnt_prune_ranges_rows`."""
+    """(B, S, T)-major :func:`get_rnnt_prune_ranges_rows` (``impl`` as
+    there)."""
     return get_rnnt_prune_ranges_rows(
-        px_grad.movedim(1, 0), py_grad.movedim(1, 0), boundary, s_range
+        px_grad.movedim(1, 0), py_grad.movedim(1, 0), boundary, s_range, impl=impl
     )

@@ -19,7 +19,11 @@ they run the plain versions below (S+1 sequential rows, each solved by a
 doubling scan over t, see ``numerics.py``).  :func:`set_default_impl`
 picks that route for the recursion and the pruning ranges: ``"plain"``
 runs the plain versions on any device (the parity gate's independent path
-on the card), ``"cuda"`` requires the kernels.
+on the card), ``"cuda"`` requires the kernels, and a name given to
+:func:`register_impl` runs that implementation.  Every public entry takes
+the same choice per call (``impl=``), which wins over the process default
+for that call, forward and VJP: the autograd context records the route the
+forward ran, and the backward runs it.
 
 Dtype policy (the JAX package's, ``recursion.py:468-495``): float32 runs
 as it is; bfloat16 and float16 are storage, read and widened to float32 by
@@ -31,8 +35,7 @@ float dtype runs the plain path.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,47 +48,93 @@ __all__ = [
     "occupancy_roundtrip_check",
     "cummin",
     "monotonic_lower_bound",
+    "register_impl",
     "set_default_impl",
 ]
 
 # The route of the recursion and pruning-ranges wrappers (the JAX package's
 # process default, fast_rnnt_tpu/ops/recursion.py:435): None, the kernels
 # on a CUDA tensor and the plain versions on a CPU tensor; "cuda", the
-# kernels (a CPU tensor raises); "plain", the plain versions on any device.
+# kernels (a CPU tensor raises); "plain", the plain versions on any device;
+# or a name given to register_impl.
 _IMPLS = ("cuda", "plain")
 _DEFAULT_IMPL: Optional[str] = None
+# register_impl's implementations: name -> (forward_fn, backward_fn)
+_IMPL: Dict[str, Tuple[Callable, Callable]] = {}
+# the JAX package's names, which the port rejects rather than map silently
+_JAX_NAMES = {"xla": "plain", "pallas": "cuda"}
+
+
+def _check_impl(impl: str) -> None:
+    """ValueError unless ``impl`` is "cuda", "plain" or a registered name;
+    the JAX package's "xla" and "pallas" name the port's counterparts."""
+    if impl in _JAX_NAMES:
+        raise ValueError(
+            f"impl {impl!r} is the JAX package's name: the port's counterpart is "
+            f"{_JAX_NAMES[impl]!r} (\"plain\": the plain versions, \"cuda\": the kernels)"
+        )
+    if impl not in _IMPLS and impl not in _IMPL:
+        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS + tuple(_IMPL)}")
 
 
 def set_default_impl(impl: Optional[str]) -> None:
-    """Pin (``"cuda"`` or ``"plain"``) or reset (``None``) the route of the
-    recursion and the pruning ranges for every later call, forward and
-    VJP.  Nothing reroutes silently: ``"cuda"`` on a CPU tensor raises
-    ValueError, and so does an unknown name."""
+    """Pin (``"cuda"``, ``"plain"`` or a :func:`register_impl` name) or
+    reset (``None``) the route of the recursion and the pruning ranges for
+    every later call that passes no ``impl=``, forward and VJP.  Nothing
+    reroutes silently: ``"cuda"`` on a CPU tensor raises ValueError, and so
+    does an unknown name or one of the JAX package's (``"xla"``, whose
+    counterpart is ``"plain"``, and ``"pallas"``, whose is ``"cuda"``)."""
     global _DEFAULT_IMPL
-    if impl is not None and impl not in _IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS} or None")
+    if impl is not None:
+        _check_impl(impl)
     _DEFAULT_IMPL = impl
 
 
-@contextlib.contextmanager
-def _pinned(impl: Optional[str]) -> Iterator[None]:
-    """``set_default_impl(impl)`` inside the block, the previous route after."""
-    prev = _DEFAULT_IMPL
-    set_default_impl(impl)
-    try:
-        yield
-    finally:
-        set_default_impl(prev)
+def register_impl(
+    name: str, forward_fn: Callable, backward_fn: Callable, default: bool = False
+) -> None:
+    """Register an alternative recursion under ``name`` (the JAX package's
+    contract, ``fast_rnnt_tpu/ops/recursion.py:391``): on (B, S, T)-major
+    tensors, ``forward_fn(px, py, boundary) -> (residual, scores)`` and
+    ``backward_fn(px, py, residual, boundary, ans_grad) -> (px_grad,
+    py_grad)``.  The rows ops mask the pruning band into px and py before
+    the call.  ``impl=name`` selects it per call; ``default=True`` makes it
+    the process default.  With it the pruning ranges take the plain search,
+    and the lattice build keeps its own route.  The built-in names
+    ``"cuda"``, ``"plain"`` and ``"auto"`` (and the JAX package's ``"xla"``
+    and ``"pallas"``) cannot be registered."""
+    global _DEFAULT_IMPL
+    if name in _IMPLS or name == "auto" or name in _JAX_NAMES:
+        raise ValueError(f"impl name {name!r} is reserved")
+    _IMPL[name] = (forward_fn, backward_fn)
+    if default:
+        _DEFAULT_IMPL = name
 
 
-def _kernel_route(x: torch.Tensor) -> bool:
+def _resolve_impl(impl: Optional[str]) -> Optional[str]:
+    """A per-call ``impl``: None and "auto" give the process default (None:
+    by the tensor's device), any other value is checked and wins."""
+    if impl is None or impl == "auto":
+        return _DEFAULT_IMPL
+    _check_impl(impl)
+    return impl
+
+
+def _route(x: torch.Tensor, impl: Optional[str]) -> str:
+    """The route a rows op runs for the per-call ``impl``: "cuda", "plain"
+    or a registered name."""
+    resolved = _resolve_impl(impl)
+    if resolved == "cuda" and not x.is_cuda:
+        raise ValueError(f'impl "cuda": a tensor on {x.device} has no kernel')
+    return resolved or ("cuda" if x.is_cuda else "plain")
+
+
+def _kernel_route(x: torch.Tensor, impl: Optional[str] = None) -> bool:
     """Whether the recursion and ranges wrappers launch their kernels on
-    ``x`` (see :func:`set_default_impl`)."""
-    if _DEFAULT_IMPL == "plain":
-        return False
-    if _DEFAULT_IMPL == "cuda" and not x.is_cuda:
-        raise ValueError(f'set_default_impl("cuda"): a tensor on {x.device} has no kernel')
-    return x.is_cuda
+    ``x`` for the per-call ``impl`` (see :func:`set_default_impl`); a
+    registered implementation is not theirs, so they take the plain
+    versions for it, as the JAX package's ranges do."""
+    return _route(x, impl) == "cuda"
 
 # The scores op under autograd (pipeline stage 2) keeps p and runs the
 # backward kernel when the gradient is asked for.  With this switch (the JAX
@@ -302,17 +351,56 @@ def _backward_rows_plain(
     return px_grad.to(store_dt), torch.stack(pyg).to(store_dt)
 
 
+def _forward_lattice_plain(px, py, boundary):
+    """The plain recursion in :func:`register_impl`'s interface, (B, S,
+    T)-major: (residual = s-major p_rows, scores)."""
+    return _forward_rows_plain(px.movedim(1, 0), py.movedim(1, 0), boundary)
+
+
+def _backward_lattice_plain(px, py, p_rows, boundary, ans_grad):
+    """The plain occupancy backward in :func:`register_impl`'s interface:
+    (B, S, T)-major (px_grad, py_grad)."""
+    gx, gy = _backward_rows_plain(px.movedim(1, 0), py.movedim(1, 0), p_rows, boundary, ans_grad)
+    return gx.movedim(0, 1), gy.movedim(0, 1)
+
+
+def _custom_args(px_rows, py_rows, boundary, lo, K):
+    """A registered implementation's (B, S, T)-major px and py: the band
+    masked in first (re-masking the boundary inside is idempotent)."""
+    if lo is not None:
+        px_rows, py_rows = _mask_rows(px_rows, py_rows, boundary, px_rows.shape[2] == py_rows.shape[2], lo, K)
+    return px_rows.movedim(1, 0), py_rows.movedim(1, 0)
+
+
+def _custom_backward(route, px_rows, py_rows, res, boundary, ans_grad, lo, K):
+    """A registered implementation's backward, s-major occupancies."""
+    px, py = _custom_args(px_rows, py_rows, boundary, lo, K)
+    gx, gy = _IMPL[route][1](px, py, res, boundary, ans_grad)
+    return gx.movedim(0, 1), gy.movedim(0, 1)
+
+
+# The kernel wrappers below take the route positionally (``impl``, their
+# last argument), so that a stand-in that passes ``*args`` on passes it too.
+
+
 class _MIRowsWithGrads(torch.autograd.Function):
     """calc_gradients=True: occupancies (seed 1) are computed in forward, in
-    one fused launch on the card; since the backward recursion is linear in
-    its seed, the backward only rescales them.  The occupancy outputs are
-    not differentiable."""
+    one fused launch on the card (a registered implementation's forward,
+    then its backward seeded with ones); since the backward recursion is
+    linear in its seed, the backward only rescales them.  The occupancy
+    outputs are not differentiable."""
 
     @staticmethod
-    def forward(ctx, px_rows, py_rows, boundary, lo, K):
+    def forward(ctx, px_rows, py_rows, boundary, lo, K, route):
         from .kernels import wavefront
 
-        scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K)
+        if route in _IMPL:
+            px, py = _custom_args(px_rows, py_rows, boundary, lo, K)
+            res, scores = _IMPL[route][0](px, py, boundary)
+            gx, gy = _custom_backward(route, px_rows, py_rows, res, boundary,
+                                      torch.ones_like(scores), lo, K)
+        else:
+            scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K, route)
         ctx.save_for_backward(gx, gy)
         ctx.mark_non_differentiable(gx, gy)
         return scores, gx, gy
@@ -321,32 +409,40 @@ class _MIRowsWithGrads(torch.autograd.Function):
     def backward(ctx, g_scores, _g_gx, _g_gy):
         gx, gy = ctx.saved_tensors
         scale = g_scores[None, :, None].to(gx.dtype)
-        return scale * gx, scale * gy, None, None, None
+        return scale * gx, scale * gy, None, None, None, None
 
 
 class _MIRowsScores(torch.autograd.Function):
-    """Scores only.  When a gradient is needed it saves p and runs the
-    backward recursion, seeded with the incoming score gradient, on demand;
-    or, with ``_FUSE_SCORES_VJP``, runs the fused kernel now, saves the
-    occupancies (seed 1) and only rescales them in the backward."""
+    """Scores only.  When a gradient is needed it saves p (or a registered
+    implementation's residual) and runs the backward recursion, seeded with
+    the incoming score gradient, on demand; or, with ``_FUSE_SCORES_VJP``,
+    runs the fused kernel now, saves the occupancies (seed 1) and only
+    rescales them in the backward.  ``route`` is the forward's, and the
+    backward runs it."""
 
     @staticmethod
-    def forward(ctx, px_rows, py_rows, boundary, lo, K):
+    def forward(ctx, px_rows, py_rows, boundary, lo, K, route):
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        ctx.kernel = _kernel_route(px_rows)  # the backward takes the same route
-        if not needs_grad and not ctx.kernel:
+        ctx.route, ctx.K, ctx.fused = route, K, False
+        if route in _IMPL:
+            px, py = _custom_args(px_rows, py_rows, boundary, lo, K)
+            res, scores = _IMPL[route][0](px, py, boundary)
+            if needs_grad:
+                ctx.res = res  # any residual a registered implementation keeps
+                ctx.save_for_backward(px_rows, py_rows, boundary, lo)
+            return scores
+        if not needs_grad and route == "plain":
             return _forward_scores_rows_plain(px_rows, py_rows, boundary, lo, K)
         from .kernels import wavefront
 
         ctx.fused = needs_grad and _FUSE_SCORES_VJP
         if ctx.fused:
-            scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K)
+            scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K, route)
             ctx.save_for_backward(gx, gy)
             return scores
-        p_rows, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K)
+        p_rows, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K, route)
         if needs_grad:
             ctx.save_for_backward(px_rows, py_rows, boundary, lo, p_rows)
-            ctx.K = K
         return scores
 
     @staticmethod
@@ -356,13 +452,17 @@ class _MIRowsScores(torch.autograd.Function):
         if ctx.fused:
             gx, gy = ctx.saved_tensors
             scale = g_scores[None, :, None].to(gx.dtype)
-            return scale * gx, scale * gy, None, None, None
+            return scale * gx, scale * gy, None, None, None, None
+        if ctx.route in _IMPL:
+            px_rows, py_rows, boundary, lo = ctx.saved_tensors
+            gx, gy = _custom_backward(ctx.route, px_rows, py_rows, ctx.res, boundary,
+                                      g_scores.contiguous(), lo, ctx.K)
+            return gx, gy, None, None, None, None
         px_rows, py_rows, boundary, lo, p_rows = ctx.saved_tensors
-        with _pinned("cuda" if ctx.kernel else "plain"):
-            gx, gy = wavefront.backward_rows(
-                px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K
-            )
-        return gx, gy, None, None, None
+        gx, gy = wavefront.backward_rows(
+            px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K, ctx.route
+        )
+        return gx, gy, None, None, None, None
 
 
 def mutual_information_rows(
@@ -372,6 +472,7 @@ def mutual_information_rows(
     lo: Optional[torch.Tensor] = None,
     s_range: int = 0,
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
 ):
     """s-major, optionally band-masked recursion.
 
@@ -384,12 +485,16 @@ def mutual_information_rows(
         ``s_range`` the recursion sees the band-masked lattice without a
         masked copy being made.
       calc_gradients: also return the occupancies ``(px_grad, py_grad)``.
+      impl: this call's route, forward and VJP: None or "auto" (the process
+        default of :func:`set_default_impl`, then the tensor's device),
+        "cuda", "plain" or a :func:`register_impl` name.
 
     Returns scores [B], or ``(scores, (px_grad, py_grad))``.
     """
     if lo is not None and int(s_range) <= 0:
         raise ValueError("banded recursion needs a positive static s_range")
     K = int(s_range)
+    route = _route(px_rows, impl)
     if px_rows.dtype != py_rows.dtype:
         # one storage dtype for both (a joint lattice of bf16 logits has
         # float32 px and bf16 py); the occupancies come back in it
@@ -401,9 +506,9 @@ def mutual_information_rows(
     if lo is not None:
         lo = lo.to(torch.int32).contiguous()
     if calc_gradients:
-        scores, gx, gy = _MIRowsWithGrads.apply(px_rows, py_rows, boundary, lo, K)
+        scores, gx, gy = _MIRowsWithGrads.apply(px_rows, py_rows, boundary, lo, K, route)
         return scores, (gx, gy)
-    return _MIRowsScores.apply(px_rows, py_rows, boundary, lo, K)
+    return _MIRowsScores.apply(px_rows, py_rows, boundary, lo, K, route)
 
 
 def occupancy_roundtrip_check(
@@ -446,11 +551,11 @@ def mutual_information_recursion(
     py: torch.Tensor,
     boundary: Optional[torch.Tensor] = None,
     calc_gradients: bool = False,
+    impl: Optional[str] = None,
     debug_self_check: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Mutual-information recursion between pairs of sequences, (B, S, T)-
-    major (the JAX package's public API; no ``impl`` argument: the port
-    routes by the tensor's device and :func:`set_default_impl`).
+    major (the JAX package's public API and argument order).
 
     Args:
       px: [B, S, T+1] (regular) or [B, S, T] (modified/constrained)
@@ -462,6 +567,11 @@ def mutual_information_recursion(
         the gradients of ``scores.sum()`` w.r.t. (px, py), computed in the
         same pass and reused by autograd.  The occupancy outputs are not
         differentiable: only the scores propagate gradients.
+      impl: this call's route, forward and VJP: None or "auto" (the process
+        default of :func:`set_default_impl`, then the tensor's device),
+        "cuda" (the kernels; a CPU tensor raises), "plain" (the plain
+        versions on any device) or a :func:`register_impl` name.  The JAX
+        package's "xla" and "pallas" raise ValueError.
       debug_self_check: verify that the occupancy backward round-trips the
         seed through the lattice origin and raise FloatingPointError if not.
         Costs a backward pass when ``calc_gradients`` is False and reads a
@@ -482,9 +592,9 @@ def mutual_information_recursion(
     px_rows = px.movedim(1, 0).contiguous()
     py_rows = py.movedim(1, 0).contiguous()
     if not (calc_gradients or debug_self_check):
-        return mutual_information_rows(px_rows, py_rows, boundary)
+        return mutual_information_rows(px_rows, py_rows, boundary, impl=impl)
     scores, (gx_rows, gy_rows) = mutual_information_rows(
-        px_rows, py_rows, boundary, calc_gradients=True
+        px_rows, py_rows, boundary, calc_gradients=True, impl=impl
     )
     px_grad, py_grad = gx_rows.movedim(0, 1), gy_rows.movedim(0, 1)
     if debug_self_check:

@@ -13,8 +13,9 @@ The four checks, each metric beside its JAX counterpart:
   1. ``kernel_vs_plain`` (JAX ``fused_vs_xla``): ``rnnt_loss_simple_pruned``
      with the gradient of ``simple.sum() + pruned.sum()`` w.r.t. (am, lm),
      once as shipped (the CUDA kernels on a CUDA tensor) and once with
-     ``set_default_impl("plain")`` and ``set_lattice_build_impl("plain")``
-     on the same device.  ``range_agree_frac`` (JAX: the same name) is the
+     ``impl="plain"`` per call (the plain recursion, ranges and build) on
+     the same device, as the JAX gate passes ``impl="xla"``; the process
+     switches are not touched.  ``range_agree_frac`` (JAX: the same name) is the
      share of utterances whose ranges agree;
      ``kernel_vs_plain_loss_rel_err`` and ``kernel_vs_plain_grad_rel_err``
      (JAX ``fused_vs_xla_loss_rel_err`` / ``_grad_rel_err``) compare those
@@ -40,15 +41,13 @@ fp32-faithful contract.
 
 from __future__ import annotations
 
-import contextlib
 import glob
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..ops import lattice, recursion
 from ..ops.lattice import get_rnnt_logprobs, get_rnnt_logprobs_rows
 from ..ops.losses import rnnt_loss_simple_pruned
 from ..ops.pruning import _window_argmax, _window_scores
@@ -90,19 +89,6 @@ def _scaled_err(a, b) -> float:
     return _abs_err(a, b) / max(float(np.max(np.abs(b))), 1e-6)
 
 
-@contextlib.contextmanager
-def _routes(impl: Optional[str], build_impl: str) -> Iterator[None]:
-    """Both switches set inside the block and restored after it."""
-    prev = (recursion._DEFAULT_IMPL, lattice._LATTICE_BUILD_IMPL)
-    try:
-        recursion.set_default_impl(impl)
-        lattice.set_lattice_build_impl(build_impl)
-        yield
-    finally:
-        recursion.set_default_impl(prev[0])
-        lattice.set_lattice_build_impl(prev[1])
-
-
 def onchip_parity_gate(
     am: torch.Tensor,
     lm: torch.Tensor,
@@ -122,30 +108,28 @@ def onchip_parity_gate(
     bnd = _normalize_boundary(boundary, B, S, T, device=dev)
 
     # --- 1. the shipped route against the plain route ---------------------
-    def loss_and_grads(lattice_dtype=None, grads=True):
+    def loss_and_grads(impl=None, lattice_dtype=None, grads=True):
         am_, lm_ = am.detach().clone(), lm.detach().clone()
         if grads:
             am_.requires_grad_(), lm_.requires_grad_()
         with torch.set_grad_enabled(grads):
             simple, pruned, ranges = rnnt_loss_simple_pruned(
-                lm_, am_, symbols, 0, s_range, boundary, reduction="none",
+                lm_, am_, symbols, 0, s_range, boundary, reduction="none", impl=impl,
                 lattice_dtype=lattice_dtype,
             )
             g = torch.autograd.grad(simple.sum() + pruned.sum(), (am_, lm_)) if grads else ()
         return simple.detach(), pruned.detach(), ranges, *g
 
     @torch.no_grad()
-    def stage1():
-        px, py = get_rnnt_logprobs_rows(lm, am, symbols, 0, "regular", bnd)
-        _, occ = mutual_information_rows(px, py, bnd, calc_gradients=True)
+    def stage1(impl=None):
+        px, py = get_rnnt_logprobs_rows(lm, am, symbols, 0, "regular", bnd, impl=impl)
+        _, occ = mutual_information_rows(px, py, bnd, calc_gradients=True, impl=impl)
         return occ
 
-    with _routes(None, "auto"):
-        s_d, p_d, r_d, ga_d, gl_d = loss_and_grads()
-        gx_d, gy_d = stage1()
-    with _routes("plain", "plain"):
-        s_x, p_x, r_x, ga_x, gl_x = loss_and_grads()
-        gx_x, gy_x = stage1()
+    s_d, p_d, r_d, ga_d, gl_d = loss_and_grads()
+    gx_d, gy_d = stage1()
+    s_x, p_x, r_x, ga_x, gl_x = loss_and_grads("plain")
+    gx_x, gy_x = stage1("plain")
 
     # Two correct routes differ in the last float32 bits of the stage-1
     # occupancies, so a window argmax may flip where two windows' scores
@@ -181,7 +165,7 @@ def onchip_parity_gate(
         out["range_flip_max_gap"] = 0.0
     del ga_x, gl_x, gx_x, gy_x, gx_d, gy_d
 
-    with _routes(None, "auto"), torch.no_grad():
+    with torch.no_grad():
         # --- 2. occupancy round trip at the input shape -------------------
         px, py = get_rnnt_logprobs(lm, am, symbols, 0, "regular", bnd)
         _, (gx, gy) = mutual_information_recursion(px, py, bnd, calc_gradients=True)
@@ -211,7 +195,7 @@ def onchip_parity_gate(
         out["golden_cases"] = len(files)
 
         # --- 4. the bf16-lattice mode --------------------------------------
-        s_b, p_b, _ = loss_and_grads(torch.bfloat16, grads=False)
+        s_b, p_b, _ = loss_and_grads(lattice_dtype=torch.bfloat16, grads=False)
         out["bf16_loss_rel_err"] = max(_rel_err(s_b, s_d), _rel_err(p_b, p_d))
         _, (bgx, bgy) = mutual_information_recursion(
             px.to(torch.bfloat16), py.to(torch.bfloat16), bnd, calc_gradients=True

@@ -203,8 +203,8 @@ def case_slice(mesh, rank, world, spec):
     own = []
     port_ranges = training.get_rnnt_prune_ranges
 
-    def ranges(px_grad, py_grad, boundary, s_range):
-        own.append(port_ranges(px_grad, py_grad, boundary, s_range))
+    def ranges(px_grad, py_grad, boundary, s_range, impl=None):
+        own.append(port_ranges(px_grad, py_grad, boundary, s_range, impl=impl))
         return shard_batch(jax_ranges, mesh)
 
     training.get_rnnt_prune_ranges = ranges

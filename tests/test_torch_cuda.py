@@ -717,8 +717,8 @@ def test_model_loss_on_cuda_runs_the_six_kernels_and_matches_cpu(dev, monkeypatc
     real = training.get_rnnt_prune_ranges
     seen = []
 
-    def cpu_ranges(gx, gy, bnd, s_range):
-        got = real(gx, gy, bnd, s_range)
+    def cpu_ranges(gx, gy, bnd, s_range, impl=None):
+        got = real(gx, gy, bnd, s_range, impl=impl)
         seen.append(got)
         want = real(gx.cpu(), gy.cpu(), bnd.cpu(), s_range)
         assert_ranges_match(got[:, :, 0], want[:, :, 0],
@@ -935,3 +935,81 @@ def test_parity_gate_on_cuda_small(dev):
     assert _launch_counts() != before
     assert got["golden_cases"] == 5
     enforce_parity(got)
+
+
+@pytest.mark.parametrize("level", ["highest", "high", "default"])
+@pytest.mark.parametrize("C", [33, 64])
+def test_precision_levels_match_their_plain_emulation(dev, level, C):
+    """chip_smoke's precision phase at a small shape: at each matmul
+    precision the build kernels (forward, backward on the forward's
+    residual D, and the smoothed build's) against their plain emulation at
+    the lattice and GRAD tolerances; the kernel's rounded exp operands equal
+    the emulation's; bf16 lm and am give the same bits at every level."""
+    from fast_rnnt_tpu_torch.ops import lattice
+
+    am, lm, sym, bnd = from_numpy(*loss_inputs(90 + C, B=3, T=45, S=7, C=C), device=dev)
+    B, T, S = 3, 45, 7
+    te = bnd[:, 3].contiguous()
+    g = torch.Generator(device=dev).manual_seed(C)
+    dpx, dpy, dnd = (torch.randn(shape, device=dev, generator=g)
+                     for shape in ((S, B, T + 1), (S + 1, B, T), (S + 1, B, T)))
+    uni = torch.softmax(torch.randn(C, device=dev, generator=g), 0) + 1e-3
+    try:
+        ft.set_matmul_precision(level)
+        for x in (am, lm):
+            m = x.amax(2)
+            k = latbuild.round_exps(x, m, lattice._PREC_CODE[level])
+            if level != "highest":
+                assert torch.equal(k, lattice._round_operand(torch.exp(x - m[..., None]), level))
+        px_k, py_k, _, res = latbuild.build_fwd(lm, am, sym, te, 0, False, save=True)
+        px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, 0, "regular", bnd)
+        assert_close(px_k, px_p, 1e-4, 1e-5, "px")
+        assert_close(py_k, py_p, 1e-4, 1e-5, "py")
+        for got, want in zip(latbuild.build_bwd(lm, am, sym, te, 0, False, res, dpx, dpy)[:2],
+                             latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False,
+                                                             d=res[0])[:2]):
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        *out_k, res_s = latbuild.build_fwd(lm, am, sym, te, 0, False, uni, save=True)
+        for got, want in zip(out_k, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)):
+            assert_close(got, want, 1e-4, 1e-5, "parts")
+        for got, want in zip(latbuild.build_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd),
+                             latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd,
+                                                             res_s[0])):
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        bf16 = latbuild.lattice_rows(lm.bfloat16(), am.bfloat16(), sym, 0, "regular", bnd)
+        ft.set_matmul_precision("highest")
+        want16 = latbuild.lattice_rows(lm.bfloat16(), am.bfloat16(), sym, 0, "regular", bnd)
+        assert all(torch.equal(a, b) for a, b in zip(bf16, want16))
+    finally:
+        ft.set_matmul_precision("highest")
+
+
+def test_per_call_impl_on_cuda(dev, monkeypatch):
+    """impl="plain" per call launches no kernel on CUDA tensors and wins over
+    the process switches pinned to the kernels; impl="cuda" gives the
+    shipped route's bits."""
+    from fast_rnnt_tpu_torch.ops import lattice, recursion
+
+    monkeypatch.setattr(recursion, "_DEFAULT_IMPL", None)
+    monkeypatch.setattr(lattice, "_LATTICE_BUILD_IMPL", "auto")
+    am, lm, sym, bnd = loss_inputs(42, B=3, T=40, S=7, C=20)
+
+    def run(impl):
+        tam, tlm, tsym, tbnd = from_numpy(am, lm, sym, bnd, device=dev)
+        tam.requires_grad_(), tlm.requires_grad_()
+        s, p, r = ft.rnnt_loss_simple_pruned(tlm, tam, tsym, 0, 3, tbnd, reduction="none", impl=impl)
+        g = torch.autograd.grad(s.sum() + p.sum(), (tam, tlm))
+        torch.cuda.synchronize()
+        return [x.detach().cpu() for x in (s, p, r, *g)]
+
+    shipped = run(None)
+    assert all(torch.equal(a, b) for a, b in zip(run("cuda"), shipped))
+    recursion.set_default_impl("plain")
+    lattice.set_lattice_build_impl("plain")
+    switched = run(None)
+    recursion.set_default_impl("cuda")
+    lattice.set_lattice_build_impl("kernel")
+    before = _launch_counts()
+    plain = run("plain")
+    assert _launch_counts() == before
+    assert all(torch.equal(a, b) for a, b in zip(plain, switched))

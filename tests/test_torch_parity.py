@@ -226,6 +226,9 @@ def test_backward_takes_the_forward_route(restore_switches):
 
 @pytest.mark.parametrize("raises", [False, True], ids=["passes", "raises"])
 def test_gate_restores_the_switches(monkeypatch, restore_switches, raises):
+    """The gate picks its routes per call (``impl="plain"`` on the plain
+    side, the process default on the shipped side) and leaves both process
+    switches as they were, also when a route raises."""
     recursion.set_default_impl("plain")
     lattice.set_lattice_build_impl("plain")
     if raises:
@@ -233,15 +236,16 @@ def test_gate_restores_the_switches(monkeypatch, restore_switches, raises):
         loss = parity.rnnt_loss_simple_pruned
 
         def fail_on_plain(*a, **k):
-            calls.append(recursion._DEFAULT_IMPL)
-            if recursion._DEFAULT_IMPL == "plain":
+            calls.append((k.get("impl"), recursion._DEFAULT_IMPL))
+            if k.get("impl") == "plain":
                 raise RuntimeError("plain route failed")
             return loss(*a, **k)
 
         monkeypatch.setattr(parity, "rnnt_loss_simple_pruned", fail_on_plain)
         with pytest.raises(RuntimeError, match="plain route failed"):
             onchip_parity_gate(*tt(*gate_inputs()), s_range=S_RANGE)
-        assert calls == [None, "plain"]  # the shipped route first, on the default switches
+        # the shipped route first, then the plain one; no switch is touched
+        assert calls == [(None, "plain"), ("plain", "plain")]
     else:
         onchip_parity_gate(*tt(*gate_inputs()), s_range=S_RANGE)
     assert recursion._DEFAULT_IMPL == "plain"
