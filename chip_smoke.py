@@ -96,7 +96,18 @@ after:
     per step, the all-reduced gradients equal to the sum of the shards'
     single-process gradients bit for bit, the loss falls, and on each gloo
     rank a ``collective_census`` of one step: three all-reduces, no other
-    collective, no lattice-sized tensor moved) and
+    collective, no lattice-sized tensor moved),
+    ``dtensor`` (bench.py's train step and the smoothed step at the
+    headline shape on Shard(0) DTensors of a DeviceMesh, the losses
+    partitioned by ``ops/kernels/partition.py``, ``--dtensor-worker``
+    processes: one NCCL rank, bit-equal to the plain-tensor steps in the
+    same process and all eight kernels launched; two gloo ranks sharing
+    the card, 15 utterances each, held to the whole batch's plain step at
+    the train tolerances, the trace hook at 15 on every kernel entry, and
+    a ``collective_census`` of each step: the loss's scalar all-reduce,
+    the smoothed step's two [C] unigram all-reduces, no lattice moved; am
+    and lm sharded on C and resharded where gloo carries the all-to-all
+    on CUDA tensors; step times, DTensor against plain tensors) and
     ``example`` (``examples/torch_train_and_decode.py`` at 300 steps on
     the card: greedy and beam token accuracy at least 0.95).
 
@@ -1570,6 +1581,19 @@ def sweep_phase(name):
     return {"1": 1, "2": 2, "3": 3, "kFwd": 1, "kBwd": 2, "kBoth": 3}.get(last)
 
 
+def kernel_families(kernels):
+    """Which of the six main-path kernel families a set of profiler kernel
+    names holds (the smoothed build runs the same two build kernels)."""
+    return {
+        "latbuild_fwd": any("latbuild_fwd_kernel" in k for k in kernels),
+        "latbuild_bwd": any("latbuild_bwd_" in k for k in kernels),
+        "ranges": any("ranges_argmax_kernel" in k for k in kernels),
+        "wavefront_fwd": any(sweep_phase(k) == 1 for k in kernels),
+        "wavefront_bwd": any(sweep_phase(k) == 2 for k in kernels),
+        "wavefront_fused": any(sweep_phase(k) == 3 for k in kernels),
+    }
+
+
 def profiling_phase(dev, am, lm, sym, bnd, fwd_peak, model, serve_ms):
     """``fast_rnnt_tpu_torch.utils.profiling`` on the card: ``bench.py``'s
     train step by ``benchmark_on_device`` beside ``cuda_ms`` without and
@@ -1628,14 +1652,7 @@ def profiling_phase(dev, am, lm, sym, bnd, fwd_peak, model, serve_ms):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     kernels = sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
-    seen = {
-        "latbuild_fwd": any("latbuild_fwd_kernel" in k for k in kernels),
-        "latbuild_bwd": any("latbuild_bwd_" in k for k in kernels),
-        "ranges": any("ranges_argmax_kernel" in k for k in kernels),
-        "wavefront_fwd": any(sweep_phase(k) == 1 for k in kernels),
-        "wavefront_bwd": any(sweep_phase(k) == 2 for k in kernels),
-        "wavefront_fused": any(sweep_phase(k) == 3 for k in kernels),
-    }
+    seen = kernel_families(kernels)
     span = sum(e.get("name") == "train_step" for e in events)
     if not span or not all(seen.values()) or not any(e.name == "train_step" for e in prof.events()):
         raise Failed(f"profiling: the trace holds the train_step span {span} times and the kernels "
@@ -1947,6 +1964,295 @@ def dp_train_phase(dev, model_ms):
           f"{g[0]['census_t']}, {g[0]['census_t'] + 1}).  One rank on NCCL: the same checks, launches {json.dumps(n['launches'])}, "
           f"gradients equal, step {n['step_ms']:.3f} ms, all-reduce {n['allreduce_ms']:.3f} ms")
     return {"gloo": g, "nccl": n, "step_ms": step_ms}
+
+
+# --- batch-sharded DTensors: the losses over a DeviceMesh ---------------------
+
+DT_WORLD = 2
+# the smoothed step's scales: chip_smoke's smoothed-train's (the defaults)
+DT_STEPS = ("train", "smoothed")
+# launches of each step on each rank: train, the six main-path kernels; the
+# smoothed step, all eight
+DT_LAUNCHES = {
+    "train": {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
+              "wavefront_bwd": 1, "ranges": 1},
+    "smoothed": {"latbuild_fwd_parts": 1, "latbuild_bwd_parts": 1, "latbuild_fwd": 1, "latbuild_bwd": 1,
+                 "wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1, "ranges": 1},
+}
+# the trace hook's kernel entries (the JAX package's names) in each step
+DT_HOOK_KERNELS = {
+    "train": {"latbuild_fwd", "latbuild_bwd", "mi_fused", "mi_fwd", "mi_bwd", "prune_ranges"},
+    "smoothed": {"latbuild_parts_fwd", "latbuild_parts_bwd", "latbuild_fwd", "latbuild_bwd", "mi_fused",
+                 "mi_fwd", "mi_bwd", "prune_ranges"},
+}
+# collectives of one step with its loss read back: the loss's scalar
+# all-reduce; the smoothed step adds the [C] unigram's, forward and gradient
+DT_ALLREDUCES = {"train": 1, "smoothed": 3}
+
+
+def dt_step(name):
+    """bench.py's train step (``name`` "train": the value and gradient of
+    0.5*simple + pruned w.r.t. (am, lm), reduction "sum") or the smoothed
+    one (0.5*smoothed + pruned), on plain tensors or DTensors alike:
+    returns (loss, d_am, d_lm, ranges)."""
+    import torch
+
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned, rnnt_loss_smoothed_pruned
+
+    def step(lm, am, sym, bnd):
+        am, lm = am.detach().requires_grad_(), lm.detach().requires_grad_()
+        if name == "train":
+            s, p, r = rnnt_loss_simple_pruned(lm, am, sym, 0, S_RANGE, bnd, reduction="sum")
+        else:
+            s, p, r = rnnt_loss_smoothed_pruned(lm, am, sym, 0, S_RANGE, boundary=bnd, reduction="sum")
+        loss = 0.5 * s + p
+        return (loss.detach(), *torch.autograd.grad(loss, (am, lm)), r)
+
+    return step
+
+
+def dtensor_worker(rank, world, out_dir, backend):
+    """One rank of the dtensor phase (``chip_smoke.py --dtensor-worker``):
+    bench.py's train step and the smoothed step at the headline shape on
+    this rank's Shard(0) DTensors of a ``world``-rank DeviceMesh, beside the
+    same steps on the whole batch's plain tensors in this process: launches,
+    the trace hook's per-shard batches, the losses, ranges and gradients
+    against the plain step's, a ``collective_census`` of each step, and
+    both timed by ``benchmark_on_device``; on two ranks also am and lm
+    sharded on C (Shard(2)) where gloo carries the reshard.  Writes
+    rank<r>.json."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from fast_rnnt_tpu_torch import get_rnnt_logprobs_rows, get_rnnt_logprobs_smoothed_rows
+    from fast_rnnt_tpu_torch import mutual_information_rows
+    from fast_rnnt_tpu_torch.ops.kernels import _build, partition, ranges
+    from fast_rnnt_tpu_torch.ops.pruning import _window_scores
+    from fast_rnnt_tpu_torch.parallel import initialize_distributed, make_mesh
+    from fast_rnnt_tpu_torch.utils import benchmark_on_device, collective_census, from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_distributed(f"file://{os.path.join(out_dir, 'store')}", world, rank, device="cuda",
+                           backend=backend)
+    mesh = make_mesh("cuda")
+    got_backend = torch.distributed.get_backend()
+    if mesh.size() != world or got_backend != backend:
+        raise Failed(f"rank {rank}: mesh of {mesh.size()} ranks on {got_backend}")
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    am, lm, sym, bnd = from_numpy(*make_inputs(0), device=dev)
+    k = B // world
+    sl = slice(rank * k, (rank + 1) * k)
+
+    def shard(x, dim=0):
+        n = x.shape[dim] // world
+        local = x.narrow(dim, rank * n, n).contiguous()
+        return DTensor.from_local(local, mesh, [Shard(dim)], run_check=False)
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    log = []
+
+    def record(name, b):
+        log.append((name, int(b)))
+
+    counters = launch_counters()
+    res = {"rank": rank, "world": world, "backend": got_backend, "shard": k, "steps": {}}
+    ranges_of = {}
+    for name in DT_STEPS:
+        step = dt_step(name)
+        log.clear()
+        partition._TRACE_HOOK = record  # on for the two counted runs only
+        want = step(lm, am, sym, bnd)  # the whole batch, plain tensors
+        if log:
+            raise Failed(f"dtensor rank {rank}: the hook fired on plain tensors: {sorted(set(log))}")
+        args = [shard(x) for x in (lm, am, sym, bnd)]
+        for d, key in counters.values():
+            d[key] = 0
+        torch.cuda.synchronize()
+        got = step(*args)
+        loss = got[0].full_tensor()
+        torch.cuda.synchronize()
+        partition._TRACE_HOOK = None
+        launches = {n: d[key] for n, (d, key) in counters.items() if d[key]}
+        if launches != DT_LAUNCHES[name]:
+            raise Failed(f"dtensor ({backend}) rank {rank} {name}: launches {launches}, expected "
+                         f"{DT_LAUNCHES[name]}")
+        hook = sorted(set(log))
+        seen = {n for n, _ in hook}
+        if not DT_HOOK_KERNELS[name] <= seen or {b for _, b in hook} != {k}:
+            raise Failed(f"dtensor ({backend}) rank {rank} {name}: hook {hook}, expected the kernels "
+                         f"{sorted(DT_HOOK_KERNELS[name])} at the per-shard batch {k}")
+        placements = [str(x.placements) for x in got]
+        if placements != ["(Partial(sum),)"] + ["(Shard(dim=0),)"] * 3:
+            raise Failed(f"dtensor rank {rank} {name}: placements {placements}")
+        g_am, g_lm, rng = (local(x) for x in got[1:])
+        out = {"launches": launches, "hook": hook, "loss": loss.item(), "want_loss": want[0].item(),
+               "placements": placements}
+        if world == 1:
+            # the same kernels on the same tensors: the same bits
+            same = [torch.equal(a, b) for a, b in zip((loss, g_am, g_lm, rng), want)]
+            if not all(same):
+                raise Failed(f"dtensor (one rank) {name}: (loss, d_am, d_lm, ranges) bit-equal {same}")
+            out["bit_equal"] = True
+        else:
+            rel = abs(loss.item() - want[0].item()) / abs(want[0].item())
+            if rel > 1e-4:
+                raise Failed(f"dtensor rank {rank} {name}: loss {loss.item()} vs {want[0].item()} rel "
+                             f"{rel:.3e} > 1e-4")
+            # the shard's ranges: the repair of the kernel's raw argmax of its
+            # own stage-1 occupancies (the partitioned rows ops recomputed),
+            # their raw flips against the whole batch's near-ties
+            rows = (get_rnnt_logprobs_rows(*args[:3], 0, "regular", args[3]) if name == "train"
+                    else get_rnnt_logprobs_smoothed_rows(*args[:3], 0, boundary=args[3]))
+            _, (gx, gy) = mutual_information_rows(*rows, args[3], calc_gradients=True)
+            gx, gy = local(gx), local(gy)
+            lo = rng[:, :, 0].contiguous()
+            n_tie, tie_gap, _ = ranges_check(lo, gy, gx, S_RANGE, bnd[sl], S_RANGE, f"dtensor {name} ranges")
+            full = (get_rnnt_logprobs_rows(lm, am, sym, 0, "regular", bnd) if name == "train"
+                    else get_rnnt_logprobs_smoothed_rows(lm, am, sym, 0, boundary=bnd))
+            _, (gx_f, gy_f) = mutual_information_rows(*full, bnd, calc_gradients=True)
+            n_flip, gap = range_flips(
+                ranges.window_argmax_kernel_order(gy, gx, S_RANGE),
+                ranges.window_argmax_kernel_order(gy_f, gx_f, S_RANGE)[sl],
+                _window_scores(gx_f[:, sl], gy_f[:, sl], S_RANGE), f"dtensor {name} raw argmax vs whole batch")
+            agree = (rng == want[3][sl]).all(dim=2).all(dim=1)
+            ranges_of[name] = rng
+            e = worst(grad_err(g_am[agree], want[1][sl][agree], f"dtensor {name} d_am", TRAIN_GRAD_TOL),
+                      grad_err(g_lm[agree], want[2][sl][agree], f"dtensor {name} d_lm", TRAIN_GRAD_TOL))
+            out.update(rel=rel, agree=int(agree.sum()), grad_err=e, ties=n_tie, tie_gap=tie_gap,
+                       flips=n_flip, flip_gap=gap, ranges_equal=bool(torch.equal(rng, want[3][sl])))
+        # the collectives of one step, its loss read back
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                    record_shapes=True) as prof:
+            step(*args)[0].full_tensor()
+            torch.cuda.synchronize()
+        census = collective_census(prof, lattice_dims=(T, T + 1))
+        shapes = [[list(s) for s in e.input_shapes] for e in prof.events()
+                  if e.name.startswith(("gloo:", "nccl:"))]
+        # (one NCCL rank: the mean of the unigram needs no all-reduce)
+        if backend == "gloo" and (census["all-reduce"] != DT_ALLREDUCES[name] or census["lattice_moves"]
+                                  or any(v for c, v in census.items()
+                                         if c not in ("all-reduce", "lattice_moves"))):
+            raise Failed(f"dtensor ({backend}) rank {rank} {name}: collective census {census} (shapes "
+                         f"{shapes}), expected {DT_ALLREDUCES[name]} all-reduces, no other collective "
+                         f"and no lattice move (dims {T}, {T + 1})")
+        out.update(census={c: v for c, v in census.items() if v}, shapes=shapes)
+        # the host cost of DTensor dispatch: the sharded step against the
+        # same step on this rank's plain tensors, in this process
+        plain_args = [local(x) for x in args]
+        out["dtensor_ms"] = 1e3 * benchmark_on_device(step, *args)
+        out["plain_ms"] = 1e3 * benchmark_on_device(step, *plain_args)
+        res["steps"][name] = out
+
+    if world == 1:
+        # the kernels of both steps by the profiler's names
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for name in DT_STEPS:
+                dt_step(name)(*(shard(x) for x in (lm, am, sym, bnd)))
+            torch.cuda.synchronize()
+        kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+        res["families"] = kernel_families(kernels)
+        if not all(res["families"].values()):
+            raise Failed(f"dtensor (one rank): the profiler's kernel names hold {res['families']}: "
+                         f"{sorted(n[:60] for n in kernels)}")
+    else:
+        # am and lm sharded on C, resharded to the batch (an all-to-all) and
+        # their gradients back (another), where gloo carries the all-to-all
+        # on CUDA tensors
+        try:
+            shard(torch.ones(world, world, device=dev), 1).redistribute(mesh, [Shard(0)]).to_local()
+            res["non_batch"] = {"ran": True}
+        except (RuntimeError, NotImplementedError) as exc:
+            res["non_batch"] = {"ran": False, "reason": f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"}
+        if res["non_batch"]["ran"]:
+            step = dt_step("train")
+            want = step(lm, am, sym, bnd)
+            got = step(shard(lm, 2), shard(am, 2), shard(sym), shard(bnd))
+            placements = [str(x.placements) for x in got]
+            if placements != ["(Partial(sum),)", "(Shard(dim=2),)", "(Shard(dim=2),)", "(Shard(dim=0),)"]:
+                raise Failed(f"dtensor rank {rank} non-batch: placements {placements}")
+            loss = got[0].full_tensor().item()
+            rel = abs(loss - want[0].item()) / abs(want[0].item())
+            rng = local(got[3])
+            if rel > 1e-4 or not torch.equal(rng, ranges_of["train"]):
+                raise Failed(f"dtensor rank {rank} non-batch: loss rel {rel:.3e}, or ranges other than the "
+                             "Shard(0) step's")
+            # every rank's utterances whose ranges equal the whole batch's
+            agree = torch.zeros(B, device=dev)
+            agree[sl] = (rng == want[3][sl]).all(dim=2).all(dim=1).float()
+            torch.distributed.all_reduce(agree)
+            agree = agree > 0
+            c = C // world
+            e = worst(*(grad_err(local(g)[agree], w[agree][:, :, rank * c:(rank + 1) * c],
+                                 f"dtensor non-batch {n}", TRAIN_GRAD_TOL)
+                        for g, w, n in zip(got[1:3], want[1:3], ("d_am", "d_lm"))))
+            res["non_batch"].update(rel=rel, grad_err=e, placements=placements, agree=int(agree.sum()))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def dtensor_phase():
+    """The losses on batch-sharded DTensors at the headline shape: (a) one
+    NCCL rank, bit-equal to the plain step, all eight kernels launched;
+    (b) two gloo ranks sharing the card (NCCL takes one rank per device),
+    B=30 split 15 + 15, held to the whole batch's plain step at the train
+    tolerances, the hook at 15 on every kernel entry, no lattice moved;
+    (c) am and lm sharded on C where gloo carries the reshard; (d) step
+    times, DTensor against plain tensors.  Returns each step's launches on
+    a gloo rank."""
+    import tempfile
+
+    results = {}
+    for backend, world in (("nccl", 1), ("gloo", DT_WORLD)):
+        with tempfile.TemporaryDirectory() as out_dir:
+            run_workers([["--dtensor-worker", r, world, out_dir, backend] for r in range(world)],
+                        f"dtensor ({backend}, {world} ranks)", timeout=DP_TIMEOUT_S)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        if any(x["backend"] != backend for x in ranks):
+            raise Failed(f"dtensor: backends {[x['backend'] for x in ranks]}, expected {backend}")
+        results[backend] = ranks
+    one, two = results["nccl"][0], results["gloo"]
+    if any(x["steps"][n]["loss"] != two[0]["steps"][n]["loss"] for x in two for n in DT_STEPS):
+        raise Failed("dtensor: the gloo ranks' losses differ")
+    nb = two[0]["non_batch"]
+    nb_line = (f"am and lm Shard(2) on C, resharded to the batch: loss rel {nb['rel']:.3e}, ranges equal to "
+               f"the Shard(0) step's, gradients on the {nb['agree']} utterances whose ranges equal the whole "
+               f"batch's {nb['grad_err'][1]:.3e} of max (tol {TRAIN_GRAD_TOL}), gradients back as "
+               f"{nb['placements'][1]}" if nb["ran"] else
+               f"am and lm Shard(2) on C: not run on the card, gloo does not carry the reshard's "
+               f"collective on CUDA tensors ({nb['reason']}); the case stands in the CPU tests "
+               "(tests/test_torch_partition.py)")
+    parts = []
+    for n in DT_STEPS:
+        a, g = one["steps"][n], [x["steps"][n] for x in two]
+        parts.append(
+            f"{n}: one NCCL rank bit-equal to the plain step (loss {a['loss']:.3f}), launches "
+            f"{json.dumps(a['launches'])}, census {json.dumps(a['census'])}; two gloo ranks, loss "
+            f"{g[0]['loss']:.3f} vs {g[0]['want_loss']:.3f} (rel {max(x['rel'] for x in g):.3e}, tol 1e-4), "
+            f"utterances whose ranges equal the whole batch's {sum(x['agree'] for x in g)} of {B} (ranges "
+            f"equal on both ranks: {all(x['ranges_equal'] for x in g)}; raw flips against the whole batch "
+            f"{sum(x['flips'] for x in g)}, max gap {max(x['flip_gap'] for x in g):.3e}; flips of the "
+            f"kernel's order against the plain search {sum(x['ties'] for x in g)}, max gap "
+            f"{max(x['tie_gap'] for x in g):.3e}; tol 1e-3), gradients on those "
+            f"{max(x['grad_err'][1] for x in g):.3e} of max (tol {TRAIN_GRAD_TOL}), hook at the per-shard "
+            f"batch {g[0]['hook'][0][1]} on {len(g[0]['hook'])} entries, collectives per step "
+            f"{json.dumps(g[0]['census'])} (shapes {g[0]['shapes']}); step ms by benchmark_on_device, "
+            f"DTensor vs plain tensors: one rank (B={B}) {a['dtensor_ms']:.4f} vs {a['plain_ms']:.4f}, "
+            f"gloo ranks (B={two[0]['shard']} each, both stepping on the card) "
+            + ", ".join(f"{x['dtensor_ms']:.4f} vs {x['plain_ms']:.4f}" for x in g))
+    phase("dtensor", f"B={B} T={T} S={S} C={C} s_range={S_RANGE} fp32, Shard(0) DTensors on a DeviceMesh; "
+          f"kernel families by profiler name on one rank {json.dumps(one['families'])}; "
+          + "; ".join(parts) + f"; no collective holds a lattice (dims {T}, {T + 1}); " + nb_line)
+    return {n: two[0]["steps"][n]["launches"] for n in DT_STEPS}
 
 
 def serve_audio_phase(dev, model, counted):
@@ -3237,6 +3543,7 @@ def main():
     del models
     torch.cuda.empty_cache()
     dp = dp_train_phase(dev, model_ms)
+    dt_launches = dtensor_phase()
     example_phase()
 
     # --- 5. where the steps' time goes (measurements) ----------------------
@@ -3303,6 +3610,7 @@ def main():
          "library_ms": report[name].get("library_ms"),
          "model_train_launches": launches_model[name],
          "dp_train_launches": dp["gloo"][0]["launches"].get(name, 0),
+         "dtensor_launches": {n: c.get(name, 0) for n, c in dt_launches.items()},
          **({"ms_by_precision": prec_times[name], "bound_ms_by_precision": prec_bounds[name]}
             if name in prec_times else {})}
         for name, (src, rep) in sources.items()
@@ -3317,6 +3625,10 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--dp-worker"]:  # one rank of dp_train_phase
             sys.path.insert(0, HERE)
             dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--dtensor-worker"]:  # one rank of dtensor_phase
+            sys.path.insert(0, HERE)
+            dtensor_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
             sys.exit(0)
         sys.exit(main())
     except Failed as e:

@@ -157,5 +157,18 @@ def stream_ptr(device) -> int:
 
 
 def ptr(t):
-    """Device pointer of a tensor, or None (a NULL pointer) for None."""
-    return None if t is None else t.data_ptr()
+    """Device pointer of a tensor, or None (a NULL pointer) for None.  A
+    tensor without storage of its own raises TypeError: a ``DTensor``
+    (whose ``data_ptr()`` is 0) reaches a kernel only shard by shard,
+    through the partitioned wrappers of ``kernels/partition.py``."""
+    if t is None:
+        return None
+    from .partition import _is_dtensor
+
+    if _is_dtensor(t) or (t.numel() and not t.data_ptr()):
+        raise TypeError(
+            f"a {type(t).__name__} without storage of its own reached a CUDA kernel: pass "
+            "DTensors to the losses, the ops or the kernel wrappers, which run the kernels "
+            "on each shard's local tensor"
+        )
+    return t.data_ptr()

@@ -64,6 +64,7 @@ from ..lattice import (
 )
 from ..numerics import NEG_INF
 from . import _build
+from .partition import batch_mean, current_shards, partitioned, within
 
 __all__ = [
     "lattice_rows",
@@ -162,6 +163,15 @@ def _check_cotangent(name, x, shape, dev):
     return x.contiguous()
 
 
+_BUILD_AXES = {"lm": 0, "am": 0, "symbols": 0, "te_fix": 0}
+
+
+def _parts(stem):
+    """The hook's label of a build kernel: the smoothed build's with uni."""
+    return lambda args: f"latbuild_parts_{stem}" if args.get("uni") is not None else f"latbuild_{stem}"
+
+
+@partitioned(_BUILD_AXES, (1, 1, 1, (1, 0, 0)), _parts("fwd"))
 def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, save: bool = False,
               prec: Optional[int] = None):
     """Launch the forward kernel.  Returns ``(px, py, nd, residuals)``:
@@ -206,6 +216,8 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
     return px, py, nd, res
 
 
+@partitioned({**_BUILD_AXES, "residuals": (1, 0, 0), "dpx": 1, "dpy": 1, "dnd": 1}, (0, 0, "sum"),
+             _parts("bwd"))
 def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
               uni=None, dnd=None, prec: Optional[int] = None):
     """Launch the VJP kernels on the forward's ``residuals``.  Returns
@@ -292,15 +304,17 @@ class _BuildFn(torch.autograd.Function):
         px, py, _, res = build_fwd(lm, am, symbols, te_fix, blank, modified, save=save, prec=prec)
         if save:
             ctx.save_for_backward(lm, am, symbols, te_fix, *res[:2])
-            ctx.blank, ctx.modified, ctx.prec = blank, modified, prec
+            ctx.blank, ctx.modified, ctx.prec, ctx.shards = blank, modified, prec, current_shards()
         return px, py
 
     @staticmethod
     def backward(ctx, dpx, dpy):
         lm, am, symbols, te_fix, d, amax = ctx.saved_tensors
-        d_lm, d_am, _ = build_bwd(
-            lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy, prec=ctx.prec
-        )
+        with within(ctx.shards):
+            d_lm, d_am, _ = build_bwd(
+                lm, am, symbols, te_fix, ctx.blank, ctx.modified, (d, amax, None), dpx, dpy,
+                prec=ctx.prec,
+            )
         return d_lm.to(lm.dtype), d_am, None, None, None, None, None
 
 
@@ -319,7 +333,7 @@ class _BuildPartsFn(torch.autograd.Function):
             kernel = _build_kernel_route(am)
         if prec is None:
             prec = _operand_precision(am.dtype)
-        ctx.kernel, ctx.prec = kernel, prec
+        ctx.kernel, ctx.prec, ctx.shards = kernel, prec, current_shards()
         if kernel:
             px, py, nd, res = build_fwd(lm, am, symbols, te_fix, blank, modified, uni, save, _PREC_CODE[prec])
         else:
@@ -333,10 +347,11 @@ class _BuildPartsFn(torch.autograd.Function):
     def backward(ctx, dpx, dpy, dnd):
         lm, am, symbols, te_fix, uni, *res = ctx.saved_tensors
         if ctx.kernel:
-            d_lm, d_am, d_uni = build_bwd(
-                lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd,
-                _PREC_CODE[ctx.prec],
-            )
+            with within(ctx.shards):
+                d_lm, d_am, d_uni = build_bwd(
+                    lm, am, symbols, te_fix, ctx.blank, ctx.modified, res, dpx, dpy, uni, dnd,
+                    _PREC_CODE[ctx.prec],
+                )
         else:
             d_lm, d_am, d_uni = lattice_rows_bwd_plain(
                 lm, am, symbols, te_fix, dpx, dpy, ctx.blank, ctx.modified, uni, dnd, prec=ctx.prec
@@ -539,8 +554,8 @@ def lattice_rows_smoothed(
     lmp = torch.exp(lm32 - lmmax[:, :, None])
     lmsum = lmp.sum(dim=2)  # (B, S+1)
     # unigram LM: mean of the normalized lm probs over (B, S+1), padding
-    # included, as the reference does
-    uni = (lmp / lmsum[:, :, None]).mean(dim=(0, 1)) + _TINY
+    # included, as the reference does; over the whole batch when sharded
+    uni = batch_mean(lmp / lmsum[:, :, None], (0, 1)) + _TINY
     uni_log = torch.log(uni)
     px, py, normd = _BuildPartsFn.apply(*_f16_as_f32(lm, am), symbols, te_fix, uni, blank, modified,
                                         _build_kernel_route(am, impl), _operand_precision(am.dtype))

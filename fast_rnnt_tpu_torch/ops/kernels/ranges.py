@@ -26,6 +26,7 @@ import torch
 from ..pruning import _window_starts_plain
 from ..recursion import _kernel_route
 from . import _build
+from .partition import partitioned
 from .wavefront import _STORAGE  # storage dtype -> the kernels' dtype code
 
 __all__ = ["window_starts", "window_starts_plain", "window_argmax_kernel_order", "LAUNCHES"]
@@ -53,6 +54,7 @@ def window_argmax_kernel_order(gy: torch.Tensor, gx: torch.Tensor, K: int) -> to
     return torch.argmax(a, dim=0).to(torch.int32)
 
 
+@partitioned({"py_grad_rows": 1, "px_grad_rows": 1, "boundary": 0}, 0, "prune_ranges")
 def window_starts(
     py_grad_rows: torch.Tensor,
     px_grad_rows: torch.Tensor,

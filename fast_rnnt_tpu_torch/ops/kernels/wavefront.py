@@ -34,6 +34,7 @@ import torch
 
 from ..recursion import _backward_rows_plain, _forward_rows_plain, _kernel_route
 from . import _build
+from .partition import partitioned
 
 __all__ = [
     "forward_rows",
@@ -126,6 +127,7 @@ def _check_p(p_rows, ans_grad, S, B, T):
         )
 
 
+@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (1, 0), "mi_fwd")
 def forward_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,
@@ -159,6 +161,7 @@ def forward_rows(
     return p_rows, scores
 
 
+@partitioned({"px_rows": 1, "py_rows": 1, "p_rows": 1, "boundary": 0, "ans_grad": 0, "lo": 0}, (1, 1), "mi_bwd")
 def backward_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,
@@ -278,6 +281,7 @@ def fused_rows_plain(
     return scores, px_grad, py_grad
 
 
+@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (0, 1, 1), "mi_fused")
 def fused_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .kernels.partition import batch_mean, partitioned
 from .numerics import NEG_INF
 from .recursion import _check_impl
 
@@ -295,9 +296,9 @@ def _build_smoothed_rows_plain(
     am_max_r = am_max.permute(2, 0, 1)  # (1, B, T)
     lm_max_r = lm_max.permute(1, 0, 2)  # (S+1, B, 1)
     # unigram LM: mean of the normalized lm probs over (B, S+1), padding
-    # included, as the reference does
+    # included, as the reference does; over the whole batch when sharded
     lmonly_norm = lm_probs.sum(dim=2, keepdim=True)  # (B, S+1, 1)
-    unigram = (lm_probs / lmonly_norm).mean(dim=(0, 1)) + _TINY  # (C,)
+    unigram = batch_mean(lm_probs / lmonly_norm, (0, 1)) + _TINY  # (C,)
     # the am-only normalizer contracts into float32, as the JAX package's
     # preferred_element_type=float32 einsum does (bf16 exps stay bf16)
     amonly_norm = torch.log(torch.einsum(
@@ -337,6 +338,7 @@ def _build_smoothed_rows_plain(
     return px, py
 
 
+@partitioned({"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 1)
 def get_rnnt_logprobs_rows(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -375,6 +377,7 @@ def get_rnnt_logprobs_rows(
     )
 
 
+@partitioned({"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 1)
 def get_rnnt_logprobs_smoothed_rows(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -429,6 +432,7 @@ def band_mask_rows(x: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
     return band_mask_rows_smajor(x.movedim(1, 0), ranges[:, :, 0], ranges.shape[2]).movedim(0, 1)
 
 
+@partitioned({"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 0)
 def get_rnnt_logprobs(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -445,6 +449,7 @@ def get_rnnt_logprobs(
     return px.movedim(0, 1), py.movedim(0, 1)
 
 
+@partitioned({"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 0)
 def get_rnnt_logprobs_smoothed(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -536,6 +541,7 @@ def scatter_window(
     return out
 
 
+@partitioned({"logits": 0, "symbols": 0, "ranges": 0, "boundary": 0}, 0)
 def get_rnnt_logprobs_pruned(
     logits: torch.Tensor,
     symbols: torch.Tensor,
@@ -578,6 +584,7 @@ def get_rnnt_logprobs_pruned(
     return _finish(px, py, rnnt_type, boundary)
 
 
+@partitioned({"lm": 0, "am": 0, "symbols": 0, "ranges": 0, "boundary": 0}, 0)
 def get_rnnt_logprobs_pruned_simple(
     lm: torch.Tensor,
     am: torch.Tensor,

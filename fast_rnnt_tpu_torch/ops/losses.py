@@ -14,12 +14,15 @@ the plain search, and the build keeps its own route).  The JAX package's
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.validation import check_rnnt_inputs
+from .kernels.partition import batch_partitioned, has_dtensor
 from .lattice import (
     _check_rnnt_type,
     _finish,
@@ -90,6 +93,45 @@ def _reduce(negated_loss: torch.Tensor, reduction: Optional[str]) -> torch.Tenso
     raise ValueError(f"reduction should be ('none' | 'mean' | 'sum'), given {reduction}")
 
 
+# the batch axis of every tensor argument of the losses
+_LOSS_AXES = {"lm": 0, "am": 0, "symbols": 0, "boundary": 0, "logits": 0, "ranges": 0}
+
+
+def _sharded(n_losses: int):
+    """Batch-sharded ``DTensor`` arguments: the loss runs per shard with
+    reduction "none" (``kernels/partition.py``), then the reduction is
+    taken on its ``Shard(0)`` ``DTensor``, so that a mean divides by the
+    whole batch (the first cross-batch term; the smoothed build's unigram,
+    ``partition.batch_mean``, is the second).  The first ``n_losses``
+    outputs are losses; occupancies and ranges come back ``Shard(0)``.
+    Plain tensors fall through."""
+
+    def deco(fn):
+        part = batch_partitioned(fn, _LOSS_AXES, 0, fn.__name__)
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not has_dtensor(args, kwargs):
+                return part(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            reduction = bound.arguments["reduction"]
+            bound.arguments["reduction"] = "none"
+            out = part(*bound.args, **bound.kwargs)
+
+            def reduce(loss):  # -(-loss) is loss: "none" as it is
+                return _reduce(-loss, reduction) if reduction not in ("none", None) else loss
+
+            if isinstance(out, torch.Tensor):
+                return reduce(out)
+            return (*map(reduce, out[:n_losses]), *out[n_losses:])
+
+        return wrapper
+
+    return deco
+
+
 def _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type, delay_penalty,
                     reduction, calc_gradients, impl) -> LossOrLossAndGrads:
     """The unpruned recursion on a built lattice, as the simple and smoothed
@@ -103,6 +145,7 @@ def _full_recursion(px_rows, py_rows, lm, am, symbols, boundary, rnnt_type, dela
     return _reduce(out, reduction)
 
 
+@_sharded(1)
 def rnnt_loss_simple(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -132,6 +175,7 @@ def rnnt_loss_simple(
                            delay_penalty, reduction, calc_gradients, impl)
 
 
+@_sharded(1)
 def rnnt_loss_smoothed(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -172,6 +216,7 @@ def _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction,
     return _reduce(out, reduction)
 
 
+@_sharded(1)
 def rnnt_loss(
     logits: torch.Tensor,
     symbols: torch.Tensor,
@@ -194,6 +239,7 @@ def rnnt_loss(
                            impl)
 
 
+@_sharded(1)
 def rnnt_loss_chunked(
     joiner: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     am: torch.Tensor,
@@ -240,6 +286,7 @@ def rnnt_loss_chunked(
                            impl)
 
 
+@_sharded(1)
 def rnnt_loss_pruned(
     logits: torch.Tensor,
     symbols: torch.Tensor,
@@ -265,6 +312,7 @@ def rnnt_loss_pruned(
     return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, False, impl)
 
 
+@_sharded(1)
 def rnnt_loss_pruned_simple(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -320,6 +368,7 @@ def _stage2_rows(lm, am, symbols, termination_symbol, boundary, rnnt_type, delay
     return px_rows, py_rows
 
 
+@_sharded(2)
 def rnnt_loss_simple_pruned(
     lm: torch.Tensor,
     am: torch.Tensor,
@@ -393,6 +442,7 @@ def rnnt_loss_simple_pruned(
     return _reduce(neg_simple, reduction), _reduce(neg_pruned, reduction), ranges
 
 
+@_sharded(2)
 def rnnt_loss_smoothed_pruned(
     lm: torch.Tensor,
     am: torch.Tensor,

@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .kernels.partition import partitioned
 from .recursion import monotonic_lower_bound
 
 __all__ = [
@@ -79,6 +80,7 @@ def _window_starts_plain(
     return adjust_pruning_lower_bound(s_begin, adjust_step)
 
 
+@partitioned({"px_grad_rows": 1, "py_grad_rows": 1, "boundary": 0}, 0)
 def get_rnnt_prune_ranges_rows(
     px_grad_rows: torch.Tensor,
     py_grad_rows: torch.Tensor,
@@ -118,6 +120,7 @@ def get_rnnt_prune_ranges_rows(
     return s_begin[:, :, None] + torch.arange(s_range, dtype=torch.int32, device=s_begin.device)
 
 
+@partitioned({"am": 0, "lm": 0, "ranges": 0}, 0)
 def do_rnnt_pruning(
     am: torch.Tensor, lm: torch.Tensor, ranges: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,6 +143,7 @@ def do_rnnt_pruning(
     return am_pruned, lm_pruned
 
 
+@partitioned({"px_grad": 0, "py_grad": 0, "boundary": 0}, 0)
 def get_rnnt_prune_ranges(
     px_grad: torch.Tensor,
     py_grad: torch.Tensor,

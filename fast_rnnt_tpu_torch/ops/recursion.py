@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .kernels.partition import current_shards, partitioned, within
 from .numerics import NEG_INF, log_linear_scan, logaddexp, reverse_linear_scan, safe_exp
 
 __all__ = [
@@ -423,7 +424,7 @@ class _MIRowsScores(torch.autograd.Function):
     @staticmethod
     def forward(ctx, px_rows, py_rows, boundary, lo, K, route):
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        ctx.route, ctx.K, ctx.fused = route, K, False
+        ctx.route, ctx.K, ctx.fused, ctx.shards = route, K, False, current_shards()
         if route in _IMPL:
             px, py = _custom_args(px_rows, py_rows, boundary, lo, K)
             res, scores = _IMPL[route][0](px, py, boundary)
@@ -459,12 +460,14 @@ class _MIRowsScores(torch.autograd.Function):
                                       g_scores.contiguous(), lo, ctx.K)
             return gx, gy, None, None, None, None
         px_rows, py_rows, boundary, lo, p_rows = ctx.saved_tensors
-        gx, gy = wavefront.backward_rows(
-            px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K, ctx.route
-        )
+        with within(ctx.shards):
+            gx, gy = wavefront.backward_rows(
+                px_rows, py_rows, p_rows, boundary, g_scores.contiguous(), lo, ctx.K, ctx.route
+            )
         return gx, gy, None, None, None, None
 
 
+@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (0, (1, 1)))
 def mutual_information_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,
@@ -511,6 +514,7 @@ def mutual_information_rows(
     return _MIRowsScores.apply(px_rows, py_rows, boundary, lo, K, route)
 
 
+@partitioned({"px_grad": 0, "py_grad": 0, "boundary": 0, "ans_grad": 0}, 0)
 def occupancy_roundtrip_check(
     px_grad: torch.Tensor,
     py_grad: torch.Tensor,
@@ -546,6 +550,7 @@ def occupancy_roundtrip_check(
     return (g0 - ans_grad).abs()
 
 
+@partitioned({"px": 0, "py": 0, "boundary": 0}, 0)
 def mutual_information_recursion(
     px: torch.Tensor,
     py: torch.Tensor,

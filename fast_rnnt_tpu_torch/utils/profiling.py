@@ -86,7 +86,9 @@ def collective_census(prof_or_events: Any, lattice_dims=()) -> Dict[str, Any]:
         kind = _collective_kind(e.name)
         if kind is None:
             continue
-        shapes = [list(s) for s in (e.input_shapes or []) if s]
+        # a 0-d tensor's shape is [] (a scalar all-reduce, as DTensor reduces
+        # a loss): an event without shapes has none at all
+        shapes = [list(s) for s in (e.input_shapes or [])]
         if not shapes:
             raise ValueError(f"collective_census: {e.name} has no input shapes; profile with "
                              "record_shapes=True")

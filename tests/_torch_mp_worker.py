@@ -245,8 +245,234 @@ def case_census(mesh, rank, world, spec):
     return {"census": collective_census(prof, lattice_dims=(T, T + 1)), "T": T, "shapes": shapes}
 
 
+# --- batch-sharded DTensors through the losses and the ops -------------------
+# (tests/test_torch_partition.py)
+
+PART_B, PART_T, PART_S, PART_C, PART_K = 4, 13, 5, 11, 3
+SMOOTH = dict(lm_only_scale=0.15, am_only_scale=0.1)
+
+
+def partition_inputs(seed, B=PART_B, T=PART_T, S=PART_S, C=PART_C):
+    """tests/test_gspmd.py's _inputs (ragged ends, symbols in [1, C)), in
+    numpy: (lm, am, symbols, boundary)."""
+    rng = np.random.default_rng(seed)
+    lm = rng.normal(size=(B, S + 1, C)).astype(np.float32)
+    am = rng.normal(size=(B, T, C)).astype(np.float32)
+    symbols = rng.integers(1, C, size=(B, S)).astype(np.int32)
+    t_end = rng.integers(T // 2, T + 1, size=B).astype(np.int32)
+    s_end = rng.integers(S // 2, S + 1, size=B).astype(np.int32)
+    boundary = np.stack([np.zeros(B, np.int32), np.zeros(B, np.int32), s_end, t_end], axis=1)
+    return lm, am, symbols, boundary
+
+
+def partition_arrays(seed):
+    """Every named input of the entry-point cases, in numpy: the loss
+    inputs, a random (B, S, T+1) / (B, S+1, T) lattice and occupancies (and
+    their s-major rows), the port's ranges of the unsharded simple loss,
+    the full and pruned joiner logits of am + lm, a score cotangent."""
+    from fast_rnnt_tpu_torch import get_rnnt_prune_ranges
+
+    lm, am, symbols, boundary = partition_inputs(seed)
+    B, S1, C = lm.shape
+    T = am.shape[1]
+    rng = np.random.default_rng(seed + 1)
+    px = (2.0 * rng.normal(size=(B, S1 - 1, T + 1))).astype(np.float32)
+    px[:, :, -1] = -np.inf
+    py = (2.0 * rng.normal(size=(B, S1, T))).astype(np.float32)
+    gx = rng.random((B, S1 - 1, T + 1)).astype(np.float32)
+    gy = rng.random((B, S1, T)).astype(np.float32)
+    _, (ogx, ogy) = rnnt_loss_simple(*(torch.from_numpy(a) for a in (lm, am, symbols)), 0,
+                                     torch.from_numpy(boundary), reduction="sum", calc_gradients=True)
+    ranges = get_rnnt_prune_ranges(ogx, ogy, torch.from_numpy(boundary), PART_K).numpy()
+    lm_p = lm[np.arange(B)[:, None, None], ranges]  # (B, T, K, C)
+    return {
+        "lm": lm, "am": am, "symbols": symbols, "boundary": boundary,
+        "px": px, "py": py, "px_rows": np.ascontiguousarray(px.transpose(1, 0, 2)),
+        "py_rows": np.ascontiguousarray(py.transpose(1, 0, 2)),
+        "gx": gx, "gy": gy, "gx_rows": np.ascontiguousarray(gx.transpose(1, 0, 2)),
+        "gy_rows": np.ascontiguousarray(gy.transpose(1, 0, 2)),
+        "ranges": ranges, "lo": np.ascontiguousarray(ranges[:, :, 0]),
+        "logits": am[:, :, None, :] + lm[:, None, :, :],
+        "logits_pruned": am[:, :, None, :] + lm_p,
+        "ans_grad": (rng.random(B) + 0.5).astype(np.float32),
+    }
+
+
+def joiner(am, lm):
+    return am[:, :, None, :] + lm[:, None, :, :]
+
+
+# entry point -> (function name in ``ops`` or ``ops.recursion``, positional
+# arguments: a name of partition_arrays' arrays, or a literal, keyword
+# arguments); each one's batch-carrying arrays are Shard(0) DTensors
+# (s-major rows: Shard(1))
+ENTRIES = {
+    "rnnt_loss_simple": ("rnnt_loss_simple", ("lm", "am", "symbols", 0, "boundary"),
+                         dict(reduction="none", calc_gradients=True)),
+    "rnnt_loss_smoothed": ("rnnt_loss_smoothed", ("lm", "am", "symbols", 0, 0.15, 0.1, "boundary"),
+                           dict(reduction="mean")),
+    "rnnt_loss": ("rnnt_loss", ("logits", "symbols", 0, "boundary"), dict(reduction="sum")),
+    "rnnt_loss_chunked": ("rnnt_loss_chunked", (joiner, "am", "lm", "symbols", 0, "boundary"),
+                          dict(reduction="none", chunk=4)),
+    "rnnt_loss_pruned": ("rnnt_loss_pruned", ("logits_pruned", "symbols", "ranges", 0, "boundary"),
+                         dict(reduction="none")),
+    "rnnt_loss_pruned_simple": ("rnnt_loss_pruned_simple",
+                                ("lm", "am", "symbols", "ranges", 0, "boundary"), dict(reduction="none")),
+    "rnnt_loss_simple_pruned": ("rnnt_loss_simple_pruned", ("lm", "am", "symbols", 0, PART_K, "boundary"),
+                                dict(reduction="none")),
+    "rnnt_loss_smoothed_pruned": ("rnnt_loss_smoothed_pruned",
+                                  ("lm", "am", "symbols", 0, PART_K, 0.15, 0.1, "boundary"),
+                                  dict(reduction="sum")),
+    "mutual_information_recursion": ("mutual_information_recursion", ("px", "py", "boundary"),
+                                     dict(calc_gradients=True)),
+    "mutual_information_rows": ("mutual_information_rows", ("px_rows", "py_rows", "boundary", "lo", PART_K),
+                                {}),
+    "occupancy_roundtrip_check": ("occupancy_roundtrip_check", ("gx", "gy", "boundary", "ans_grad"), {}),
+    "get_rnnt_prune_ranges": ("get_rnnt_prune_ranges", ("gx", "gy", "boundary", PART_K), {}),
+    "get_rnnt_prune_ranges_rows": ("get_rnnt_prune_ranges_rows", ("gx_rows", "gy_rows", "boundary", PART_K),
+                                   {}),
+    "do_rnnt_pruning": ("do_rnnt_pruning", ("am", "lm", "ranges"), {}),
+    "get_rnnt_logprobs": ("get_rnnt_logprobs", ("lm", "am", "symbols", 0, "regular", "boundary"), {}),
+    "get_rnnt_logprobs_smoothed": ("get_rnnt_logprobs_smoothed",
+                                   ("lm", "am", "symbols", 0, 0.15, 0.1, "boundary"), {}),
+    "get_rnnt_logprobs_rows": ("get_rnnt_logprobs_rows", ("lm", "am", "symbols", 0, "modified", "boundary"),
+                               {}),
+    "get_rnnt_logprobs_smoothed_rows": ("get_rnnt_logprobs_smoothed_rows",
+                                        ("lm", "am", "symbols", 0, 0.1, 0.2, "boundary", "regular"), {}),
+    "get_rnnt_logprobs_pruned": ("get_rnnt_logprobs_pruned",
+                                 ("logits_pruned", "symbols", "ranges", 0, "boundary"), {}),
+    "get_rnnt_logprobs_pruned_simple": ("get_rnnt_logprobs_pruned_simple",
+                                        ("lm", "am", "symbols", "ranges", 0, "boundary"), {}),
+}
+
+
+def entry_function(ops, name):
+    return getattr(ops, name, None) or getattr(ops.recursion, name)
+
+
+def entry_args(name, arrays, make):
+    """ENTRIES[name]'s positional arguments, each named array through
+    ``make(name, array)``."""
+    return [make(a, arrays[a]) if isinstance(a, str) and a in arrays else a for a in ENTRIES[name][1]]
+
+
+def _full(out):
+    """Every DTensor of a result as its global value; placements beside."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(out, DTensor):
+        return {"value": out.full_tensor().detach(), "placements": str(out.placements)}
+    if isinstance(out, (tuple, list)):
+        return [_full(o) for o in out]
+    return out
+
+
+def _pruned_step(lm, am, symbols, boundary):
+    """tests/test_gspmd.py's _pruned_step: the value and gradient of
+    0.5 * simple + pruned w.r.t. (lm, am), reduction "sum"."""
+    from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned
+
+    lm, am = lm.detach().requires_grad_(), am.detach().requires_grad_()
+    simple, pruned, ranges = rnnt_loss_simple_pruned(lm, am, symbols, 0, PART_K, boundary, reduction="sum")
+    loss = 0.5 * simple + pruned
+    return loss, torch.autograd.grad(loss, (lm, am)), ranges
+
+
+def _smoothed_step(lm, am, symbols, boundary):
+    """tests/test_gspmd.py's smoothed step: smoothed + 0.5 * pruned."""
+    from fast_rnnt_tpu_torch import rnnt_loss_smoothed_pruned
+
+    lm, am = lm.detach().requires_grad_(), am.detach().requires_grad_()
+    smoothed, pruned, ranges = rnnt_loss_smoothed_pruned(lm, am, symbols, 0, PART_K, boundary=boundary,
+                                                         reduction="sum", **SMOOTH)
+    loss = smoothed + 0.5 * pruned
+    return loss, torch.autograd.grad(loss, (lm, am)), ranges
+
+
+def case_partition(mesh, rank, world, spec):
+    """Every DTensor case of tests/test_torch_partition.py in one process
+    start: each sub-case's results (global values, placements) and the
+    trace hook's (name, per-shard batch) log."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from fast_rnnt_tpu_torch import ops
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild, partition, ranges, wavefront
+
+    log = []
+    partition._TRACE_HOOK = lambda name, b: log.append((name, int(b)))
+
+    def dt(x, placement=Shard(0)):
+        return distribute_tensor(torch.as_tensor(x), mesh, [placement])
+
+    def logged(fn):
+        log.clear()
+        return {"out": _full(fn()), "hook": sorted(set(log))}
+
+    arrays = partition_arrays(spec["seed"])
+    lm, am, sym, bnd = (dt(arrays[k]) for k in ("lm", "am", "symbols", "boundary"))
+    out = {}
+    for name, (fname, _, kw) in ENTRIES.items():
+        args = entry_args(name, arrays, lambda a, x: dt(x, Shard(1) if a.endswith("_rows") else Shard(0)))
+        out[name] = logged(lambda: entry_function(ops, fname)(*args, **kw))
+
+    out["pruned_step"] = logged(lambda: _pruned_step(lm, am, sym, bnd))
+    out["smoothed_step"] = logged(lambda: _smoothed_step(lm, am, sym, bnd))
+    # the kernel wrappers themselves, on s-major rows sharded on axis 1
+    px, py, lo = dt(arrays["px_rows"], Shard(1)), dt(arrays["py_rows"], Shard(1)), dt(arrays["lo"])
+    gx, gy = dt(arrays["gx_rows"], Shard(1)), dt(arrays["gy_rows"], Shard(1))
+    out["fused_rows"] = logged(lambda: wavefront.fused_rows(px, py, bnd, lo, PART_K))
+
+    def split():
+        p, scores = wavefront.forward_rows(px, py, bnd)
+        return (scores, *wavefront.backward_rows(px, py, p, bnd, torch.ones_like(scores)))
+
+    out["split_rows"] = logged(split)
+    out["window_starts"] = logged(lambda: ranges.window_starts(gy, gx, PART_K, bnd, PART_K))
+
+    def split_vjp():  # the scores op and its VJP, B-major
+        pxb, pyb = (dt(arrays[k]).requires_grad_() for k in ("px", "py"))
+        scores = ops.mutual_information_recursion(pxb, pyb, bnd)
+        return (scores, *torch.autograd.grad(scores.sum(), (pxb, pyb)))
+
+    out["split_vjp"] = logged(split_vjp)
+
+    def smoothed_glue():  # the kernel route's glue, its parts and VJP plain
+        lm_g, am_g = lm.detach().requires_grad_(), am.detach().requires_grad_()
+        part = partition.batch_partitioned(latbuild.lattice_rows_smoothed,
+                                           {"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 1,
+                                           "lattice_rows_smoothed")
+        px_s, py_s = part(lm_g, am_g, sym, 0, 0.15, 0.1, bnd, "regular", "plain")
+        total = px_s.exp().sum() + py_s.exp().sum()
+        return (px_s, py_s, *torch.autograd.grad(total, (lm_g, am_g)))
+
+    out["smoothed_glue"] = logged(smoothed_glue)
+    # lm and am sharded on C (a non-batch axis), resharded to the batch
+    out["non_batch"] = logged(lambda: _pruned_step(dt(arrays["lm"], Shard(2)), dt(arrays["am"], Shard(2)),
+                                                  sym, bnd))
+    # B = 3 over two ranks: replicated, run whole
+    odd = [dt(arrays[k][:3]) for k in ("lm", "am", "symbols", "boundary")]
+    out["indivisible"] = logged(lambda: _pruned_step(*odd))
+    for red in ("none", "mean", "sum"):
+        out[f"reduction_{red}"] = logged(
+            lambda: ops.rnnt_loss_simple(lm, am, sym, 0, bnd, reduction=red))
+    # the collectives of one step of each pipeline, the loss read back
+    census = {}
+    for name, step in (("pruned", _pruned_step), ("smoothed", _smoothed_step)):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                    record_shapes=True) as prof:
+            loss, grads, _ = step(lm, am, sym, bnd)
+            loss.full_tensor()
+        census[name] = {
+            "census": collective_census(prof, lattice_dims=(PART_T, PART_T + 1)),
+            "shapes": [[list(s) for s in e.input_shapes] for e in prof.events()
+                       if e.name.startswith("gloo:")],
+        }
+    out["census"] = census
+    return out
+
+
 CASES = {"sharding": case_sharding, "train": case_train, "slice": case_slice, "serve": case_serve,
-         "census": case_census}
+         "census": case_census, "partition": case_partition}
 
 
 def main():

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
             "fast_rnnt_tpu_torch/data/__init__.py", "fast_rnnt_tpu_torch/data/features.py",
             "fast_rnnt_tpu_torch/data/loader.py", "fast_rnnt_tpu_torch/parallel/__init__.py",
             "fast_rnnt_tpu_torch/parallel/sharding.py", "fast_rnnt_tpu_torch/utils/parity.py",
-            "fast_rnnt_tpu_torch/utils/profiling.py"} <= walked
+            "fast_rnnt_tpu_torch/utils/profiling.py",
+            "fast_rnnt_tpu_torch/ops/kernels/partition.py"} <= walked
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -73,6 +74,7 @@ sys.path.insert(0, {str(ROOT)!r})
 import fast_rnnt_tpu_torch, fast_rnnt_tpu_torch.models
 import fast_rnnt_tpu_torch.data, fast_rnnt_tpu_torch.parallel
 import fast_rnnt_tpu_torch.utils.parity, fast_rnnt_tpu_torch.utils.profiling
+import fast_rnnt_tpu_torch.ops.kernels.partition
 from fast_rnnt_tpu_torch.models import StreamServer, streaming_step
 loaded = [m for m in sys.modules if m.split(".")[0] in {sorted(FORBIDDEN)!r}]
 assert not loaded, loaded

@@ -134,11 +134,12 @@ def test_collective_census_on_one_rank(tmp_path):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
                                     record_shapes=True) as prof:
             dist.all_reduce(torch.ones(4, 10))
+            dist.all_reduce(torch.ones(()))  # a scalar: its shape is []
             dist.all_gather([torch.empty(2, T + 1)], torch.ones(2, T + 1))
             dist.broadcast(torch.ones(3), 0)
         census = collective_census(prof, lattice_dims=(T, T + 1))
         assert {k: v for k, v in census.items() if k != "lattice_moves"} == {
-            "all-reduce": 1, "all-gather": 1, "all-to-all": 0, "collective-permute": 0,
+            "all-reduce": 2, "all-gather": 1, "all-to-all": 0, "collective-permute": 0,
             "reduce-scatter": 0, "broadcast": 1}
         assert len(census["lattice_moves"]) == 1
         assert census["lattice_moves"][0].startswith("gloo:all_gather")
