@@ -42,7 +42,8 @@ after:
     (1xTF32) and "default" (one bf16 pass): the build kernels against
     their plain emulation at each level, their times, the lattices and
     the train step's loss against "highest", bf16 lm and am bit-equal
-    across the levels; ``bench.py``'s train step with ``impl="plain"``
+    across the levels, the forward builds beside their einsum at the same
+    level; ``bench.py``'s train step with ``impl="plain"``
     (no kernel launched) and ``impl="cuda"`` (the six);
   * ``model-train``: the pruned transducer's training step
     (``models.make_train_step``) at the full width of ``TransducerConfig()``
@@ -107,7 +108,11 @@ after:
     a ``collective_census`` of each step: the loss's scalar all-reduce,
     the smoothed step's two [C] unigram all-reduces, no lattice moved; am
     and lm sharded on C and resharded where gloo carries the all-to-all
-    on CUDA tensors; step times, DTensor against plain tensors) and
+    on CUDA tensors; step times, DTensor against plain tensors; the nine
+    glue ops that reach no kernel, one rank bit-equal and two ranks equal
+    to the whole batch's call; the sharded forced-alignment path,
+    ``get_rnnt_logprobs`` then ``viterbi_alignment``, its scores and
+    emission frames equal to the ``alignment`` phase's) and
     ``example`` (``examples/torch_train_and_decode.py`` at 300 steps on
     the card: greedy and beam token accuracy at least 0.95).
 
@@ -1112,7 +1117,9 @@ def alignment_phase(dev, lm, am, sym, bnd):
     """``viterbi_alignment`` of the headline lattice on the card against
     its own result on the CPU: scores to rel 1e-5; emission frames equal,
     or, where they differ, the card's path scored on the CPU's lattice
-    within 1e-4 of the CPU's best (a near-tie)."""
+    within 1e-4 of the CPU's best (a near-tie).  Returns the card's scores
+    and frames (on the host) and its first call's ms, which the dtensor
+    phase's sharded path is held to."""
     import torch
 
     from fast_rnnt_tpu_torch import viterbi_alignment
@@ -1146,6 +1153,7 @@ def alignment_phase(dev, lm, am, sym, bnd):
           f"({card_s * 1e3:.1f} ms, first call) against the CPU: scores rel err {rel:.3e} (tol 1e-5); "
           f"emission frames equal on {B - len(differ)} of {B} utterances, the rest near-ties (path score "
           f"gap {gap:.3e}, tol 1e-4)")
+    return sc_d.cpu(), fr_d.cpu(), card_s * 1e3
 
 
 # --- serving: the causal model streamed, and through StreamServer ------------
@@ -2011,6 +2019,142 @@ def dt_step(name):
     return step
 
 
+# the public glue ops, which reach no kernel, on Shard(0) DTensors (s-major
+# rows Shard(1)) at the headline shape; get_rnnt_logprobs_joint at the joint
+# phase's cut, B=4, whose [4, 1000, 101, 500] logits are 808 MB (at B=30,
+# 6.1 GB)
+DT_GLUE_BJ = 4
+# against the whole batch's call, more than one rank: the port's unsharded
+# tolerance in tests/test_torch_partition.py (PORT_TOL), atol + rtol|x|
+DT_GLUE_TOL = 1e-6
+
+
+def dtensor_glue(rank, world, shard, local, log, lm, am, sym, bnd, rg):
+    """The nine glue ops on this rank's shards against the same op on the
+    whole batch's plain tensors: outputs Shard on their batch axis, the hook
+    at the per-shard batch, no kernel launched; one rank bit-equal, more
+    ranks within DT_GLUE_TOL with -inf where the whole batch's is and
+    integer outputs equal.  ``rg``: the whole batch's ranges.  Returns
+    {op: max abs err}."""
+    import torch
+
+    from fast_rnnt_tpu_torch import ops
+    from fast_rnnt_tpu_torch.ops.kernels import partition
+
+    px_r, py_r = ops.get_rnnt_logprobs_rows(lm, am, sym, 0, "regular", bnd)
+    px, py = px_r.movedim(1, 0).contiguous(), py_r.movedim(1, 0).contiguous()
+    lo = rg[:, :, 0].contiguous()
+    gen = torch.Generator(device=am.device).manual_seed(4)
+    s_begin = torch.randint(0, S - S_RANGE + 2, (B, T), generator=gen, device=am.device, dtype=torch.int32)
+    bj = DT_GLUE_BJ
+    logits = am[:bj, :, None, :] + lm[:bj, None, :, :]
+    # op -> arguments: (tensor, batch axis) to shard, anything else as it is
+    calls = {
+        "fix_for_boundary": ((px, 0), (bnd, 0)),
+        "band_mask_rows_smajor": ((py_r, 1), (lo, 0), S_RANGE),
+        "band_mask_rows": ((px, 0), (rg, 0)),
+        "get_rnnt_logprobs_joint": ((logits, 0), (sym[:bj], 0), 0, (bnd[:bj], 0)),
+        "roll_by_shifts": ((py.transpose(1, 2).contiguous(), 0), (lo, 0)),
+        "scatter_window": ((am[:, :, :S_RANGE].contiguous(), 0), (lo, 0), S + 1),
+        "adjust_pruning_lower_bound": ((s_begin, 0), S_RANGE),
+        "viterbi_scores": ((px, 0), (py, 0), (bnd, 0)),
+        "viterbi_alignment": ((px, 0), (py, 0), (bnd, 0)),
+    }
+    counters = launch_counters()
+    for d, key in counters.values():
+        d[key] = 0
+    errs = {}
+    for name, args in calls.items():
+        fn = getattr(ops, name)
+        want = fn(*(a[0] if isinstance(a, tuple) else a for a in args))
+        sharded = [shard(*a) if isinstance(a, tuple) else a for a in args]
+        log.clear()
+        partition._TRACE_HOOK = lambda n, b: log.append((n, int(b)))
+        got = fn(*sharded)
+        partition._TRACE_HOOK = None
+        n = (bj if name == "get_rnnt_logprobs_joint" else B) // world
+        if sorted(set(log)) != [(name, n)]:
+            raise Failed(f"dtensor glue rank {rank} {name}: hook {sorted(set(log))}, expected ({name!r}, {n})")
+        ax = 1 if name == "band_mask_rows_smajor" else 0
+        err = 0.0
+        for i, (g, w) in enumerate(zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want)))):
+            what = f"dtensor glue rank {rank} {name}[{i}]"
+            if str(g.placements) != f"(Shard(dim={ax}),)":
+                raise Failed(f"{what}: placements {g.placements}, expected Shard({ax})")
+            g, w = local(g), w.narrow(ax, rank * n, n)
+            if world == 1 or not w.is_floating_point():
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise Failed(f"{what}: not equal to the whole batch's call")
+                continue
+            fin = torch.isfinite(w)
+            d = (g[fin] - w[fin]).abs()
+            if not (torch.equal(torch.isneginf(g), torch.isneginf(w)) and torch.isfinite(g[fin]).all()
+                    and (d <= DT_GLUE_TOL + DT_GLUE_TOL * w[fin].abs()).all()):
+                raise Failed(f"{what}: max abs err {d.max().item():.3e} or -inf elsewhere than the whole "
+                             f"batch's call (tol {DT_GLUE_TOL} + {DT_GLUE_TOL}|x|)")
+            err = max(err, d.max().item() if d.numel() else 0.0)
+        errs[name] = err
+    launched = {n: d[key] for n, (d, key) in counters.items() if d[key]}
+    if launched:
+        raise Failed(f"dtensor glue rank {rank}: the glue ops launched {launched}")
+    return errs
+
+
+def dtensor_alignment(rank, world, shard, local, log, lm, am, sym, bnd):
+    """The forced-alignment path, ``get_rnnt_logprobs`` (the build kernel)
+    then ``viterbi_alignment``, on this rank's Shard(0) lm, am, symbols and
+    boundary, and on the whole batch's plain tensors, each twice in turns
+    (host clock to a synchronise): the build launched once a path, in the
+    sharded one at the per-shard batch (the hook), the outputs Shard(0),
+    the shard's scores and frames equal to the whole batch's.  Returns the
+    shard's scores and emission frames, the hook and the times."""
+    import torch
+
+    from fast_rnnt_tpu_torch import get_rnnt_logprobs, viterbi_alignment
+    from fast_rnnt_tpu_torch.ops.kernels import partition
+
+    def path(lm_, am_, sym_, bnd_):
+        px, py = get_rnnt_logprobs(lm_, am_, sym_, 0, "regular", bnd_)
+        return viterbi_alignment(px, py, bnd_)
+
+    k = B // world
+    sharded = [shard(x) for x in (lm, am, sym, bnd)]
+    counters = launch_counters()
+    times = {"plain": [], "dtensor": []}
+    out = {}
+    for _ in range(2):
+        for kind, args in (("plain", (lm, am, sym, bnd)), ("dtensor", sharded)):
+            for d, key in counters.values():
+                d[key] = 0
+            log.clear()
+            if kind == "dtensor":
+                partition._TRACE_HOOK = lambda n, b: log.append((n, int(b)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[kind] = path(*args)
+            torch.cuda.synchronize()
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+            partition._TRACE_HOOK = None
+            launches = {n: d[key] for n, (d, key) in counters.items() if d[key]}
+            if launches != {"latbuild_fwd": 1}:
+                raise Failed(f"dtensor alignment rank {rank} ({kind}): launches {launches}, expected the "
+                             "build once")
+    hook = sorted(set(log))
+    seen = {n for n, _ in hook}
+    if not {"get_rnnt_logprobs", "latbuild_fwd", "viterbi_alignment"} <= seen or {b for _, b in hook} != {k}:
+        raise Failed(f"dtensor alignment rank {rank}: hook {hook}, expected the build and the alignment at "
+                     f"the per-shard batch {k}")
+    placements = [str(x.placements) for x in out["dtensor"]]
+    if placements != ["(Shard(dim=0),)"] * 3:
+        raise Failed(f"dtensor alignment rank {rank}: placements {placements}")
+    sl = slice(rank * k, (rank + 1) * k)
+    scores, frames, ind = (local(x) for x in out["dtensor"])
+    if not all(torch.equal(a, b[sl]) for a, b in zip((scores, frames, ind), out["plain"])):
+        raise Failed(f"dtensor alignment rank {rank}: scores, frames or indicator other than the whole "
+                     "batch's plain path's")
+    return {"scores": scores.tolist(), "frames": frames.tolist(), "hook": hook, "ms": times}
+
+
 def dtensor_worker(rank, world, out_dir, backend):
     """One rank of the dtensor phase (``chip_smoke.py --dtensor-worker``):
     bench.py's train step and the smoothed step at the headline shape on
@@ -2147,6 +2291,12 @@ def dtensor_worker(rank, world, out_dir, backend):
         out["dtensor_ms"] = 1e3 * benchmark_on_device(step, *args)
         out["plain_ms"] = 1e3 * benchmark_on_device(step, *plain_args)
         res["steps"][name] = out
+        if name == "train":
+            whole_ranges = want[3]
+
+    # the public glue ops and the sharded forced-alignment path
+    res["glue"] = dtensor_glue(rank, world, shard, local, log, lm, am, sym, bnd, whole_ranges)
+    res["alignment"] = dtensor_alignment(rank, world, shard, local, log, lm, am, sym, bnd)
 
     if world == 1:
         # the kernels of both steps by the profiler's names
@@ -2197,16 +2347,21 @@ def dtensor_worker(rank, world, out_dir, backend):
     torch.distributed.destroy_process_group()
 
 
-def dtensor_phase():
+def dtensor_phase(align):
     """The losses on batch-sharded DTensors at the headline shape: (a) one
     NCCL rank, bit-equal to the plain step, all eight kernels launched;
     (b) two gloo ranks sharing the card (NCCL takes one rank per device),
     B=30 split 15 + 15, held to the whole batch's plain step at the train
     tolerances, the hook at 15 on every kernel entry, no lattice moved;
     (c) am and lm sharded on C where gloo carries the reshard; (d) step
-    times, DTensor against plain tensors.  Returns each step's launches on
-    a gloo rank."""
+    times, DTensor against plain tensors; (e) the nine glue ops, one rank
+    bit-equal and two ranks equal to the whole batch's call; (f) the
+    sharded forced-alignment path, its scores and frames equal to the
+    alignment phase's ``align`` (scores, frames, first call ms).  Returns
+    each step's launches on a gloo rank."""
     import tempfile
+
+    import torch
 
     results = {}
     for backend, world in (("nccl", 1), ("gloo", DT_WORLD)):
@@ -2252,6 +2407,30 @@ def dtensor_phase():
     phase("dtensor", f"B={B} T={T} S={S} C={C} s_range={S_RANGE} fp32, Shard(0) DTensors on a DeviceMesh; "
           f"kernel families by profiler name on one rank {json.dumps(one['families'])}; "
           + "; ".join(parts) + f"; no collective holds a lattice (dims {T}, {T + 1}); " + nb_line)
+    # the sharded alignment path against the alignment phase's plain one
+    sc_a, fr_a, first_ms = align
+    runs = {"one NCCL rank": [one["alignment"]], "two gloo ranks": [x["alignment"] for x in two]}
+    lines = []
+    for what, al in runs.items():
+        sc = torch.tensor([v for x in al for v in x["scores"]], dtype=sc_a.dtype)
+        fr = torch.tensor([v for x in al for v in x["frames"]], dtype=fr_a.dtype)
+        equal = int((fr == fr_a).all(1).sum())
+        if equal != B or not torch.equal(sc, sc_a):
+            raise Failed(f"dtensor alignment ({what}): emission frames equal on {equal} of {B} utterances, "
+                         f"scores max abs diff {(sc - sc_a).abs().max().item():.3e}: both must equal the "
+                         "alignment phase's")
+        lines.append(f"{what} (B={B // len(al)} a rank) ms, sharded vs plain in turns: " + "; ".join(
+            ", ".join(f"{d:.1f} vs {p:.1f}" for d, p in zip(x["ms"]["dtensor"], x["ms"]["plain"])) for x in al))
+    glue = {n: max(x["glue"][n] for x in two) for n in two[0]["glue"]}
+    phase("dtensor", f"the nine glue ops on Shard(0) DTensors (s-major rows Shard(1)) at B={B} T={T} S={S} "
+          f"C={C} (get_rnnt_logprobs_joint at B={DT_GLUE_BJ}), no kernel launched, outputs Shard on their "
+          f"batch axis, the hook at the per-shard batch: one NCCL rank bit-equal to the plain call; two gloo "
+          f"ranks against the whole batch's call, max abs err {json.dumps(glue)} (tol {DT_GLUE_TOL} + "
+          f"{DT_GLUE_TOL}|x|, integer outputs equal).  Sharded forced alignment, get_rnnt_logprobs (the "
+          f"build kernel per shard, hook {json.dumps(two[0]['alignment']['hook'])} on a gloo rank) -> "
+          f"viterbi_alignment of the headline lattice [{B}, {S}, {T + 1}]: scores equal and emission "
+          f"frames equal on {B} of {B} utterances to the alignment phase's (its first call "
+          f"{first_ms:.1f} ms); " + "; ".join(lines))
     return {n: two[0]["steps"][n]["launches"] for n in DT_STEPS}
 
 
@@ -2469,9 +2648,12 @@ def precision_phase(am, lm, sym, bnd, counted):
     operands allow, printed beside their count; the gradients to GRAD_TOL of
     max, the backward on the forward's residual D, as the kernels take it),
     max |dpx| and |dpy| and the train step's loss against "highest", and
-    the kernels' times; bf16 lm and am bit-equal across the levels.  Then
-    ``bench.py``'s train step with ``impl="plain"`` (no kernel) and
-    ``impl="cuda"`` (the six once each).  Returns {kernel: {level: ms}}."""
+    the kernels' times beside the forward builds' library call at the same
+    level (the einsum in float32, with TF32 allowed for "high", on bf16
+    operands for "default"); bf16 lm and am bit-equal across the levels.
+    Then ``bench.py``'s train step with ``impl="plain"`` (no kernel) and
+    ``impl="cuda"`` (the six once each).  Returns ({kernel: {level: ms}},
+    {forward build: {level: library ms}})."""
     import torch
 
     from fast_rnnt_tpu_torch import rnnt_loss_simple_pruned, set_matmul_precision
@@ -2484,8 +2666,25 @@ def precision_phase(am, lm, sym, bnd, counted):
     dnd = torch.randn((S + 1, B, T), device=am.device, generator=gen)
     lmp = torch.exp(lm - lm.amax(2, keepdim=True))
     uni = (lmp / lmp.sum(2, keepdim=True)).mean((0, 1)) + float(np.finfo(np.float32).tiny)
-    del lmp
     lm16, am16 = lm.bfloat16(), am.bfloat16()
+    # the forward builds' GEMM operands, for the library yardsticks
+    amp = torch.exp(am - am.amax(2, keepdim=True))
+    lhs = {"latbuild_fwd": lmp, "latbuild_fwd_parts": torch.cat([lmp, uni.expand(B, 1, C)], 1)}
+    del lmp
+
+    def library_ms(level, a):
+        """The einsum of the build's product at ``level``: float32 operands
+        with TF32 off ("highest") or allowed ("high"), bf16 operands
+        ("default")."""
+        if level == "default":
+            a16, b16 = a.bfloat16(), amp.bfloat16()
+            return kernel_ms(lambda: torch.einsum("bsc,btc->sbt", a16, b16))
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = level == "high"
+        try:
+            return kernel_ms(lambda: torch.einsum("bsc,btc->sbt", a, amp))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
 
     def bench_step(impl=None):
         a, l = am.clone().requires_grad_(), lm.clone().requires_grad_()
@@ -2494,6 +2693,7 @@ def precision_phase(am, lm, sym, bnd, counted):
         return loss.detach(), torch.autograd.grad(loss, (a, l)), r_
 
     times = {k: {} for k in ("latbuild_fwd", "latbuild_bwd", "latbuild_fwd_parts", "latbuild_bwd_parts")}
+    library = {k: {} for k in lhs}
     lines, ref = [], {}
     try:
         for level in LEVELS:
@@ -2539,6 +2739,8 @@ def precision_phase(am, lm, sym, bnd, counted):
             times["latbuild_bwd_parts"][level] = kernel_ms(
                 lambda: latbuild.build_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd))
             del res, res_s
+            for k, a in lhs.items():
+                library[k][level] = library_ms(level, a)
             flips = ("" if level == "highest" else
                      f"rounded operands differing between the routes {n_flip} of {B * (T + S + 1) * C}, "
                      f"their bound on |d log D| {0.0 if isinstance(fb, float) else fb.max().item():.3e} "
@@ -2547,10 +2749,11 @@ def precision_phase(am, lm, sym, bnd, counted):
                 f"{level}: {flips}vs plain emulation build fwd {e_fwd:.3e} (tol 1e-4 + 1e-5|x|) bwd "
                 f"{e_bwd[1]:.3e} of max (tol {GRAD_TOL}), parts fwd {e_pf:.3e} bwd {e_pb[1]:.3e} of max; vs "
                 f"highest max |dpx| {d_px:.3e} |dpy| {d_py:.3e}, train-step loss rel {d_loss:.3e}; kernel ms "
-                + ", ".join(f"{k} {v[level]:.4f}" for k, v in times.items()))
+                + ", ".join(f"{k} {v[level]:.4f}" for k, v in times.items()) + "; library (einsum) ms "
+                + ", ".join(f"{k} {v[level]:.4f}" for k, v in library.items()))
     finally:
         set_matmul_precision("highest")
-    del ref, lm16, am16, dpx, dpy, dnd
+    del ref, lm16, am16, dpx, dpy, dnd, amp, lhs
 
     six = {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
            "wavefront_bwd": 1, "ranges": 1}
@@ -2561,7 +2764,7 @@ def precision_phase(am, lm, sym, bnd, counted):
           f"bench.py's train step with impl=\"plain\": no launch (first call {plain_ms:.1f} ms), with "
           f"impl=\"cuda\": {json.dumps(got_c)}; their losses rel {rel_err(loss_p, loss_c):.3e}, ranges "
           f"{'equal' if torch.equal(r_p, r_c) else 'differing at near-ties'}")
-    return times
+    return times, library
 
 
 def headline_kernels(am, lm, sym, bnd):
@@ -3514,7 +3717,7 @@ def main():
 
     # the matmul precision levels of the build kernels, and the per-call
     # routes of the train step
-    prec_times = precision_phase(am, lm, sym, bnd, counted)
+    prec_times, prec_library = precision_phase(am, lm, sym, bnd, counted)
     # bounds at each level: the forward's products in one TF32 or bf16 pass
     # ("high", "default"); the backward's d_am and d_lm products stay 3xTF32
     one_pass = {"high": kernel_bounds(bnd, 1), "default": kernel_bounds(bnd, 1, bf16_ops=True)}
@@ -3526,7 +3729,7 @@ def main():
     # and decoding on a copy task, and forced alignment of the headline lattice
     launches_model, model_ms = model_train_phase(dev, t, counted)
     model_converge_phase(dev)
-    alignment_phase(dev, lm, am, sym, bnd)
+    align = alignment_phase(dev, lm, am, sym, bnd)
 
     # serving: the causal model at full width streamed, served and timed
     models = serve_models(dev)
@@ -3543,7 +3746,7 @@ def main():
     del models
     torch.cuda.empty_cache()
     dp = dp_train_phase(dev, model_ms)
-    dt_launches = dtensor_phase()
+    dt_launches = dtensor_phase(align)
     example_phase()
 
     # --- 5. where the steps' time goes (measurements) ----------------------
@@ -3612,7 +3815,8 @@ def main():
          "dp_train_launches": dp["gloo"][0]["launches"].get(name, 0),
          "dtensor_launches": {n: c.get(name, 0) for n, c in dt_launches.items()},
          **({"ms_by_precision": prec_times[name], "bound_ms_by_precision": prec_bounds[name]}
-            if name in prec_times else {})}
+            if name in prec_times else {}),
+         **({"library_ms_by_precision": prec_library[name]} if name in prec_library else {})}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

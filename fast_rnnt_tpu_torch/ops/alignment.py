@@ -12,7 +12,8 @@ Each row is solved by the doubling scan of ``numerics.log_linear_scan``
 with ``max`` in place of ``logaddexp`` (max-plus linear recurrences
 compose associatively); the S+1 rows run as a Python loop, as the JAX
 ``lax.scan`` does.  Plain PyTorch ops on either device: the JAX package
-computes this in XLA, outside any Pallas kernel.
+computes this in XLA, outside any Pallas kernel.  Both ops take
+batch-sharded ``DTensor`` s and run per shard (``kernels/partition.py``).
 
 The alignment falls out of autodiff: the gradient of ``max`` goes to its
 argmax branch, so the gradient of ``viterbi_scores`` w.r.t. ``px`` is the
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .kernels.partition import partitioned
 from .numerics import NEG_INF, _shift_right
 from .recursion import _mask_rows, _normalize_boundary
 
@@ -48,6 +50,7 @@ def _max_linear_scan(coeff: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return b
 
 
+@partitioned({"px": 0, "py": 0, "boundary": 0}, 0)
 def viterbi_scores(
     px: torch.Tensor,
     py: torch.Tensor,
@@ -86,6 +89,11 @@ def viterbi_scores(
     return best
 
 
+# the unwrapped body, for viterbi_alignment (its arguments already local)
+_viterbi_scores = viterbi_scores.__wrapped__
+
+
+@partitioned({"px": 0, "py": 0, "boundary": 0}, (0, 0, 0))
 def viterbi_alignment(
     px: torch.Tensor,
     py: torch.Tensor,
@@ -103,7 +111,7 @@ def viterbi_alignment(
     """
     px_in = px.detach().requires_grad_(True)
     with torch.enable_grad():
-        scores = viterbi_scores(px_in, py.detach(), boundary)
+        scores = _viterbi_scores(px_in, py.detach(), boundary)
         (px_ind,) = torch.autograd.grad(scores.sum(), px_in)
     t_iota = torch.arange(px.shape[2], device=px.device, dtype=px_ind.dtype)
     emitted = px_ind.sum(dim=2) > 0.5  # (B, S)

@@ -1,5 +1,10 @@
-"""Batch partitioning over ``DTensor`` for the kernels and the entry points
-that reach them (the port of ``fast_rnnt_tpu/ops/kernels/partition.py``).
+"""Batch partitioning over ``DTensor`` for the kernels, the entry points
+that reach them, and the public glue ops that reach none (the port of
+``fast_rnnt_tpu/ops/kernels/partition.py``): every public op of the port
+that takes a batch takes batch-sharded ``DTensor`` s, as every public op of
+the JAX package takes batch-sharded arrays.  The ops left unwrapped
+(``cummin``, ``monotonic_lower_bound``, ``logaddexp``, ``safe_exp``) make
+no tensor of their own, so DTensor's sharding rules carry them.
 
 The lattice kernels are independent along the batch: every output row b
 depends only on input rows b.  But a kernel launched through ``ctypes`` is

@@ -183,6 +183,7 @@ def _symbol_index(symbols: torch.Tensor, C: int) -> Tuple[torch.Tensor, torch.Te
     return sym.clamp(0, C - 1), (sym >= 0) & (sym < C)
 
 
+@partitioned({"px": 0, "boundary": 0}, 0)
 def fix_for_boundary(px: torch.Tensor, boundary: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Set ``px[b, :, boundary[b, 3]] = -inf`` on (B, S, T+1) px (regular
     only): no symbol is emitted on an utterance's one-past-the-end frame."""
@@ -190,6 +191,12 @@ def fix_for_boundary(px: torch.Tensor, boundary: Optional[torch.Tensor] = None) 
         return px
     t = torch.arange(px.shape[2], device=px.device)[None, None, :]
     return torch.where(t == boundary[:, 3].to(px.device)[:, None, None], NEG_INF, px)
+
+
+# The unwrapped bodies of the partitioned glue ops, for callers whose
+# arguments are already local (inside a partitioned call, or plain tensors
+# on the main path): no DTensor scan.
+_fix_for_boundary = fix_for_boundary.__wrapped__
 
 
 def _build_rows_plain(
@@ -413,6 +420,7 @@ def get_rnnt_logprobs_smoothed_rows(
     )
 
 
+@partitioned({"x_rows": 1, "lo": 0}, 1)
 def band_mask_rows_smajor(x_rows: torch.Tensor, lo: torch.Tensor, K: int) -> torch.Tensor:
     """Mask (S', B, T') rows to -inf outside ``lo[b, t] <= s < lo[b, t] + K``
     (lo edge-padded for a regular px's extra t = T column)."""
@@ -425,11 +433,18 @@ def band_mask_rows_smajor(x_rows: torch.Tensor, lo: torch.Tensor, K: int) -> tor
     return torch.where((s_i >= lo3) & (s_i < lo3 + K), x_rows, NEG_INF)
 
 
+_band_mask_rows_smajor = band_mask_rows_smajor.__wrapped__
+
+
+@partitioned({"x": 0, "ranges": 0}, 0)
 def band_mask_rows(x: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
     """(B, S', T')-major :func:`band_mask_rows_smajor` with the band of
     ``ranges`` [B, T, K]: -inf outside ``ranges[b, t, 0] <= s <
     ranges[b, t, 0] + K``."""
-    return band_mask_rows_smajor(x.movedim(1, 0), ranges[:, :, 0], ranges.shape[2]).movedim(0, 1)
+    return _band_mask_rows_smajor(x.movedim(1, 0), ranges[:, :, 0], ranges.shape[2]).movedim(0, 1)
+
+
+_band_mask_rows = band_mask_rows.__wrapped__
 
 
 @partitioned({"lm": 0, "am": 0, "symbols": 0, "boundary": 0}, 0)
@@ -486,12 +501,13 @@ def _finish(px, py, rnnt_type, boundary):
     """The rnnt_type tail of the B-major builders: regular kills each
     utterance's t_end column, constrained adds py of the next row."""
     if rnnt_type == "regular":
-        return fix_for_boundary(px, boundary), py
+        return _fix_for_boundary(px, boundary), py
     if rnnt_type == "constrained":
         return px + py[:, 1:, :], py
     return px, py
 
 
+@partitioned({"logits": 0, "symbols": 0, "boundary": 0}, (0, 0))
 def get_rnnt_logprobs_joint(
     logits: torch.Tensor,
     symbols: torch.Tensor,
@@ -517,6 +533,10 @@ def get_rnnt_logprobs_joint(
     return _finish(px, py, rnnt_type, boundary)
 
 
+_get_rnnt_logprobs_joint = get_rnnt_logprobs_joint.__wrapped__
+
+
+@partitioned({"src": 0, "shifts": 0}, 0)
 def roll_by_shifts(src: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """Per-(b, t) circular right-roll of the last dim of [B, T, S] ``src``
     by ``shifts[b, t]`` (reference ``_roll_by_shifts``, rnnt_loss.py:814-851)."""
@@ -525,6 +545,7 @@ def roll_by_shifts(src: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return torch.gather(src, 2, idx % S)
 
 
+@partitioned({"win": 0, "shifts": 0}, 0)
 def scatter_window(
     win: torch.Tensor, shifts: torch.Tensor, out_width: int, fill: float = NEG_INF
 ) -> torch.Tensor:
@@ -539,6 +560,9 @@ def scatter_window(
     for k in range(K):
         out = torch.where(rel == k, win[:, :, k : k + 1], out)
     return out
+
+
+_scatter_window = scatter_window.__wrapped__
 
 
 @partitioned({"logits": 0, "symbols": 0, "ranges": 0, "boundary": 0}, 0)
@@ -577,10 +601,10 @@ def get_rnnt_logprobs_pruned(
     px = torch.where(pvalid, torch.gather(logits, 3, psym[..., None])[..., 0], 0.0) - normalizers
     py_band = logits[:, :, :, termination_symbol] - normalizers
     lo = ranges[:, :, 0]
-    px = scatter_window(px, lo, S + 1)[:, :, :S].transpose(1, 2)  # [B, S, T]
+    px = _scatter_window(px, lo, S + 1)[:, :, :S].transpose(1, 2)  # [B, S, T]
     if rnnt_type == "regular":
         px = _neg_inf_column(px)
-    py = scatter_window(py_band, lo, S + 1).transpose(1, 2)  # [B, S+1, T]
+    py = _scatter_window(py_band, lo, S + 1).transpose(1, 2)  # [B, S+1, T]
     return _finish(px, py, rnnt_type, boundary)
 
 
@@ -605,7 +629,7 @@ def get_rnnt_logprobs_pruned_simple(
     # get_rnnt_logprobs_pruned
     base_type = "modified" if rnnt_type == "constrained" else rnnt_type
     px, py = get_rnnt_logprobs(lm, am, symbols, termination_symbol, base_type, boundary)
-    px, py = band_mask_rows(px, ranges), band_mask_rows(py, ranges)
+    px, py = _band_mask_rows(px, ranges), _band_mask_rows(py, ranges)
     if rnnt_type == "constrained":
         px = px + py[:, 1:, :]
     return px, py

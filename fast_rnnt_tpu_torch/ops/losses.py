@@ -24,11 +24,11 @@ from torch.utils.checkpoint import checkpoint
 from ..utils.validation import check_rnnt_inputs
 from .kernels.partition import batch_partitioned, has_dtensor
 from .lattice import (
+    _band_mask_rows_smajor,
     _check_rnnt_type,
     _finish,
+    _get_rnnt_logprobs_joint,
     _neg_inf_column,
-    band_mask_rows_smajor,
-    get_rnnt_logprobs_joint,
     get_rnnt_logprobs_pruned,
     get_rnnt_logprobs_rows,
     get_rnnt_logprobs_smoothed_rows,
@@ -234,7 +234,7 @@ def rnnt_loss(
         logits=logits, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary,
     )
-    px, py = get_rnnt_logprobs_joint(logits, symbols, termination_symbol, boundary, rnnt_type)
+    px, py = _get_rnnt_logprobs_joint(logits, symbols, termination_symbol, boundary, rnnt_type)
     return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, calc_gradients,
                            impl)
 
@@ -272,8 +272,8 @@ def rnnt_loss_chunked(
 
     def chunk_fn(am_c):
         # a chunk's "modified" lattice is its raw px/py columns
-        return get_rnnt_logprobs_joint(joiner(am_c, lm), symbols, termination_symbol, None,
-                                       "modified")
+        return _get_rnnt_logprobs_joint(joiner(am_c, lm), symbols, termination_symbol, None,
+                                        "modified")
 
     cols = [checkpoint(chunk_fn, am[:, i : i + chunk], use_reentrant=False)
             for i in range(0, am.shape[1], chunk)]
@@ -361,7 +361,7 @@ def _stage2_rows(lm, am, symbols, termination_symbol, boundary, rnnt_type, delay
         lm, am, symbols, termination_symbol, base_type, boundary, out_dtype=cast, impl=impl
     )
     if rnnt_type == "constrained":
-        px_rows = px_rows + band_mask_rows_smajor(py_rows, lo, K)[1:]
+        px_rows = px_rows + _band_mask_rows_smajor(py_rows, lo, K)[1:]
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
     if lattice_dtype is not None:
         px_rows, py_rows = px_rows.to(lattice_dtype), py_rows.to(lattice_dtype)
@@ -432,7 +432,7 @@ def rnnt_loss_simple_pruned(
     lo = ranges[:, :, 0]
 
     if rnnt_type == "constrained":
-        px_stage2 = px0_rows + band_mask_rows_smajor(py_rows, lo, K)[1:]
+        px_stage2 = px0_rows + _band_mask_rows_smajor(py_rows, lo, K)[1:]
     else:
         px_stage2 = px0_rows
     px_stage2 = _apply_delay_penalty_rows(px_stage2, boundary, rnnt_type, delay_penalty)

@@ -20,6 +20,7 @@ __all__ = [
 ]
 
 
+@partitioned({"s_begin": 0}, 0)
 def adjust_pruning_lower_bound(s_begin: torch.Tensor, s_range: int) -> torch.Tensor:
     """Make per-frame lower bounds monotone non-decreasing, starting at 0
     and stepping by < s_range, with the "magic transform"
@@ -31,6 +32,10 @@ def adjust_pruning_lower_bound(s_begin: torch.Tensor, s_range: int) -> torch.Ten
     s_begin = monotonic_lower_bound(s_begin)
     s_begin = torch.clamp(s_begin, min=0)
     return -(s_begin - t_ramp)
+
+
+# the unwrapped body, for the plain ranges search (arguments already local)
+_adjust_pruning_lower_bound = adjust_pruning_lower_bound.__wrapped__
 
 
 def _window_scores(
@@ -77,7 +82,7 @@ def _window_starts_plain(
     mask = t_idx < (bnd[:, 3:4] - 1)
     pad = torch.clamp(bnd[:, 2:3] - s_range + 1, min=0)
     s_begin = torch.where(mask, s_begin, pad)
-    return adjust_pruning_lower_bound(s_begin, adjust_step)
+    return _adjust_pruning_lower_bound(s_begin, adjust_step)
 
 
 @partitioned({"px_grad_rows": 1, "py_grad_rows": 1, "boundary": 0}, 0)

@@ -269,7 +269,9 @@ def partition_arrays(seed):
     """Every named input of the entry-point cases, in numpy: the loss
     inputs, a random (B, S, T+1) / (B, S+1, T) lattice and occupancies (and
     their s-major rows), the port's ranges of the unsharded simple loss,
-    the full and pruned joiner logits of am + lm, a score cotangent."""
+    the full and pruned joiner logits of am + lm, a score cotangent, and the
+    glue ops' inputs: a [B, T, S+1] row to roll, a [B, T, K] window to
+    place, raw window starts to repair."""
     from fast_rnnt_tpu_torch import get_rnnt_prune_ranges
 
     lm, am, symbols, boundary = partition_inputs(seed)
@@ -285,6 +287,7 @@ def partition_arrays(seed):
                                      torch.from_numpy(boundary), reduction="sum", calc_gradients=True)
     ranges = get_rnnt_prune_ranges(ogx, ogy, torch.from_numpy(boundary), PART_K).numpy()
     lm_p = lm[np.arange(B)[:, None, None], ranges]  # (B, T, K, C)
+    glue = np.random.default_rng(seed + 2)
     return {
         "lm": lm, "am": am, "symbols": symbols, "boundary": boundary,
         "px": px, "py": py, "px_rows": np.ascontiguousarray(px.transpose(1, 0, 2)),
@@ -295,6 +298,9 @@ def partition_arrays(seed):
         "logits": am[:, :, None, :] + lm[:, None, :, :],
         "logits_pruned": am[:, :, None, :] + lm_p,
         "ans_grad": (rng.random(B) + 0.5).astype(np.float32),
+        "src": np.ascontiguousarray(py.transpose(0, 2, 1)),
+        "win": np.ascontiguousarray(am[:, :, :PART_K]),
+        "s_begin": glue.integers(0, S1 - PART_K + 1, size=(B, T)).astype(np.int32),
     }
 
 
@@ -343,6 +349,34 @@ ENTRIES = {
                                  ("logits_pruned", "symbols", "ranges", 0, "boundary"), {}),
     "get_rnnt_logprobs_pruned_simple": ("get_rnnt_logprobs_pruned_simple",
                                         ("lm", "am", "symbols", "ranges", 0, "boundary"), {}),
+    # the glue ops, which reach no kernel
+    "fix_for_boundary": ("fix_for_boundary", ("px", "boundary"), {}),
+    "band_mask_rows_smajor": ("band_mask_rows_smajor", ("py_rows", "lo", PART_K), {}),
+    "band_mask_rows": ("band_mask_rows", ("px", "ranges"), {}),
+    "get_rnnt_logprobs_joint": ("get_rnnt_logprobs_joint", ("logits", "symbols", 0, "boundary"), {}),
+    "roll_by_shifts": ("roll_by_shifts", ("src", "lo"), {}),
+    "scatter_window": ("scatter_window", ("win", "lo", PART_S + 1), {}),
+    "adjust_pruning_lower_bound": ("adjust_pruning_lower_bound", ("s_begin", PART_K), {}),
+    "viterbi_scores": ("viterbi_scores", ("px", "py", "boundary"), {}),
+    "viterbi_alignment": ("viterbi_alignment", ("px", "py", "boundary"), {}),
+}
+
+# the public ops left unwrapped, entries as ENTRIES': they make no tensor
+# of their own, so DTensor's sharding rules carry them
+NATIVE = {
+    "cummin": ("cummin", ("lo",), {}),
+    "monotonic_lower_bound": ("monotonic_lower_bound", ("s_begin",), {}),
+    "logaddexp": ("logaddexp", ("px", "gx"), {}),
+    "safe_exp": ("safe_exp", ("py",), {}),
+}
+
+# the differentiable glue ops: name -> the arguments taking a gradient, of
+# the sum of every finite output entry
+GLUE_GRADS = {
+    "viterbi_scores": ("px", "py"),
+    "band_mask_rows": ("px",),
+    "band_mask_rows_smajor": ("py_rows",),
+    "get_rnnt_logprobs_joint": ("logits",),
 }
 
 
@@ -350,10 +384,25 @@ def entry_function(ops, name):
     return getattr(ops, name, None) or getattr(ops.recursion, name)
 
 
-def entry_args(name, arrays, make):
-    """ENTRIES[name]'s positional arguments, each named array through
-    ``make(name, array)``."""
-    return [make(a, arrays[a]) if isinstance(a, str) and a in arrays else a for a in ENTRIES[name][1]]
+def entry_args(name, arrays, make, table=None):
+    """ENTRIES[name]'s (or ``table[name]``'s) positional arguments, each
+    named array through ``make(name, array)``."""
+    spec = (table or ENTRIES)[name][1]
+    return [make(a, arrays[a]) if isinstance(a, str) and a in arrays else a for a in spec]
+
+
+def glue_grad(name, args):
+    """A differentiable glue op's outputs and the gradient of the sum of
+    their finite entries w.r.t. its GLUE_GRADS arguments, ``args`` as
+    entry_args gives them (plain tensors or DTensors)."""
+    import fast_rnnt_tpu_torch.ops as ops
+
+    wrt = [i for i, a in enumerate(ENTRIES[name][1]) if a in GLUE_GRADS[name]]
+    args = [x.detach().requires_grad_() if i in wrt else x for i, x in enumerate(args)]
+    out = getattr(ops, name)(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    total = sum(torch.where(torch.isfinite(o), o, 0.0).sum() for o in outs)
+    return (*outs, *torch.autograd.grad(total, [args[i] for i in wrt]))
 
 
 def _full(out):
@@ -415,6 +464,13 @@ def case_partition(mesh, rank, world, spec):
         args = entry_args(name, arrays, lambda a, x: dt(x, Shard(1) if a.endswith("_rows") else Shard(0)))
         out[name] = logged(lambda: entry_function(ops, fname)(*args, **kw))
 
+    for name, (fname, _, kw) in NATIVE.items():
+        args = entry_args(name, arrays, lambda a, x: dt(x), NATIVE)
+        out[f"native_{name}"] = logged(lambda: getattr(ops, fname)(*args, **kw))
+    for name in GLUE_GRADS:
+        args = entry_args(name, arrays, lambda a, x: dt(x, Shard(1) if a.endswith("_rows") else Shard(0)))
+        out[f"grad_{name}"] = logged(lambda: glue_grad(name, args))
+
     out["pruned_step"] = logged(lambda: _pruned_step(lm, am, sym, bnd))
     out["smoothed_step"] = logged(lambda: _smoothed_step(lm, am, sym, bnd))
     # the kernel wrappers themselves, on s-major rows sharded on axis 1
@@ -452,6 +508,8 @@ def case_partition(mesh, rank, world, spec):
     # B = 3 over two ranks: replicated, run whole
     odd = [dt(arrays[k][:3]) for k in ("lm", "am", "symbols", "boundary")]
     out["indivisible"] = logged(lambda: _pruned_step(*odd))
+    out["indivisible_alignment"] = logged(
+        lambda: ops.viterbi_alignment(*(dt(arrays[k][:3]) for k in ("px", "py", "boundary"))))
     for red in ("none", "mean", "sum"):
         out[f"reduction_{red}"] = logged(
             lambda: ops.rnnt_loss_simple(lm, am, sym, 0, bnd, reduction=red))

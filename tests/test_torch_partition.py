@@ -11,7 +11,11 @@ own unsharded call at 1e-6, with integer results (ranges) equal.  On the
 CPU the kernel wrappers run their plain versions, so the trace hook shows
 the recursion and ranges entries; the build kernels' are checked on the
 card (chip_smoke.py's ``dtensor`` phase).  One-rank cases run in this
-process on a gloo group of one."""
+process on a gloo group of one, among them a walk of ``ops.__all__``: every
+public op that takes a batch is partitioned or carried by DTensor itself,
+and none raises on DTensors."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Shard
 
 import fast_rnnt_tpu.ops as jops
+import fast_rnnt_tpu_torch
 import fast_rnnt_tpu_torch.ops as tops
 from fast_rnnt_tpu_torch.ops.kernels import _build, partition, ranges, wavefront
 
@@ -127,6 +132,74 @@ def test_entry_point_takes_batch_sharded_dtensors(ranks, arrays, name):
     assert set(got[n_reduced:]) <= {"(Shard(dim=0),)", "(Shard(dim=1),)"}, got
     seen = hook_batches(ranks, name)
     assert name in seen and set(seen.values()) == {B_LOCAL}, seen
+
+
+def placement_of(arg):
+    """The placement the worker gives a named argument."""
+    return "(Shard(dim=1),)" if arg.endswith("_rows") else "(Shard(dim=0),)"
+
+
+@pytest.mark.multiprocess
+@pytest.mark.parametrize("name", sorted(W.NATIVE))
+def test_native_op_takes_batch_sharded_dtensors(ranks, arrays, name):
+    """The ops left unwrapped (they make no tensor of their own) on Shard(0)
+    inputs: DTensor's own sharding rules give the unsharded batch's values,
+    Shard(0), with no partitioned call (the hook silent)."""
+    fname, _, kw = W.NATIVE[name]
+    j = getattr(jops, fname)(*W.entry_args(name, arrays, lambda a, x: jnp.asarray(x), W.NATIVE), **kw)
+    t = getattr(tops, fname)(*W.entry_args(name, arrays, lambda a, x: torch.from_numpy(x), W.NATIVE), **kw)
+    key = f"native_{name}"
+    check(ranks, key, j, t)
+    assert placements(ranks[0][key]["out"]) == ["(Shard(dim=0),)"]
+    assert ranks[0][key]["hook"] == [] and ranks[1][key]["hook"] == []
+
+
+def jax_glue_grad(name, arrays):
+    """W.glue_grad of the JAX op: its outputs and the gradient of the sum of
+    their finite entries."""
+    fname, spec, kw = W.ENTRIES[name]
+    args = W.entry_args(name, arrays, lambda a, x: jnp.asarray(x))
+    wrt = [i for i, a in enumerate(spec) if a in W.GLUE_GRADS[name]]
+
+    def total(*xs):
+        full = list(args)
+        for i, x in zip(wrt, xs):
+            full[i] = x
+        out = getattr(jops, fname)(*full, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        return sum(jnp.where(jnp.isfinite(o), o, 0.0).sum() for o in outs), outs
+
+    (_, outs), grads = jax.value_and_grad(total, argnums=tuple(range(len(wrt))), has_aux=True)(
+        *(args[i] for i in wrt))
+    return (*outs, *grads)
+
+
+@pytest.mark.multiprocess
+@pytest.mark.parametrize("name", sorted(W.GLUE_GRADS))
+def test_glue_gradient_on_dtensors(ranks, arrays, name):
+    """The differentiable glue ops on sharded inputs that take a gradient:
+    the outputs and the gradient of the sum of their finite entries equal
+    ``jax.value_and_grad`` and the unsharded ``torch.autograd`` gradient;
+    each gradient comes back in its input's placement."""
+    key = f"grad_{name}"
+    t = W.glue_grad(name, W.entry_args(name, arrays, lambda a, x: torch.from_numpy(x)))
+    check(ranks, key, jax_glue_grad(name, arrays), t)
+    wrt = [a for a in W.ENTRIES[name][1] if a in W.GLUE_GRADS[name]]
+    got = placements(ranks[0][key]["out"])
+    assert got[len(got) - len(wrt):] == [placement_of(a) for a in wrt], got
+    assert hook_batches(ranks, key) == {name: B_LOCAL}
+
+
+@pytest.mark.multiprocess
+def test_indivisible_batch_alignment_is_replicated(ranks, arrays):
+    """``viterbi_alignment`` of B = 3 over two ranks: replicated and run
+    whole, the JAX alignment, the hook silent."""
+    px, py, bnd = (arrays[k][:3] for k in ("px", "py", "boundary"))
+    j = jops.viterbi_alignment(jnp.asarray(px), jnp.asarray(py), jnp.asarray(bnd))
+    t = tops.viterbi_alignment(torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(bnd))
+    check(ranks, "indivisible_alignment", j, t)
+    assert placements(ranks[0]["indivisible_alignment"]["out"]) == ["(Replicate(),)"] * 3
+    assert ranks[0]["indivisible_alignment"]["hook"] == []
 
 
 # --- the pipelines and the recursion, two ranks -----------------------------
@@ -377,3 +450,55 @@ def test_ptr_rejects_a_tensor_without_storage(one_rank_mesh):
     with pytest.raises(TypeError, match="without storage"):
         _build.ptr(torch.empty(4, 3, device="meta"))
     assert _build.ptr(x) == x.data_ptr() and _build.ptr(None) is None
+
+
+# --- every public op, one rank ------------------------------------------------
+
+# public names that take no tensor
+NO_BATCH = {"matmul_precision", "register_impl", "set_default_impl", "set_lattice_build_impl",
+            "set_matmul_precision"}
+
+
+def test_every_public_op_is_classified():
+    """Each name of ``ops.__all__`` is partitioned (an entry of the
+    worker's ENTRIES, run on two ranks above and one rank below), carried
+    by DTensor (NATIVE, likewise), or takes no tensor; a new public name
+    fails here until it is one of these.  The top level re-exports the
+    same objects."""
+    assert not set(W.ENTRIES) & set(W.NATIVE)
+    assert set(tops.__all__) == set(W.ENTRIES) | set(W.NATIVE) | NO_BATCH
+    for name in NO_BATCH:
+        params = inspect.signature(getattr(tops, name)).parameters.values()
+        assert not any("Tensor" in str(p.annotation) for p in params), name
+    top = set(fast_rnnt_tpu_torch.__all__) - {"__version__"}
+    assert top <= set(tops.__all__)
+    assert all(getattr(fast_rnnt_tpu_torch, n) is getattr(tops, n) for n in top)
+
+
+def dtensors(out):
+    if isinstance(out, (tuple, list)):
+        return [d for o in out for d in dtensors(o)]
+    return [] if out is None else [out]
+
+
+@pytest.mark.parametrize("name", sorted({**W.ENTRIES, **W.NATIVE}))
+def test_public_op_takes_one_rank_dtensors(arrays, one_rank_mesh, hook_log, name):
+    """Every public op that takes a batch, on Shard(0) DTensors (s-major
+    rows Shard(1)) of a one-rank mesh: no error, DTensor outputs bit-equal
+    to the plain-tensor call; a partitioned op runs as one partitioned call
+    at the whole batch (the hook names it), a NATIVE one as DTensor ops."""
+    table = W.ENTRIES if name in W.ENTRIES else W.NATIVE
+    fname, _, kw = table[name]
+    fn = W.entry_function(tops, fname)
+    want = fn(*W.entry_args(name, arrays, lambda a, x: torch.from_numpy(x), table), **kw)
+    hook_log.clear()
+    place = {"(Shard(dim=1),)": Shard(1), "(Shard(dim=0),)": Shard(0)}
+    got = fn(*W.entry_args(name, arrays, lambda a, x: DTensor.from_local(
+        torch.from_numpy(x), one_rank_mesh, [place[placement_of(a)]]), table), **kw)
+    outs = dtensors(got)
+    assert outs and all(isinstance(d, DTensor) for d in outs), name
+    assert_bits([d.full_tensor() for d in outs], dtensors(want), name)
+    if name in W.ENTRIES:
+        assert (name, W.PART_B) in hook_log and {b for _, b in hook_log} == {W.PART_B}, hook_log
+    else:
+        assert hook_log == []
