@@ -152,6 +152,9 @@ latbuild_bwd_prep_kernel(const float* __restrict__ d, const float* __restrict__ 
       }
       ws[tl * Sc + j] = PALLAS ? bf16r(wv) : wv;
     }
+    // rd's sum: thread sl of a frame has added the rows s = sl (mod 4) in
+    // increasing s; the four partials go ((p0 + p1) + p2) + p3 (the order
+    // of ops/kernels/latbuild.py's unigram_weight_kernel_order)
     if (last) {
       red[0][sl][tl] = cs;
       red[1][sl][tl] = ns;
@@ -755,7 +758,7 @@ int launch_bwd(const void* lmp, const void* sym, const void* te, const void* am,
       static_cast<const float*>(dpy), static_cast<const float*>(dnd), static_cast<const int*>(te), B,
       S, T, modified, z.Sp, Sc, z.Gw, z.nKt, static_cast<float*>(wT), wimg_hi, wimg_lo,
       static_cast<float*>(colsum), static_cast<float*>(rsx), static_cast<float*>(rsy),
-      own_duni ? static_cast<float*>(rd) : nullptr);
+      static_cast<float*>(rd));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   constexpr int kAmStage = 64 * ((BF16 ? 64 : 32) + 4) * 4 + kParts * kTileC / 8 * 1024;
@@ -833,9 +836,11 @@ extern "C" int frt_latbuild_sizes(int B, int S, int T, int C, int bf16, int smoo
 // one TF32 pass, 2 3xTF32; the other products are 3xTF32 at every mode).
 // Scratch, of the sizes frt_latbuild_sizes gives: wT (f32), wimg_hi and
 // wimg_lo, limg_hi and (float32 only) limg_lo, colsum (B, T), rsx and rsy
-// (B, P, S+1), and rd (B, T) f32 for the smoothed build on float32 inputs
-// at prec 0 or 1 (else NULL).  Out: d_am (B, T, C) in am's dtype, d_lm (B,
-// S+1, C) f32 and, smoothed, duni_part (B, C).  T >= 1.
+// (B, P, S+1), and rd (B, T) f32, d_uni's weights -sum_s dnd / duni as the
+// prep kernel forms them (float32, before any operand rounding), written
+// whenever it and dnd are given; it must be given for the smoothed build on
+// float32 inputs at prec 0 or 1.  Out: d_am (B, T, C) in am's dtype, d_lm
+// (B, S+1, C) f32 and, smoothed, duni_part (B, C).  T >= 1.
 extern "C" int frt_latbuild_bwd(const void* lmp, const void* sym, const void* te,
                                 const void* am, const void* amax, const void* d,
                                 const void* duni, const void* dpx, const void* dpy,

@@ -76,6 +76,7 @@ __all__ = [
     "build_fwd",
     "build_bwd",
     "round_exps",
+    "unigram_weight_kernel_order",
     "LAUNCHES",
 ]
 
@@ -216,16 +217,19 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
     return px, py, nd, res
 
 
-@partitioned({**_BUILD_AXES, "residuals": (1, 0, 0), "dpx": 1, "dpy": 1, "dnd": 1}, (0, 0, "sum"),
+@partitioned({**_BUILD_AXES, "residuals": (1, 0, 0), "dpx": 1, "dpy": 1, "dnd": 1}, (0, 0, "sum", 0),
              _parts("bwd"))
 def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
-              uni=None, dnd=None, prec: Optional[int] = None):
+              uni=None, dnd=None, prec: Optional[int] = None, return_rd: bool = False):
     """Launch the VJP kernels on the forward's ``residuals``.  Returns
     ``(d_lm (B, S+1, C) float32, d_am (B, T, C) in am's dtype, d_uni (C,) or
     None)``: d_lm as the kernel sums it (the autograd route casts it to lm's
     dtype); ``uni`` and ``dnd`` together select the smoothed build's
     backward.  ``prec`` (as :func:`build_fwd`'s) sets d_uni's product
-    alone: the d_am and d_lm products keep 3xTF32 at every setting."""
+    alone: the d_am and d_lm products keep 3xTF32 at every setting.  With
+    ``return_rd`` a fourth output: d_uni's weights rd (B, T) float32 as the
+    prep kernel formed them, before any operand rounding (None for the
+    plain build)."""
     if (uni is None) != (dnd is None):
         raise ValueError("uni and dnd go together (the smoothed build's backward)")
     B, S, T, C, blank = _check_inputs(lm, am, symbols, te_fix, blank, uni)
@@ -243,6 +247,8 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
     d_am = torch.empty((B, T, C), dtype=am.dtype, device=dev)
     d_lm = torch.empty((B, S + 1, C), **f32)
     d_uni_part = torch.zeros((B, C), **f32) if uni is not None else None
+    # d_uni's weights rd (B, T): the kernel writes them for the smoothed build
+    rd = torch.empty((B, T), **f32) if uni is not None else None
     prec = _prec_code(am, prec)
     if B == 0 or T == 0:
         d_lm.zero_()
@@ -263,8 +269,6 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         colsum = torch.empty((B, T), **f32)
         rsx = torch.empty((B, P, S + 1), **f32)
         rsy = torch.empty((B, P, S + 1), **f32)
-        # d_uni's weights rd (B, T), for its one-pass product
-        rd = torch.empty((B, T), **f32) if uni is not None and not bf16 and prec < 2 else None
         err = lib.frt_latbuild_bwd(
             p(lmp), p(sym), p(te_fix), p(am.contiguous()), p(amax), p(d), p(duni),
             p(dpx), p(dpy), p(dnd), B, S, T, C, int(blank), int(modified), int(bf16), prec,
@@ -273,7 +277,8 @@ def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dp
         )
         _build.check(err, "latbuild_bwd")
         LAUNCHES["bwd" if uni is None else "bwd_parts"] += 1
-    return d_lm, d_am, None if uni is None else d_uni_part.sum(dim=0)
+    out = d_lm, d_am, None if uni is None else d_uni_part.sum(dim=0)
+    return (*out, rd) if return_rd else out
 
 
 def round_exps(x: torch.Tensor, m: torch.Tensor, prec: int) -> torch.Tensor:
@@ -446,8 +451,28 @@ def _parts_plain_bf16(lm, am, symbols, te_fix, uni, blank: int, modified: bool):
     return px, py, lognorm - torch.log(duni)[None]
 
 
+def unigram_weight_kernel_order(dnd: torch.Tensor, duni: torch.Tensor) -> torch.Tensor:
+    """d_uni's weights ``rd = -sum_s dnd[s] / duni`` (B, T) in the backward
+    prep kernel's order (``csrc/latbuild_bwd.cu``), bit for bit: four
+    partial sums, the k-th over the rows s = k (mod 4) in increasing s from
+    +0, added ((p0 + p1) + p2) + p3, negated and divided by ``duni`` (the
+    forward's residual, (B, T)).  ``dnd`` (S+1, B, T) s-major, as the
+    kernel takes it; float32."""
+    dnd = dnd.float()
+    S1 = dnd.shape[0]
+    n = -(-S1 // 4)
+    # zero rows up to a multiple of 4: a partial that starts at +0 is never
+    # -0, so adding +0 leaves its bits as they are
+    g = torch.cat([dnd, dnd.new_zeros((4 * n - S1, *dnd.shape[1:]))]).view(n, 4, *dnd.shape[1:])
+    p = torch.zeros_like(g[0])
+    for i in range(n):
+        p = p + g[i]
+    return -(((p[0] + p[1]) + p[2]) + p[3]) / duni.float()
+
+
 def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modified: bool,
-                           uni=None, dnd=None, d=None, prec: Optional[str] = None):
+                           uni=None, dnd=None, d=None, prec: Optional[str] = None, duni=None,
+                           return_rd: bool = False):
     """The plain version of the VJP kernels, the formulas of
     ``csrc/latbuild_bwd.cu`` written out: ``(d_lm, d_am, d_uni or None)``
     for cotangents (dpx, dpy) and, with the smoothed build's unigram row,
@@ -466,7 +491,13 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
     operands at level ``prec`` (None: the matmul precision's), as the
     forward kernel that made the residuals and the d_uni kernel do; the d_am
     and d_lm products keep full precision at every level, as the kernels'
-    3xTF32 products do."""
+    3xTF32 products do.  ``duni``, the smoothed forward's residual unigram
+    denominator (B, T), makes d_uni's weight rd the prep kernel's bits
+    (:func:`unigram_weight_kernel_order`), so that its rounding to bf16 or
+    to the level's operand is the kernels' too; without it rd is summed in
+    torch's order over a recomputed denominator.  With ``return_rd`` a
+    fourth output: rd (B, T) float32 before any rounding (None for the
+    plain build)."""
     _assert_fp32_matmul(am)
     B, T, C = am.shape
     S = symbols.shape[1]
@@ -514,13 +545,17 @@ def lattice_rows_bwd_plain(lm, am, symbols, te_fix, dpx, dpy, blank: int, modifi
     d_am[:, :, blank] += gy.sum(dim=1)
     d_lm[:, :S] = d_lm[:, :S].scatter_add(2, sym[:, :, None], gxv.sum(dim=2, keepdim=True))
     d_lm[:, :, blank] += gy.sum(dim=2)
-    d_uni = None
+    d_uni = rd = None
     if uni is not None:
         u = rnd(uni.detach().float())
-        rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", knob(amp), knob(u))
+        if duni is None:
+            rd = -gnd.sum(dim=1) / torch.einsum("btc,c->bt", knob(amp), knob(u))
+        else:
+            rd = unigram_weight_kernel_order(dnd, duni)
         d_am = d_am + amp_f * (rd[:, :, None] * u)
         d_uni = torch.einsum("bt,btc->c", knob(rnd(rd)), knob(amp))
-    return d_lm, d_am.to(am.dtype), d_uni
+    out = d_lm, d_am.to(am.dtype), d_uni
+    return (*out, rd) if return_rd else out
 
 
 def lattice_rows_smoothed(

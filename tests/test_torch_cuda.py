@@ -101,34 +101,64 @@ def test_dtype_policy_and_build_gradient_on_cuda(dev):
         assert_close(a, w, 1e-5, 1e-4)
 
 
-def _build_grad_case(dev, rng, B, S, T, C, modified):
-    lm = torch.randn(B, S + 1, C, device=dev)
-    am = torch.randn(B, T, C, device=dev) * 3
-    sym = torch.randint(-1, C + 1, (B, S), device=dev, dtype=torch.int32)  # some out of range
+def _build_grad_case(dev, rng, B, S, T, C, modified, seed):
+    """Random build inputs and cotangents, drawn on the card from a
+    generator seeded with ``seed`` (the blank from ``rng``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lm = torch.randn(B, S + 1, C, device=dev, generator=g)
+    am = torch.randn(B, T, C, device=dev, generator=g) * 3
+    sym = torch.randint(-1, C + 1, (B, S), device=dev, dtype=torch.int32, generator=g)  # some out of range
     blank = int(rng.integers(-C, C))
     te = torch.full((B,), -1, dtype=torch.int32, device=dev)
     if not modified:
-        te = torch.randint(0, T + 1, (B,), device=dev, dtype=torch.int32)
-    dpx = torch.randn(S, B, T if modified else T + 1, device=dev)
-    dpy = torch.randn(S + 1, B, T, device=dev)
+        te = torch.randint(0, T + 1, (B,), device=dev, dtype=torch.int32, generator=g)
+    dpx = torch.randn(S, B, T if modified else T + 1, device=dev, generator=g)
+    dpy = torch.randn(S + 1, B, T, device=dev, generator=g)
     return lm, am, sym, blank, te, dpx, dpy
 
 
-def _assert_grads(got, want):
-    for g, w in zip(got, want):
+def _smoothed_extras(dev, S, B, T, C, seed, floor=0.0):
+    """The smoothed build's unigram row (a softmax, + ``floor``) and its
+    cotangent dnd, drawn from a generator seeded with ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    uni = torch.softmax(torch.randn(C, device=dev, generator=g), 0) + floor
+    return uni, torch.randn(S + 1, B, T, device=dev, generator=g)
+
+
+def _assert_grads(got, want, case=""):
+    for g, w, n in zip(got, want, ("d_lm", "d_am", "d_uni")):
         if w is not None:
             tol = 1e-4 * max(float(w.abs().max()), 1e-30)  # chip_smoke's GRAD_TOL
-            assert float((g - w).abs().max()) <= tol
+            err = float((g - w).abs().max())
+            assert err <= tol, f"{case}: {n} max abs err {err:.3e} > {tol:.3e}"
 
 
-def _assert_bf16_contract(got, want):
+def _assert_bf16_contract(got, want, case=""):
     """The bf16 build backward's (d_lm, d_am) against the plain VJP on the
     same bf16 exps (float32): 1e-5 of max, an output in bf16 plus one bf16
     step of each element (chip_smoke's BF16_CONTRACT_TOL)."""
-    for g, w in zip(got[:2], want[:2]):
+    for g, w, n in zip(got[:2], want[:2], ("d_lm", "d_am")):
         step = 2.0**-7 if g.dtype == torch.bfloat16 else 0.0
-        excess = (g.double() - w.double()).abs() - step * w.double().abs()
-        assert float(excess.max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+        excess = float(((g.double() - w.double()).abs() - step * w.double().abs()).max())
+        tol = 1e-5 * max(float(w.abs().max()), 1e-30)
+        assert excess <= tol, f"{case}: {n} excess {excess:.3e} > {tol:.3e}"
+
+
+def _smoothed_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd, case, level=None):
+    """The smoothed build backward, kernel and plain version, the plain one
+    on the forward's full residuals (D and duni, as the kernels take them)
+    at matmul precision ``level`` (None: the current one): d_uni's weight
+    rd must be the same bits on both sides.  Returns their (d_lm, d_am,
+    d_uni)."""
+    from fast_rnnt_tpu_torch.ops.lattice import _PREC_CODE
+
+    prec = None if level is None else _PREC_CODE[level]
+    got = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd, prec, return_rd=True)
+    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd, res[0],
+                                           prec=level, duni=res[2], return_rd=True)
+    n = int((got[3].view(torch.int32) != want[3].view(torch.int32)).sum())
+    assert n == 0, f"{case}: rd differs from the plain version's in {n} of {want[3].numel()}"
+    return got[:3], want[:3]
 
 
 @pytest.mark.parametrize("seed", range(8))
@@ -140,19 +170,16 @@ def test_build_backward_kernels_match_plain_on_random_shapes(dev, seed):
     rng = np.random.default_rng(200 + seed)
     B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
     C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    case = f"seed {200 + seed}: B={B} S={S} T={T} C={C} modified={modified}"
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified, 200 + seed)
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, save=True)
     _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy),
-                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified))
-    uni = torch.softmax(torch.randn(C, device=dev), 0)
-    dnd = torch.randn(S + 1, B, T, device=dev)
+                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified), case)
+    uni, dnd = _smoothed_extras(dev, S, B, T, C, 1200 + seed)
     *out, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True)
     for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, modified)):
-        assert_close(a, b, 1e-4, 1e-5)
-    _assert_grads(
-        latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd),
-        latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd),
-    )
+        assert_close(a, b, 1e-4, 1e-5, case)
+    _assert_grads(*_smoothed_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd, case), case)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -165,7 +192,8 @@ def test_bf16_build_matches_plain_on_random_shapes(dev, seed):
     rng = np.random.default_rng(300 + seed)
     B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
     C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    case = f"seed {300 + seed}: B={B} S={S} T={T} C={C} modified={modified}"
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified, 300 + seed)
     lm, am = lm.bfloat16(), am.bfloat16()
     rt = "modified" if modified else "regular"
     zero = torch.zeros_like(te)
@@ -173,26 +201,26 @@ def test_bf16_build_matches_plain_on_random_shapes(dev, seed):
     for a, b in zip(latbuild.lattice_rows(lm, am, sym, blank, rt, bnd),
                     latbuild.lattice_rows_plain(lm, am, sym, blank, rt, bnd)):
         assert a.dtype == torch.float32
-        assert_close(a, b, 1e-4, 1e-5)
+        assert_close(a, b, 1e-4, 1e-5, case)
     want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified)
     lm_l, am_l = lm.clone().requires_grad_(), am.clone().requires_grad_()
     got = torch.autograd.grad(latbuild.lattice_rows(lm_l, am_l, sym, blank, rt, bnd), [lm_l, am_l], [dpx, dpy])
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
-    _assert_bf16_contract(got, want)
+    _assert_bf16_contract(got, want, case)
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, save=True)
     got = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy)
     assert got[0].dtype == torch.float32
-    _assert_bf16_contract(got, want)
+    _assert_bf16_contract(got, want, case)
 
 
 def test_build_backward_kernel_long_utterance(dev):
     """T = 12000: the d_lm GEMM walks all frames in-block (750 K steps) and
     sums 376 row-sum partials."""
     rng = np.random.default_rng(9)
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, 2, 12, 12000, 37, False)
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, 2, 12, 12000, 37, False, 9)
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, save=True)
     _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy),
-                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False))
+                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False), "seed 9")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -205,7 +233,7 @@ def test_build_kernels_wide_vocabulary_and_many_symbols(dev, dtype):
     smaller shapes; float32 also the smoothed build."""
     rng = np.random.default_rng(41)
     B, S, T, C = 2, 150, 130, 2100
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False)
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False, 41)
     lm, am = lm.to(dtype), am.to(dtype)
     zero = torch.zeros_like(te)
     bnd = torch.stack([zero, zero, torch.full_like(te, S), te], 1)
@@ -217,15 +245,14 @@ def test_build_kernels_wide_vocabulary_and_many_symbols(dev, dtype):
                               [dpx, dpy])
     assert got[0].dtype == dtype and got[1].dtype == dtype
     want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False)
-    (_assert_grads if dtype == torch.float32 else _assert_bf16_contract)(got, want)
+    (_assert_grads if dtype == torch.float32 else _assert_bf16_contract)(got, want, "seed 41")
     if dtype == torch.float32:
-        uni = torch.softmax(torch.randn(C, device=dev), 0)
-        dnd = torch.randn(S + 1, B, T, device=dev)
+        uni, dnd = _smoothed_extras(dev, S, B, T, C, 1041)
         *out, res = latbuild.build_fwd(lm, am, sym, te, blank, False, uni, save=True)
         for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, False)):
-            assert_close(a, b, 1e-4, 1e-5)
-        _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd),
-                      latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False, uni, dnd))
+            assert_close(a, b, 1e-4, 1e-5, "seed 41")
+        _assert_grads(*_smoothed_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd, "seed 41"),
+                      "seed 41")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -237,20 +264,18 @@ def test_build_backward_many_symbols(dev, dtype):
     smoothed build, whose extra row S+1 falls in the last pass."""
     rng = np.random.default_rng(43)
     B, S, T, C = 2, 2000, 70, 5
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False)
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, False, 43)
     lm, am = lm.to(dtype), am.to(dtype)
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, save=True)
     got = latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy)
     want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False)
     if dtype == torch.bfloat16:
-        _assert_bf16_contract(got, want)
+        _assert_bf16_contract(got, want, "seed 43")
         return
-    _assert_grads(got, want)
-    uni = torch.softmax(torch.randn(C, device=dev), 0)
-    dnd = torch.randn(S + 1, B, T, device=dev)
+    _assert_grads(got, want, "seed 43")
+    uni, dnd = _smoothed_extras(dev, S, B, T, C, 1043)
     *_, res = latbuild.build_fwd(lm, am, sym, te, blank, False, uni, save=True)
-    _assert_grads(latbuild.build_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd),
-                  latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, False, uni, dnd))
+    _assert_grads(*_smoothed_bwd(lm, am, sym, te, blank, False, res, dpx, dpy, uni, dnd, "seed 43"), "seed 43")
 
 
 def test_forward_only_build_launches_no_backward_and_keeps_no_residual(dev):
@@ -288,7 +313,8 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
     lo = band(seed, B, S, T, K) if K else None
     px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
     p_p, s_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
-    ag = torch.randn(B, device=dev)
+    g = torch.Generator(device=dev).manual_seed(100 + seed)
+    ag = torch.randn(B, device=dev, generator=g)
     for fwd, bwd in ((wavefront.forward_rows, wavefront.backward_rows),
                      (wavefront.forward_rows_scan, wavefront.backward_rows_scan)):
         p_k, s_k = fwd(px, py, bnd, lo, K)
@@ -307,9 +333,9 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
             _window_scores(gx, gy, Kr),
         )
     C = int(rng.integers(2, 70))
-    lm = torch.randn(B, S + 1, C, device=dev)
-    am = torch.randn(B, T, C, device=dev) * 3
-    sym = torch.randint(0, C, (B, S), device=dev, dtype=torch.int32)
+    lm = torch.randn(B, S + 1, C, device=dev, generator=g)
+    am = torch.randn(B, T, C, device=dev, generator=g) * 3
+    sym = torch.randint(0, C, (B, S), device=dev, dtype=torch.int32, generator=g)
     rt = "modified" if modified else "regular"
     blank = int(rng.integers(C))
     px_p, py_p = latbuild.lattice_rows_plain(lm, am, sym, blank, rt, bnd)
@@ -457,7 +483,7 @@ def test_storage_dtypes_match_plain_on_random_shapes(dev, seed, dtype):
     assert p_k.dtype == torch.float32 and s_k.dtype == torch.float32
     assert_loss_close(s_k, s_p)
     assert_close(p_k, p_p, 1e-4, 1e-5)
-    ag = torch.rand(B, device=dev) + 0.5
+    ag = torch.rand(B, device=dev, generator=torch.Generator(device=dev).manual_seed(300 + seed)) + 0.5
     for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K),
                     wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
         assert a.dtype == dtype
@@ -576,33 +602,33 @@ def test_f16_lm_am_train_through_the_build_kernels(dev, rnnt_type):
             assert (a.float() - w.float()).abs().max() <= 2.0**-8 * w.float().abs().max()
 
 
-@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("seed", range(16))
 def test_bf16_smoothed_build_matches_plain_on_random_shapes(dev, seed):
     """The smoothed build kernels on bf16 lm and am at random shapes (odd C
     included) against their plain versions, which round where the Pallas
     smoothed build rounds: px, py and normd to 1e-4 + 1e-5|x|; the backward
     (d_lm float32, d_am bf16, d_uni float32) and the autograd route's bf16
     gradients to the bf16 contract, 1e-5 of max (d_am plus one bf16 step),
-    the plain backward on the forward kernel's residual D."""
+    the plain backward on the forward kernel's residuals D and duni: w =
+    dnorm / D and d_uni's weight rd are rounded to bf16, so both sides must
+    form them from the same float32 values, and rd is held bit for bit."""
     rng = np.random.default_rng(400 + seed)
     B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 70)), int(rng.integers(1, 700))
     C, modified = int(rng.integers(2, 140)), bool(rng.integers(2))
-    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified)
+    case = f"seed {400 + seed}: B={B} S={S} T={T} C={C} modified={modified}"
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified, 400 + seed)
     lm, am = lm.bfloat16(), am.bfloat16()
-    uni = torch.softmax(torch.randn(C, device=dev), 0) + 1e-3
-    dnd = torch.randn(S + 1, B, T, device=dev)
+    uni, dnd = _smoothed_extras(dev, S, B, T, C, 1400 + seed, 1e-3)
     *out, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True)
     for a, b in zip(out, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, blank, modified)):
         assert a.dtype == torch.float32
-        assert_close(a, b, 1e-4, 1e-5)
-    # the forward's residual D, as the kernels take it: w = dnorm / D is
-    # rounded to bf16, and a D summed in another order moves some w a step
-    want = latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, blank, modified, uni, dnd, res[0])
+        assert_close(a, b, 1e-4, 1e-5, case)
+    got, want = _smoothed_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd, case)
     assert want[1].dtype == torch.bfloat16
-    got = latbuild.build_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
-    _assert_bf16_contract(got, want)
-    assert float((got[2] - want[2]).abs().max()) <= 1e-5 * float(want[2].abs().max())
+    _assert_bf16_contract(got, want, case)
+    err, tol = float((got[2] - want[2]).abs().max()), 1e-5 * float(want[2].abs().max())
+    assert err <= tol, f"{case}: d_uni max abs err {err:.3e} > {tol:.3e}"
     lm_l, am_l, uni_l = lm.clone().requires_grad_(), am.clone().requires_grad_(), uni.clone().requires_grad_()
     before = dict(latbuild.LAUNCHES)
     outs = latbuild._BuildPartsFn.apply(lm_l, am_l, sym, te, uni_l, blank % C, modified)
@@ -610,7 +636,29 @@ def test_bf16_smoothed_build_matches_plain_on_random_shapes(dev, seed):
     assert {k: latbuild.LAUNCHES[k] - before[k] for k in before} == {
         "fwd": 0, "bwd": 0, "fwd_parts": 1, "bwd_parts": 1}
     assert g[0].dtype == torch.bfloat16 and g[1].dtype == torch.bfloat16
-    _assert_bf16_contract(g, (want[0].bfloat16(), want[1]))
+    _assert_bf16_contract(g, (want[0].bfloat16(), want[1]), case)
+
+
+@pytest.mark.parametrize("level", ["highest", "high", "default"])
+@pytest.mark.parametrize("seed", range(4))
+def test_f32_smoothed_build_backward_matches_plain_at_each_level(dev, seed, level):
+    """The smoothed build backward on float32 lm and am at random shapes, at
+    each matmul precision (d_uni's product 3xTF32, one TF32 pass, one bf16
+    pass; the d_lm and d_am products 3xTF32 at every level) against its
+    plain version at that level on the forward kernel's residuals D and
+    duni: rd bit for bit (so its rounding to the level's operand is the
+    same on both sides), the gradients to 1e-4 of max (chip_smoke's
+    GRAD_TOL)."""
+    from fast_rnnt_tpu_torch.ops.lattice import _PREC_CODE
+
+    rng = np.random.default_rng(700 + seed)
+    B, S, T = int(rng.integers(1, 5)), int(rng.integers(0, 40)), int(rng.integers(1, 300))
+    C, modified = int(rng.choice([17, 32, 33, 64, 500])), bool(rng.integers(2))
+    case = f"seed {700 + seed} {level}: B={B} S={S} T={T} C={C} modified={modified}"
+    lm, am, sym, blank, te, dpx, dpy = _build_grad_case(dev, rng, B, S, T, C, modified, 700 + seed)
+    uni, dnd = _smoothed_extras(dev, S, B, T, C, 1700 + seed, 1e-3)
+    *_, res = latbuild.build_fwd(lm, am, sym, te, blank, modified, uni, save=True, prec=_PREC_CODE[level])
+    _assert_grads(*_smoothed_bwd(lm, am, sym, te, blank, modified, res, dpx, dpy, uni, dnd, case, level), case)
 
 
 def _ranges_want(gy, gx, K, bnd, step):
@@ -972,10 +1020,8 @@ def test_precision_levels_match_their_plain_emulation(dev, level, C):
         *out_k, res_s = latbuild.build_fwd(lm, am, sym, te, 0, False, uni, save=True)
         for got, want in zip(out_k, latbuild.lattice_rows_parts_plain(lm, am, sym, te, uni, 0, False)):
             assert_close(got, want, 1e-4, 1e-5, "parts")
-        for got, want in zip(latbuild.build_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd),
-                             latbuild.lattice_rows_bwd_plain(lm, am, sym, te, dpx, dpy, 0, False, uni, dnd,
-                                                             res_s[0])):
-            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        _assert_grads(*_smoothed_bwd(lm, am, sym, te, 0, False, res_s, dpx, dpy, uni, dnd, f"C={C} {level}"),
+                      f"C={C} {level}")
         bf16 = latbuild.lattice_rows(lm.bfloat16(), am.bfloat16(), sym, 0, "regular", bnd)
         ft.set_matmul_precision("highest")
         want16 = latbuild.lattice_rows(lm.bfloat16(), am.bfloat16(), sym, 0, "regular", bnd)

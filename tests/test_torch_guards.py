@@ -267,3 +267,29 @@ def test_smoke_inputs_are_bench_inputs():
         sys.path.remove(str(ROOT))
     for a, b in zip(chip_smoke.make_inputs(0), bench.make_inputs(0)):
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+_DRAWS = {"randn", "rand", "randint", "randperm", "normal", "bernoulli", "multinomial"}
+
+
+def _unseeded_draws(path):
+    """(line, name) of every ``torch.<draw>(...)`` call without a
+    ``generator=`` keyword in ``path``, and the number of draws seen."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad, seen = [], 0
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr in _DRAWS
+                and isinstance(node.func.value, ast.Name) and node.func.value.id == "torch"):
+            seen += 1
+            if not any(k.arg == "generator" for k in node.keywords):
+                bad.append((node.lineno, node.func.attr))
+    return bad, seen
+
+
+@pytest.mark.parametrize("name", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+def test_on_card_draws_are_seeded(name):
+    """Every torch random draw of the on-card checks takes a seeded
+    generator, so that a failing check can be run again on its inputs."""
+    bad, seen = _unseeded_draws(ROOT / name)
+    assert seen >= 10, f"{name}: only {seen} torch draws found; the scan is broken"
+    assert not bad, f"{name}: torch draws without generator= at {bad}"
