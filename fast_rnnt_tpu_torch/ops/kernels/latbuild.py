@@ -172,7 +172,7 @@ def _parts(stem):
     return lambda args: f"latbuild_parts_{stem}" if args.get("uni") is not None else f"latbuild_{stem}"
 
 
-@partitioned(_BUILD_AXES, (1, 1, 1, (1, 0, 0)), _parts("fwd"))
+@partitioned(_BUILD_AXES, (1, 1, 1, (1, 0, 0)), _parts("fwd"), span=False)
 def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, save: bool = False,
               prec: Optional[int] = None):
     """Launch the forward kernel.  Returns ``(px, py, nd, residuals)``:
@@ -218,7 +218,7 @@ def build_fwd(lm, am, symbols, te_fix, blank: int, modified: bool, uni=None, sav
 
 
 @partitioned({**_BUILD_AXES, "residuals": (1, 0, 0), "dpx": 1, "dpy": 1, "dnd": 1}, (0, 0, "sum", 0),
-             _parts("bwd"))
+             _parts("bwd"), span=False)
 def build_bwd(lm, am, symbols, te_fix, blank: int, modified: bool, residuals, dpx, dpy,
               uni=None, dnd=None, prec: Optional[int] = None, return_rd: bool = False):
     """Launch the VJP kernels on the forward's ``residuals``.  Returns

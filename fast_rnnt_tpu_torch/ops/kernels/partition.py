@@ -39,6 +39,15 @@ vector, and one of its gradient).
 
 The losses apply their reduction on the ``Shard(0)`` loss (``losses.py``),
 so that a mean divides by the global batch.
+
+Every call of a wrapped public op is a span of the profiler's timeline,
+``frt.<name>`` (:func:`~fast_rnnt_tpu_torch.utils.profiling.annotate`),
+on the plain fall-through and on the DTensor path alike, where the
+reshard and rewrap fall inside it; nested public calls nest their spans.
+With no profiler running the span is one flag test.  The kernel wrappers
+(``ops/kernels/*.py``) open none (``span=False``): a kernel launched inside
+a public op belongs to that op's span, and the backward of a public op is
+found through its autograd node's sequence number, not by a span.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ...utils.profiling import annotate
+
 __all__ = ["batch_partitioned", "partitioned", "batch_mean", "has_dtensor", "current_shards", "within"]
 
 if dist.is_available():
@@ -63,6 +74,9 @@ else:  # a torch without distributed support has no DTensor to partition
 # partitioned call and on every wrapped function entered inside one (the
 # kernels, forward and backward) -- never on the plain fall-through.
 _TRACE_HOOK = None
+
+# whether a profiler is running: the one test a span costs without one
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 # (mesh, batch mesh dims) of the partitioned call being run, or None
 _SHARDS: contextvars.ContextVar = contextvars.ContextVar("shards", default=None)
@@ -202,6 +216,7 @@ def batch_partitioned(
     in_axes: Dict[str, Any],
     out_axes: Union[int, str, Sequence],
     name: Union[str, Callable[[Dict[str, Any]], str]] = "kernel",
+    span: bool = True,
 ):
     """Wrap ``fn`` so that it takes batch-sharded ``DTensor`` s and runs per
     shard (see the module docstring).
@@ -217,14 +232,16 @@ def batch_partitioned(
         one int for every tensor of the result.  ``None`` outputs pass.
       name: the hook's label; a function of the bound arguments where it
         depends on them.
+      span: open the span ``frt.<name>`` around every call; False for a
+        kernel wrapper.
     """
     sig = inspect.signature(fn)
+    span_name = f"frt.{name}" if span else None
 
     def label(arguments):
         return name(arguments) if callable(name) else name
 
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
+    def call(*args, **kwargs):
         if not has_dtensor(args, kwargs):
             if _TRACE_HOOK is not None and _SHARDS.get() is not None:
                 arguments = sig.bind(*args, **kwargs).arguments
@@ -270,10 +287,18 @@ def batch_partitioned(
 
         return _map(out, _out_spec(out, out_axes), wrap)
 
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        # the flag here too: without a profiler a call skips even annotate
+        if span_name is None or not _profiler_enabled():
+            return call(*args, **kwargs)
+        with annotate(span_name):
+            return call(*args, **kwargs)
+
     return wrapper
 
 
-def partitioned(in_axes: Dict[str, Any], out_axes, name=None):
+def partitioned(in_axes: Dict[str, Any], out_axes, name=None, span: bool = True):
     """:func:`batch_partitioned` as a decorator; the hook's label defaults
     to the function's name."""
-    return lambda fn: batch_partitioned(fn, in_axes, out_axes, name or fn.__name__)
+    return lambda fn: batch_partitioned(fn, in_axes, out_axes, name or fn.__name__, span)

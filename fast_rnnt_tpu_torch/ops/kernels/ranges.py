@@ -54,7 +54,7 @@ def window_argmax_kernel_order(gy: torch.Tensor, gx: torch.Tensor, K: int) -> to
     return torch.argmax(a, dim=0).to(torch.int32)
 
 
-@partitioned({"py_grad_rows": 1, "px_grad_rows": 1, "boundary": 0}, 0, "prune_ranges")
+@partitioned({"py_grad_rows": 1, "px_grad_rows": 1, "boundary": 0}, 0, "prune_ranges", span=False)
 def window_starts(
     py_grad_rows: torch.Tensor,
     px_grad_rows: torch.Tensor,

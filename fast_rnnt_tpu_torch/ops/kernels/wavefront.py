@@ -127,7 +127,7 @@ def _check_p(p_rows, ans_grad, S, B, T):
         )
 
 
-@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (1, 0), "mi_fwd")
+@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (1, 0), "mi_fwd", span=False)
 def forward_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,
@@ -161,7 +161,8 @@ def forward_rows(
     return p_rows, scores
 
 
-@partitioned({"px_rows": 1, "py_rows": 1, "p_rows": 1, "boundary": 0, "ans_grad": 0, "lo": 0}, (1, 1), "mi_bwd")
+@partitioned({"px_rows": 1, "py_rows": 1, "p_rows": 1, "boundary": 0, "ans_grad": 0, "lo": 0}, (1, 1), "mi_bwd",
+             span=False)
 def backward_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,
@@ -281,7 +282,7 @@ def fused_rows_plain(
     return scores, px_grad, py_grad
 
 
-@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (0, 1, 1), "mi_fused")
+@partitioned({"px_rows": 1, "py_rows": 1, "boundary": 0, "lo": 0}, (0, 1, 1), "mi_fused", span=False)
 def fused_rows(
     px_rows: torch.Tensor,
     py_rows: torch.Tensor,

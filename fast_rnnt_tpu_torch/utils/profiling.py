@@ -100,17 +100,17 @@ def collective_census(prof_or_events: Any, lattice_dims=()) -> Dict[str, Any]:
 
 @contextlib.contextmanager
 def annotate(name: str) -> Iterator[None]:
-    """Named span in the ``torch.profiler`` timeline, and an NVTX range
-    where CUDA is initialised."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_initialized():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+    """Named span in the ``torch.profiler`` timeline: a user-scope
+    ``RecordFunction``, through torch's fast handle (about a tenth of
+    ``torch.profiler.record_function``'s host time under a profiler).
+    Under ``torch.autograd.profiler.emit_nvtx()`` the same record is an
+    NVTX range as well, so the span pushes none of its own.  With no
+    profiler running it costs one flag test and records nothing."""
+    if not torch._C._autograd._profiler_enabled():
+        yield
+        return
+    with torch._C._profiler._RecordFunctionFast(name):
+        yield
 
 
 @contextlib.contextmanager
