@@ -10,7 +10,7 @@
 //   sweep_kernel<.., kBwd>   <- _bwd_kernel   (:420, pallas_call :517)
 //   sweep_kernel<.., kBoth>  <- _fused_kernel (:623, pallas_call :765)
 //
-// Design: one warp per utterance sweeps anti-diagonals d = s + t.
+// Design: one warp per strip of an utterance sweeps anti-diagonals d = s + t.
 //   forward   p[s,t] = logadd(p[s-1, t-dt] + px[s-1, t-dt], p[s,t-1] + py[s,t-1])
 //   backward  g[s,t] = term2[s,t] g[s,t+1] + term1[s,t] g[s+1,t+dt]  (+ans_grad at the seed)
 // with dt = 0 regular, 1 modified.  Every cell of a diagonal depends only on
@@ -18,14 +18,36 @@
 // scan.  A strip of kStrip = 32*kR rows is swept at a time, row i by lane
 // i % 32 (slot i / 32); a row keeps its own last two cells in registers and
 // gets its neighbour row's (i-1 in the forward, i+1 in the backward) by one
-// warp shuffle per slot.  No recursion value ever leaves the sweeping warp.
-// The sweep covers only the utterance's rectangle [s_begin, s_end] x
-// [t_begin, t_end]; taller utterances run strip after strip.  The forward's
-// strip k reads its row s0-1 back from p (written by strip k-1); the backward
-// (strips top down) hands the first row's g of a strip to the next one
-// through two alternating (B, T+1) float hand-off rows (the fused launch
-// keeps them after p in its scratch, rows S+1 and S+2).  No atomics: the
-// result is the same from run to run, and T has no cap.
+// warp shuffle per slot.  No recursion value ever leaves the sweeping warp
+// but a strip's boundary row.  The sweep covers only the utterance's
+// rectangle [s_begin, s_end] x [t_begin, t_end].  The forward's strip k reads
+// its row s0-1 back from p (written by strip k-1); the backward (strips top
+// down) hands the first row's g of strip k to strip k-1 through hand-off row
+// k of an (nk, B, T+1) float scratch (the fused launch keeps it after p in
+// its scratch, rows S+1 .. S+nk).
+//
+// Strips at once.  Where the padded lattice has nk > 1 strips and one
+// utterance's nk blocks can all be resident, the launch has B x nk blocks,
+// one a strip, and strip k trails the strip it reads by ~12 tile blocks in
+// the forward (~192 steps) and ~10 in the backward: a phase takes ~T + 128 +
+// (nk-1) x 192 steps, not ~nk x (T + 128).  A block takes its (utterance,
+// strip) from an atomic ticket, in utterance-major order, strips ascending
+// (descending for the backward alone, whose strips run top down), so it
+// waits only on strips whose blocks have started: all strips of the lowest
+// unfinished utterance are running, and the launch cannot hang however many
+// blocks it has.  The fused launch's block sweeps its strip's forward, then
+// its backward.  A strip publishes its progress on the row it hands on in a
+// counter per (utterance, strip, phase): the forward the top row's tiles of
+// p that the helpers have stored, the backward the steps of its first row's
+// g that the sweeping warp has written, each counted up to the last block
+// barrier and released by one helper thread after it.  The helper lanes that
+// load the boundary tiles poll the counter below (forward) or above
+// (backward) with acquire loads, backing off between them, before they read;
+// the sweeping warp never polls.  The counters decide only when a block
+// waits: no value passes through an atomic, so the result is the same from
+// run to run, and T has no cap.  With one strip (S < 128), or more strips
+// than resident blocks, the launch has B blocks, one an utterance, which
+// sweep their strips one after another, with no counter and no poll.
 //
 // Memory.  The cells of a diagonal lie in 32 different rows, so the sweeping
 // warp never touches device memory itself: each row streams through a ring
@@ -42,13 +64,14 @@
 // sweep that also issued its own loads and stores was bound by its ~850
 // instructions a step (2.1 ms at the headline shape on an H100, PERF.md).
 //
-// What bounds it.  A chain of (rows + columns) steps per phase (1,100 at
-// S=100, T=1000), each kR cells of a log-add (forward) or two exps
-// (backward) and kR shuffles: ~130 (forward) and ~200 (backward)
-// instructions a step from one warp, whose dependent chain (a shuffle, two
-// SFU ops, a few FP ops) leaves it at under half an instruction a cycle.
-// Latency / issue bound on 30 of 132 SMs, not bandwidth bound (~37 MB
-// moved).  Several warps sweeping strips with a lag is later work.
+// What bounds it.  A chain of dependent steps per phase: rows + columns in
+// one strip (1,100 at S=100, T=1000), ~T + 128 + (nk-1) x 192 over nk strips
+// at once (~13,900 at S=1200, T=12000, against ~121,000 strip after strip),
+// each kR cells of a log-add (forward) or two exps (backward) and kR
+// shuffles: ~130 (forward) and ~200 (backward) instructions a step from one
+// warp, whose dependent chain (a shuffle, two SFU ops, a few FP ops) leaves
+// it at under half an instruction a cycle.  Latency / issue bound, one SM a
+// strip, not bandwidth bound (~37 MB moved at the headline shape).
 
 #include <cuda_runtime.h>
 
@@ -96,6 +119,21 @@ __device__ __forceinline__ float safe_exp_fast(float x) {
   return x <= 88.6f ? e : 0.f;  // false for NaN too
 }
 
+// progress counters between the blocks of one launch
+__device__ __forceinline__ int ld_acquire(const int* a) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* a, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(a), "r"(v) : "memory");
+}
+// a helper lane's wait for a count; the back-off keeps its acquire loads
+// from slowing the block's own sweep (a tight poll made the forward 15%
+// slower at 10 strips on an H100, PERF.md)
+__device__ __forceinline__ void wait_for(const int* a, int need) {
+  while (ld_acquire(a) < need) __nanosleep(128);
+}
 __device__ __forceinline__ bool band_ok(int l, int s, int K) { return l <= s && s < l + K; }
 __device__ __forceinline__ int ring_at(int i, int v) { return i * kRing + (v & (kRing - 1)); }
 // ring_at(r * 32 + lane, c + r * 32) for each slot r: lane * kRing + r * 32 *
@@ -117,20 +155,24 @@ __device__ __forceinline__ int lo_at(const int* lo, int b, int T, int t) {
 // uses tiles m + tile0(q) and m + tile0(q) + 1 in block m, so the helpers
 // load tile m + tile0(q) + 2 during block m and store tile m + tile0(q) - 1.
 struct Strip {
-  int B, T, S, K, b;
+  int B, T, S, K, b, k;
   Bnd q;
   int s0, imax, span, dt, t_hi, T1, W;
   int n, nb;  // steps, blocks
-  bool below_hand;  // forward: row s0-1 exists (strip k > 0)
-  bool above_hand;  // backward: row s0+imax+1 exists (not the top strip)
-  int ohg_in, ohg_out;  // backward hand-off rows, offsets into the (2, B, T+1) hand rows
+  bool below_hand;  // row s0-1 exists (strip k > 0)
+  bool above_hand;  // row s0+imax+1 exists (not the top strip)
+  int ohg_in, ohg_out;  // backward hand-off rows, offsets into the (nk, B, T+1) hand rows
   float ag;  // backward seed at (s_end, t_end)
+  // the phase's progress counters of the utterance's strips (strips at
+  // once), or NULL (strip after strip)
+  int* prog;
 };
 
 __device__ __forceinline__ Strip make_strip(int B, int T, int S, int K, int b, const Bnd& q,
-                                            bool modified, int k, int nk, float ag = 0.f) {
+                                            bool modified, int k, int nk, float ag = 0.f,
+                                            int* prog = nullptr) {
   Strip g;
-  g.B = B, g.T = T, g.S = S, g.K = K, g.b = b, g.q = q;
+  g.B = B, g.T = T, g.S = S, g.K = K, g.b = b, g.k = k, g.q = q;
   g.s0 = q.sb + k * kStrip;
   g.imax = min(kStrip - 1, q.se - g.s0);
   g.span = q.te - q.tb;
@@ -142,10 +184,18 @@ __device__ __forceinline__ Strip make_strip(int B, int T, int S, int K, int b, c
   g.nb = (g.n + kTile - 1) / kTile;
   g.below_hand = k > 0;
   g.above_hand = k < nk - 1;
-  g.ohg_in = (((k + 1) & 1) * B + b) * g.W;
-  g.ohg_out = ((k & 1) * B + b) * g.W;
+  g.ohg_in = ((k + 1) * B + b) * g.W;
+  g.ohg_out = (k * B + b) * g.W;
   g.ag = ag;
+  g.prog = prog;
   return g;
+}
+
+// strips at once: publish a count to the strip that waits on this one; the
+// writes before the block barrier that the publishing thread has passed are
+// visible to the block that acquires the count
+__device__ __forceinline__ void publish(const Strip& g, int done) {
+  if (done > 0) st_release(g.prog + g.k, done);
 }
 
 template <class St>
@@ -157,7 +207,7 @@ __device__ __forceinline__ float ld_masked(const St* a, bool ok) {
 
 // forward: tile m + tile0(i) + 1 of px and py of every row into the rings,
 // -inf outside the rectangle and the band, and row s0-1's p for row 0
-template <class St, bool kBand>
+template <class St, bool kBand, bool kAt>
 __device__ void fwd_load(const Strip& g, const St* px, const St* py, const int* lo, const float* p,
                          float* sm, int h, int m) {
   float* rpx = sm;
@@ -189,8 +239,11 @@ __device__ void fwd_load(const Strip& g, const St* px, const St* py, const int* 
   if (h < kTile) {
     const int v = (m + 1) * kTile + h, tp = g.q.tb + v - g.dt;
     float hv = kNegInf;
-    if (g.below_hand && tp >= g.q.tb && tp <= g.t_hi)
+    if (g.below_hand && tp >= g.q.tb && tp <= g.t_hi) {
+      // strip k-1 has stored the tile of its top row that holds column tp
+      if constexpr (kAt) wait_for(g.prog + g.k - 1, (tp - g.q.tb) / kTile + 1);
       hv = __ldcg(p + ((g.s0 - 1) * g.B + g.b) * g.W + tp);
+    }
     hand[v & (kRing - 1)] = hv;
   }
 }
@@ -210,7 +263,7 @@ __device__ void fwd_store(const Strip& g, float* p, const float* sm, int h, int 
 // backward: tile m + tile0(imax - i) + 1 of p, px and py of every row (px
 // and py -inf outside the rectangle and the band), and row s0+imax+1's p and
 // its g (from the hand-off rows) for the top row
-template <class St, bool kBand>
+template <class St, bool kBand, bool kAt>
 __device__ void bwd_load(const Strip& g, const St* px, const St* py, const int* lo, const float* p,
                          const float* hrows, float* sm, int h, int m) {
   float* rpp = sm;
@@ -242,6 +295,8 @@ __device__ void bwd_load(const Strip& g, const St* px, const St* py, const int* 
     const int w = (m + 1) * kTile + h, tn = g.q.te - w + g.dt;  // the top row's w is the step
     float hp = kNegInf, hg = 0.f;
     if (g.above_hand && tn >= g.q.tb && tn <= g.q.te) {
+      // the strip above has written its first row's g at w - dt
+      if constexpr (kAt) wait_for(g.prog + g.k + 1, w - g.dt + 1);
       hp = __ldcg(p + ((g.s0 + g.imax + 1) * g.B + g.b) * g.W + tn);
       hg = __ldcg(hrows + g.ohg_in + tn);
     }
@@ -465,28 +520,49 @@ enum Phases { kFwd = 1, kBwd = 2, kBoth = 3 };
 
 // p: (S+1, B, T+1), written by the forward (kFwd: every cell, -inf outside
 // the rectangle; kBoth: the rectangle) and read by the backward; hrows: the
-// backward's two (B, T+1) hand-off rows; ans_grad: the backward's seeds, or
-// NULL for seed 1.
-template <class St, bool kMod, bool kBand, int kPh>
+// backward's (nk, B, T+1) hand-off rows; ans_grad: the backward's seeds, or
+// NULL for seed 1.  ctr: NULL, one block an utterance sweeping its strips
+// one after another; or the ticket and the forward's and backward's progress
+// counters of each (utterance, strip), (1 + 2 B nk) ints, zero at the launch,
+// for B x nk blocks, one a strip.
+template <class St, bool kMod, bool kBand, int kPh, bool kAt>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __restrict__ bnd,
              const int* __restrict__ lo, int K, int S, int B, int T,
              const float* __restrict__ ans_grad, float* p, float* hrows,
-             float* __restrict__ scores, St* __restrict__ pxg, St* __restrict__ pyg) {
+             float* __restrict__ scores, St* __restrict__ pxg, St* __restrict__ pyg, int nk_grid,
+             int* ctr) {
   extern __shared__ float sm[];
-  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = threadIdx.x - 32;  // thread index among the helper warps
+  int b = blockIdx.x, kk = 0;  // utterance; strip (strips at once)
+  if constexpr (kAt) {
+    __shared__ int ticket;
+    if (threadIdx.x == 0) ticket = atomicAdd(ctr, 1);
+    __syncthreads();
+    b = ticket / nk_grid;
+    kk = ticket % nk_grid;
+    if (kPh == kBwd) kk = nk_grid - 1 - kk;
+  }
   const Bnd q = load_bnd(bnd, b);
   const int nr = q.se - q.sb + 1;
   const int nk = nr > 0 && q.te >= q.tb ? (nr + kStrip - 1) / kStrip : 0;
+  // the strips this block sweeps: all of the utterance's, or strip kk alone
+  const int k_lo = kAt ? kk : 0, k_hi = kAt ? min(kk, nk - 1) : nk - 1;
+  int* fprog = kAt ? ctr + 1 + b * nk_grid : nullptr;
+  int* bprog = kAt ? ctr + 1 + (B + b) * nk_grid : nullptr;
+  // strips at once: the thread that publishes this block's progress, after
+  // each block barrier
+  const bool poster = kAt && warp == kHelp && lane == 0;
   // a runtime value in every instantiation, so that seed 1 takes the same
   // operations fused and apart
   const float ag = ans_grad != nullptr ? __ldg(ans_grad + b) : 1.f;
   // fill units outside the rectangle, one per helper warp and block of the
-  // first phase, the rest after it: -inf of p (one per row, kFwd) or the
-  // zeros of (row, output) (two per row, kBwd and kBoth)
+  // first phase, the rest after it, shared among the utterance's blocks: -inf
+  // of p (one per row, kFwd) or the zeros of (row, output) (two per row, kBwd
+  // and kBoth)
   const int nunits = kPh == kFwd ? S + 1 : 2 * (S + 1);
-  int unit = warp - 1;
+  int unit = warp - 1 + kk * kHelp;
   auto fill = [&](const Strip& g) {
     if (unit < nunits) {
       if (kPh == kFwd)
@@ -494,7 +570,7 @@ sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __
       else
         zero_row(g, pxg, pyg, unit, lane);
     }
-    unit += kHelp;
+    unit += kAt ? kHelp * nk_grid : kHelp;
   };
   auto fill_rest = [&]() {
     const Strip g = make_strip(B, T, S, K, b, q, kMod, 0, 1);
@@ -502,15 +578,15 @@ sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __
   };
 
   if (kPh & kFwd) {
-    if (nk == 0 && threadIdx.x == 0) scores[b] = kNegInf;
-    for (int k = 0; k < nk; ++k) {
-      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk);
+    if (nk == 0 && kk == 0 && threadIdx.x == 0) scores[b] = kNegInf;
+    for (int k = k_lo; k <= k_hi; ++k) {
+      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk, 0.f, fprog);
       FwdSweep<kMod> f;
       if (warp == 0) {
         f.init(g, lane);
       } else {
-        fwd_load<St, kBand>(g, px, py, lo, p, sm, h, -1);
-        fwd_load<St, kBand>(g, px, py, lo, p, sm, h, 0);
+        fwd_load<St, kBand, kAt>(g, px, py, lo, p, sm, h, -1);
+        fwd_load<St, kBand, kAt>(g, px, py, lo, p, sm, h, 0);
       }
       __syncthreads();
       if (warp == 0) f.read(sm, lane, 0);  // the prologue's tiles are in
@@ -520,7 +596,9 @@ sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __
             f.step(g, sm, lane, x);
           if (m == g.nb - 1 && k == nk - 1) f.score(g, scores);
         } else {
-          if (m + 1 < g.nb) fwd_load<St, kBand>(g, px, py, lo, p, sm, h, m + 1);
+          // the top row's tiles 0 .. m + tile0(imax) - 2, stored by fwd_store(m-1)
+          if (poster && g.above_hand) publish(g, m - 1 + tile0(g.imax));
+          if (m + 1 < g.nb) fwd_load<St, kBand, kAt>(g, px, py, lo, p, sm, h, m + 1);
           fwd_store(g, p, sm, h, m);
           fill(g);
         }
@@ -531,18 +609,19 @@ sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __
         fwd_store(g, p, sm, h, g.nb + 1);
       }
       __syncthreads();  // the strip's p is stored before the next strip (or the backward) reads it
+      if (poster && g.above_hand) publish(g, g.nb + 1 + tile0(g.imax));  // every tile
     }
     if (warp > 0) fill_rest();
   }
   if (kPh & kBwd) {
-    for (int k = nk - 1; k >= 0; --k) {
-      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk, ag);
+    for (int k = k_hi; k >= k_lo; --k) {
+      const Strip g = make_strip(B, T, S, K, b, q, kMod, k, nk, ag, bprog);
       BwdSweep<kMod> f;
       if (warp == 0) {
         f.init(g, lane);
       } else {
-        bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, -1);
-        bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, 0);
+        bwd_load<St, kBand, kAt>(g, px, py, lo, p, hrows, sm, h, -1);
+        bwd_load<St, kBand, kAt>(g, px, py, lo, p, hrows, sm, h, 0);
       }
       __syncthreads();
       if (warp == 0) f.read(g, sm, lane, 0);  // the prologue's tiles are in
@@ -551,13 +630,16 @@ sweep_kernel(const St* __restrict__ px, const St* __restrict__ py, const int* __
           for (int x = m * kTile; x < min(g.n, (m + 1) * kTile); ++x)
             f.step(g, sm, hrows, lane, x);
         } else {
-          if (m + 1 < g.nb) bwd_load<St, kBand>(g, px, py, lo, p, hrows, sm, h, m + 1);
+          // the first row's g of steps 0 .. 16m-1
+          if (poster && g.below_hand) publish(g, m * kTile - g.imax);
+          if (m + 1 < g.nb) bwd_load<St, kBand, kAt>(g, px, py, lo, p, hrows, sm, h, m + 1);
           bwd_store(g, pxg, pyg, sm, h, m);
           if (kPh == kBwd) fill(g);
         }
         __syncthreads();
       }
       if (warp > 0) {
+        if (poster && g.below_hand) publish(g, g.span + 1);  // every step
         bwd_store(g, pxg, pyg, sm, h, g.nb);
         bwd_store(g, pxg, pyg, sm, h, g.nb + 1);
       }
@@ -572,17 +654,28 @@ struct Args {
   int K, S, B, T;
   const void* ans_grad;
   void *p, *hrows, *scores, *pxg, *pyg;
+  int nk;  // strips at once: B x nk blocks and the counters ctr; 1: B blocks
+  void* ctr;
 };
 
 template <class St, int kPh, bool kMod, bool kBand>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = sweep_kernel<St, kMod, kBand, kPh>;
+  const bool at_once = a.nk > 1 && a.ctr != nullptr;
+  auto kern = at_once ? sweep_kernel<St, kMod, kBand, kPh, true>
+                      : sweep_kernel<St, kMod, kBand, kPh, false>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  kern<<<a.B, kThreads, kSmem, stream>>>(
+  const int nk = at_once ? a.nk : 1;
+  if (at_once) {
+    const cudaError_t e =
+        cudaMemsetAsync(a.ctr, 0, sizeof(int) * (1 + 2 * (size_t)a.B * nk), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<a.B * nk, kThreads, kSmem, stream>>>(
       static_cast<const St*>(a.px), static_cast<const St*>(a.py), static_cast<const int*>(a.bnd),
       static_cast<const int*>(a.lo), a.K, a.S, a.B, a.T, static_cast<const float*>(a.ans_grad),
       static_cast<float*>(a.p), static_cast<float*>(a.hrows), static_cast<float*>(a.scores),
-      static_cast<St*>(a.pxg), static_cast<St*>(a.pyg));
+      static_cast<St*>(a.pxg), static_cast<St*>(a.pyg), nk,
+      at_once ? static_cast<int*>(a.ctr) : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -612,34 +705,54 @@ int launch_sweep(const Args& a, int modified, int threads, int dtype, void* stre
 
 // Every entry: px (S, B, T') and py (S+1, B, T) in the storage type named by
 // `dtype` (StorageCode); lo may be NULL (no band); `threads` must be 256 (one
-// sweeping warp, seven helpers); one block per utterance.
+// sweeping warp, seven helpers).  nk > 1 with ctr, (1 + 2 B nk) int32
+// scratch that the entry zeroes on the stream: B x nk blocks, one a strip,
+// nk = ceil((S+1) / 128), which the caller gives only where nk blocks fit on
+// the device at once (frt_sweep_resident); otherwise (nk 1, ctr NULL) one
+// block an utterance.  hrows: (ceil((S+1) / 128), B, T+1) f32 scratch.
+
+// The blocks of the sweep kernels that the device holds at once (its SMs
+// times the blocks of 160.5 KB of shared memory one SM holds), or minus a
+// CUDA error code.
+extern "C" int frt_sweep_resident(int device) {
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return -(int)e;
+  // every instantiation has the same block and shared memory
+  auto kern = sweep_kernel<float, false, false, kBoth, true>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, kSmem);
+  return e == cudaSuccess ? sms * per_sm : -(int)e;
+}
 
 // p: (S+1, B, T+1) f32 out, -inf outside each rectangle; scores: (B,) f32 out.
 extern "C" int frt_sweep_fwd(const void* px, const void* py, const void* bnd, const void* lo, int K,
                              int S, int B, int T, int modified, void* p, void* scores, int threads,
-                             int dtype, void* stream) {
-  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, nullptr, scores, nullptr, nullptr};
+                             int dtype, int nk, void* ctr, void* stream) {
+  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, nullptr, scores, nullptr, nullptr, nk, ctr};
   return launch_sweep<kFwd>(a, modified, threads, dtype, stream);
 }
 
-// p: (S+1, B, T+1) f32 in; ans_grad: (B,) f32 seeds; hrows: (2, B, T+1) f32
-// scratch; pxg (S, B, T') and pyg (S+1, B, T) out in the storage type.
+// p: (S+1, B, T+1) f32 in; ans_grad: (B,) f32 seeds; hrows: the hand-off
+// rows; pxg (S, B, T') and pyg (S+1, B, T) out in the storage type.
 extern "C" int frt_sweep_bwd(const void* px, const void* py, const void* p, const void* bnd,
                              const void* lo, int K, const void* ans_grad, int S, int B, int T,
                              int modified, void* hrows, void* pxg, void* pyg, int threads,
-                             int dtype, void* stream) {
+                             int dtype, int nk, void* ctr, void* stream) {
   const Args a{px, py, bnd, lo, K, S, B, T, ans_grad, const_cast<void*>(p), hrows, nullptr, pxg,
-               pyg};
+               pyg, nk, ctr};
   return launch_sweep<kBwd>(a, modified, threads, dtype, stream);
 }
 
-// p: (S+3, B, T+1) f32 scratch (rows 0..S the forward lattice, S+1 and S+2
-// the backward's hand-off rows); scores: (B,) f32 out; pxg, pyg out; seed 1.
+// p: (S+1+ceil((S+1)/128), B, T+1) f32 scratch (rows 0..S the forward
+// lattice, then the backward's hand-off rows); scores: (B,) f32 out; pxg,
+// pyg out; seed 1.
 extern "C" int frt_wavefront_fused(const void* px, const void* py, const void* bnd,
                                    const void* lo, int K, int S, int B, int T, int modified,
                                    void* p, void* scores, void* pxg, void* pyg, int threads,
-                                   int dtype, void* stream) {
+                                   int dtype, int nk, void* ctr, void* stream) {
   float* hrows = static_cast<float*>(p) + (size_t)(S + 1) * B * (T + 1);
-  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, hrows, scores, pxg, pyg};
+  const Args a{px, py, bnd, lo, K, S, B, T, nullptr, p, hrows, scores, pxg, pyg, nk, ctr};
   return launch_sweep<kBoth>(a, modified, threads, dtype, stream);
 }

@@ -38,18 +38,20 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every C entry (see the .cu files for the argument meanings)
 _SIGNATURES = {
     # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, dtype,
-    # stream
-    "frt_sweep_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
+    # strips at once (nk), their counters (ctr), stream
+    "frt_sweep_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, I, P, P],
     # px, py, p, boundary, lo, K, ans_grad, S, B, T, modified, hand-off rows,
-    # pxg, pyg, threads, dtype, stream
-    "frt_sweep_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, P, I, I, P],
-    # the row scans: frt_scan_fwd as frt_sweep_fwd; frt_scan_bwd as
-    # frt_sweep_bwd without the hand-off rows
+    # pxg, pyg, threads, dtype, nk, ctr, stream
+    "frt_sweep_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, P, I, I, I, P, P],
+    # device: the sweep kernels' blocks the device holds at once
+    "frt_sweep_resident": [I],
+    # the row scans: frt_scan_fwd as frt_sweep_fwd and frt_scan_bwd as
+    # frt_sweep_bwd, without the hand-off rows, nk and ctr
     "frt_scan_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
     "frt_scan_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
-    # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+3 rows),
-    # scores, pxg, pyg, threads, dtype, stream
-    "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, P],
+    # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+1+strips
+    # rows), scores, pxg, pyg, threads, dtype, nk, ctr, stream
+    "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, I, P, P],
     # lm, symbols, te, am, uni, B, S, T, C, blank, modified, bf16, prec,
     # side, img_hi, img_lo, px, py, nd, d, amax, duni, stream
     "frt_latbuild_fwd": [P] * 5 + [I] * 8 + [P] * 10,

@@ -9,7 +9,10 @@ Replaces the Pallas kernels ``fast_rnnt_tpu/ops/kernels/wavefront.py``
 one diagonal-sweep kernel, instantiated on the phases it runs: the
 forward alone (:func:`forward_rows`), the backward alone
 (:func:`backward_rows`) or both (:func:`fused_rows`); seeded with ones, the
-first two give the third's bits.  The row-scan pair
+first two give the third's bits.  Over a lattice of more than one 128-row
+strip a launch sweeps an utterance's strips at once, a block each, where
+they fit on the device together (``BLOCKS`` counts the blocks launched).
+The row-scan pair
 (:func:`forward_rows_scan`, :func:`backward_rows_scan`) is the first port
 of the first two; no package path calls it, and it keeps a T cap.
 
@@ -28,7 +31,7 @@ to the plain path.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,10 +49,14 @@ __all__ = [
     "forward_rows_scan",
     "backward_rows_scan",
     "LAUNCHES",
+    "BLOCKS",
 ]
 
 # fwd / bwd / fused: the diagonal sweep; scan_fwd / scan_bwd: the row scans
 LAUNCHES = {"fwd": 0, "bwd": 0, "fused": 0, "scan_fwd": 0, "scan_bwd": 0}
+# blocks of the sweep launches: B x strips each where an utterance's strips
+# run at once, B where each utterance's block sweeps them one after another
+BLOCKS = {"sweep": 0}
 
 forward_rows_plain = _forward_rows_plain
 backward_rows_plain = _backward_rows_plain
@@ -57,9 +64,50 @@ backward_rows_plain = _backward_rows_plain
 _MAX_SMEM = 232_448  # bytes of shared memory one Hopper block may use
 # storage dtype -> the kernels' StorageCode (csrc/wavefront_rows.cuh)
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the sweep kernels' block: one warp sweeps an utterance's diagonals, seven
-# move its tiles between device and shared memory
+# the sweep kernels' block: one warp sweeps a 128-row strip's diagonals,
+# seven move its tiles between device and shared memory
 _SWEEP_THREADS = 256
+_STRIP = 128  # rows of a sweep strip (kStrip)
+_RESIDENT: Dict[int, int] = {}  # device index -> sweep blocks it holds at once
+
+
+def _strips(S: int) -> int:
+    """128-row strips of a lattice of S+1 rows; the backward's hand-off rows."""
+    return -(-(S + 1) // _STRIP)
+
+
+def _strips_at_once(S: int, resident: int) -> int:
+    """Strips a sweep launch sweeps at once, one block each per utterance:
+    all of them where one utterance's blocks fit on the device together
+    (``resident`` blocks), so that a block waits only on running ones; else
+    1, each utterance's block sweeping its strips one after another (the
+    schedule at one strip too)."""
+    nk = _strips(S)
+    return nk if nk <= resident else 1
+
+
+def _counters(B: int, nk: int) -> int:
+    """int32 counters of a launch with strips at once: the blocks' ticket
+    and the forward's and backward's progress of each (utterance, strip)."""
+    return 1 + 2 * B * nk
+
+
+def _resident(dev: torch.device) -> int:
+    """Sweep blocks the device holds at once (one a streaming multiprocessor
+    on an H100), asked of the CUDA runtime once a device."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _RESIDENT:
+        n = _build.load_library().frt_sweep_resident(i)
+        _build.check(-n if n < 0 else 0, "sweep_resident")
+        _RESIDENT[i] = n
+    return _RESIDENT[i]
+
+
+def _schedule(S: int, B: int, dev: torch.device) -> Tuple[int, Optional[torch.Tensor]]:
+    """(strips at once, their counters or None) of a sweep launch."""
+    nk = _strips_at_once(S, _resident(dev))
+    ctr = torch.empty(_counters(B, nk), dtype=torch.int32, device=dev) if nk > 1 else None
+    return nk, ctr
 
 
 def _threads(width: int) -> int:
@@ -150,14 +198,16 @@ def forward_rows(
     if B == 0:
         return p_rows, scores
     lib = _build.load_library()
+    nk, ctr = _schedule(S, B, px_rows.device)
     err = lib.frt_sweep_fwd(
         _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(boundary),
         _build.ptr(lo), int(K), S, B, T, int(T1 == T),
-        _build.ptr(p_rows), _build.ptr(scores), _SWEEP_THREADS, code,
+        _build.ptr(p_rows), _build.ptr(scores), _SWEEP_THREADS, code, nk, _build.ptr(ctr),
         _build.stream_ptr(px_rows.device),
     )
     _build.check(err, "sweep_fwd")
     LAUNCHES["fwd"] += 1
+    BLOCKS["sweep"] += B * nk
     return p_rows, scores
 
 
@@ -177,7 +227,8 @@ def backward_rows(
     (s_end, t_end).  Returns (px_grad [S, B, T'], py_grad [S+1, B, T]) in
     the storage dtype of px/py.  On a CUDA tensor: the sweep kernel's
     backward phase, any T; it reads p only inside each rectangle, and hands
-    rows between its strips through a (2, B, T+1) float32 scratch."""
+    rows between its 128-row strips through a (strips, B, T+1) float32
+    scratch."""
     if not _kernel_route(px_rows, impl):
         return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
     S, B, T1, T, code = _check_cuda(
@@ -190,16 +241,19 @@ def backward_rows(
     py_grad = torch.empty_like(py_rows)
     if B == 0:
         return px_grad, py_grad
-    hand = torch.empty((2, B, T + 1), dtype=torch.float32, device=px_rows.device)
+    hand = torch.empty((_strips(S), B, T + 1), dtype=torch.float32, device=px_rows.device)
     lib = _build.load_library()
+    nk, ctr = _schedule(S, B, px_rows.device)
     err = lib.frt_sweep_bwd(
         _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(p_rows),
         _build.ptr(boundary), _build.ptr(lo), int(K), _build.ptr(ans_grad),
         S, B, T, int(T1 == T), _build.ptr(hand), _build.ptr(px_grad),
-        _build.ptr(py_grad), _SWEEP_THREADS, code, _build.stream_ptr(px_rows.device),
+        _build.ptr(py_grad), _SWEEP_THREADS, code, nk, _build.ptr(ctr),
+        _build.stream_ptr(px_rows.device),
     )
     _build.check(err, "sweep_bwd")
     LAUNCHES["bwd"] += 1
+    BLOCKS["sweep"] += B * nk
     return px_grad, py_grad
 
 
@@ -295,27 +349,31 @@ def fused_rows(
     returns (scores [B] float32, px_grad [S, B, T'], py_grad [S+1, B, T]),
     the bits :func:`forward_rows` then :func:`backward_rows` with
     ``ans_grad = 1`` give (the same phases of the same kernel).  p and the
-    backward's two hand-off rows go to a float32 scratch tensor (S+3, B,
-    T+1) that is not returned; the kernel keeps no row in shared memory, so
-    T has no cap beyond the scratch's int32 indexing."""
+    backward's hand-off rows, one a 128-row strip, go to a float32 scratch
+    tensor (S+1+strips, B, T+1) that is not returned; the kernel keeps no
+    row in shared memory, so T has no cap beyond the scratch's int32
+    indexing."""
     if not _kernel_route(px_rows, impl):
         return fused_rows_plain(px_rows, py_rows, boundary, lo, K)
     S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo)
-    _check_index(S, B, T, S + 3)
+    rows = S + 1 + _strips(S)
+    _check_index(S, B, T, rows)
     dev = px_rows.device
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     px_grad = torch.empty_like(px_rows)
     py_grad = torch.empty_like(py_rows)
     if B == 0:
         return scores, px_grad, py_grad
-    p_scratch = torch.empty((S + 3, B, T + 1), dtype=torch.float32, device=dev)
+    p_scratch = torch.empty((rows, B, T + 1), dtype=torch.float32, device=dev)
     lib = _build.load_library()
+    nk, ctr = _schedule(S, B, dev)
     err = lib.frt_wavefront_fused(
         _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(boundary),
         _build.ptr(lo), int(K), S, B, T, int(T1 == T),
         _build.ptr(p_scratch), _build.ptr(scores), _build.ptr(px_grad),
-        _build.ptr(py_grad), _SWEEP_THREADS, code, _build.stream_ptr(dev),
+        _build.ptr(py_grad), _SWEEP_THREADS, code, nk, _build.ptr(ctr), _build.stream_ptr(dev),
     )
     _build.check(err, "wavefront_fused")
     LAUNCHES["fused"] += 1
+    BLOCKS["sweep"] += B * nk
     return scores, px_grad, py_grad

@@ -27,6 +27,7 @@ __all__ = [
     "benchmark_on_device",
     "benchmark_carried_on_device",
     "collective_census",
+    "counters",
 ]
 
 _COLLECTIVE_KINDS = (
@@ -111,6 +112,17 @@ def annotate(name: str) -> Iterator[None]:
         return
     with torch._C._profiler._RecordFunctionFast(name):
         yield
+
+
+def counters() -> Dict[str, int]:
+    """The port's counts of its own work, taken on the host as it launches
+    kernels, since the process started: ``recursion.strip_blocks``, the
+    blocks of the diagonal-sweep launches (``ops/kernels/wavefront.py``
+    ``BLOCKS``; B x strips a launch, where an utterance's strips run at
+    once).  Read it before and after a window for the window's count."""
+    from ..ops.kernels import wavefront
+
+    return {"recursion.strip_blocks": wavefront.BLOCKS["sweep"]}
 
 
 @contextlib.contextmanager

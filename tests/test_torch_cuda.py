@@ -461,6 +461,142 @@ def test_fused_kernel_diagonal_sweep_matches_plain(dev, case):
     assert all(torch.equal(a, b) for a, b in zip(out, pair))
 
 
+# (S, T) of the strip-schedule cases: one 128-row strip (S = 0, 127), the
+# first lattices of two (S = 128: a one-row top strip; 129), 6, 10 and 21
+# strips; T from one column to the long-form cells' 12000
+STRIP_S = [0, 127, 128, 129, 640, 1200, 2600]
+STRIP_T = [1, 16, 6000, 12000]
+
+
+def _strip_case(dev, S, T):
+    """Four utterances: one over the whole lattice; one ragged, with
+    non-zero begins, whose top strips are empty; one with s_end 0; one with
+    t_end = t_begin.  Regular or modified, banded or not and the storage
+    dtype go round with the case."""
+    i = STRIP_S.index(S) * len(STRIP_T) + STRIP_T.index(T)
+    modified, K = bool(i % 2), (min(5, S + 1) if i // 2 % 2 else 0)
+    dtype = (torch.float32, torch.bfloat16, torch.float16)[i % 3]
+    px, py, bnd = rows_inputs(700 + i, B=4, S=S, T=T, modified=modified)
+    bnd[0] = (0, 0, S, T)
+    bnd[1] = (S // 10, T // 5, S // 10 + S // 3, max(T // 5, T - T // 4))
+    bnd[2] = (0, 0, 0, T)
+    bnd[3] = (S // 4, T // 2, S, T // 2)
+    lo = band(701 + i, 4, S, T, K) if K else None
+    px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
+    return px.to(dtype), py.to(dtype), bnd, lo, K, modified
+
+
+def _sweeps(px, py, bnd, lo, K, ag):
+    """p and the scores of the forward alone, the occupancies of the
+    backward alone seeded with ``ag``, and the fused launch's outputs."""
+    p, sc = wavefront.forward_rows(px, py, bnd, lo, K)
+    return (p, sc, *wavefront.backward_rows(px, py, p, bnd, ag, lo, K),
+            *wavefront.fused_rows(px, py, bnd, lo, K))
+
+
+@pytest.mark.parametrize("T", STRIP_T)
+@pytest.mark.parametrize("S", STRIP_S)
+def test_strips_at_once_equal_strip_after_strip(dev, monkeypatch, S, T):
+    """Every sweep launch over all of an utterance's strips at once gives
+    the bits of the same launch sweeping them one after another (one block
+    an utterance, as past the resident blocks), again on a second run; the
+    forward and backward apart, seeded with ones, give the fused launch's
+    bits; B x strips blocks are counted a launch.  Against the plain
+    version at the file's tolerances: T <= 16 in float32 (scores 1e-4 +
+    1e-5|x|, p 1e-4 + 1e-5|x|, occupancies 1e-5 + (1e-3 + one storage
+    step)|x|); T >= 6000 at one or two strips the scores and p, against
+    float64 (p 1e-5 of max |p| + 1e-5|x|): the file holds long occupancies
+    to 3e-3 at 12 rows, and at 127 rows x 6000 columns the float32
+    recursion's own round-off reaches 8.7e-3 of a 0.002 occupancy in one
+    strip, the schedule unchanged (an H100 reading); past that, 6 to 21
+    strips over 6000 columns, and every long occupancy, are held to the
+    strip-serial bits."""
+    from ._torch_parity import storage_rtol
+
+    px, py, bnd, lo, K, _ = _strip_case(dev, S, T)
+    ag = torch.tensor([1.0, -0.5, 2.0, 0.0], device=dev)
+    nk = wavefront._strips(S)
+    before = wavefront.BLOCKS["sweep"]
+    at_once = _sweeps(px, py, bnd, lo, K, ag)
+    assert wavefront.BLOCKS["sweep"] - before == 3 * 4 * nk
+    names = ("p", "scores", "bwd px_grad", "bwd py_grad", "fused scores", "fused px_grad",
+             "fused py_grad")
+    for what, other in (("a second run", _sweeps(px, py, bnd, lo, K, ag)),
+                        ("strip after strip", None)):
+        if other is None:
+            monkeypatch.setattr(wavefront, "_resident", lambda d: 1)
+            other = _sweeps(px, py, bnd, lo, K, ag)
+            monkeypatch.undo()
+        for a, b, name in zip(at_once, other, names):
+            assert torch.equal(a, b), f"{what}: {name}"
+    p, sc = at_once[:2]
+    pair = (sc, *wavefront.backward_rows(px, py, p, bnd, torch.ones_like(sc), lo, K))
+    assert all(torch.equal(a, b) for a, b in zip(pair, at_once[4:])), "fused vs apart"
+    if T > 16 and nk > 2:
+        return
+    if T > 16:
+        p_p, s_p = wavefront.forward_rows_plain(px.double(), py.double(), bnd, lo, K)
+        assert_loss_close(sc, s_p)
+        assert_close(p, p_p, 1e-5 * p_p[torch.isfinite(p_p)].abs().max().item(), 1e-5)
+        return
+    p_p, s_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
+    assert_loss_close(sc, s_p)
+    assert_close(p, p_p, 1e-4, 1e-5)
+    rtol = 1e-3 + storage_rtol(px.dtype)
+    for a, b in zip(at_once[2:4], wavefront.backward_rows_plain(px, py, p, bnd, ag, lo, K)):
+        assert_close(a, b, 1e-5, rtol)
+    want = wavefront.fused_rows_plain(px, py, bnd, lo, K)
+    assert_loss_close(at_once[4], want[0])
+    for a, b in zip(at_once[5:], want[1:]):
+        assert_close(a, b, 1e-5, rtol)
+
+
+def test_strips_at_once_cannot_hang_past_the_resident_blocks(dev):
+    """B = 32 at S = 1200: 320 blocks a launch, over twice the blocks an H100
+    holds at once, so most blocks start only after others end.  Run in a
+    process of its own under a time limit, so that a launch whose blocks
+    wait on a block that cannot start fails here instead of hanging the
+    suite; its bits equal the strip-serial schedule's."""
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    code = textwrap.dedent("""
+        import torch
+        from fast_rnnt_tpu_torch.ops.kernels import wavefront
+        from fast_rnnt_tpu_torch.utils import from_numpy
+        from tests._torch_parity import band, rows_inputs
+
+        dev = torch.device("cuda", 0)
+        px, py, bnd = rows_inputs(800, B=32, S=1200, T=900, offset=True)
+        bnd[::3, 0], bnd[::3, 2] = 0, 1200
+        lo = band(801, 32, 1200, 900, 5)
+        px, py, bnd, lo = from_numpy(px, py, bnd, lo, device=dev)
+        ag = torch.linspace(-1.0, 2.0, 32, device=dev)
+
+        def sweeps(lo, K):
+            p, sc = wavefront.forward_rows(px, py, bnd, lo, K)
+            return (p, sc, *wavefront.backward_rows(px, py, p, bnd, ag, lo, K),
+                    *wavefront.fused_rows(px, py, bnd, lo, K))
+
+        resident = wavefront._resident(dev)
+        assert 32 * wavefront._strips_at_once(1200, resident) > 2 * resident, resident
+        at_once = [sweeps(None, 0), sweeps(lo, 5)]
+        torch.cuda.synchronize()
+        wavefront._resident = lambda d: 1
+        serial = [sweeps(None, 0), sweeps(lo, 5)]
+        for a, b in zip(at_once, serial):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+        print("resident", resident)
+    """)
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "resident" in res.stdout
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("seed", range(3))
 def test_storage_dtypes_match_plain_on_random_shapes(dev, seed, dtype):

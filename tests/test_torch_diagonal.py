@@ -12,11 +12,18 @@ Each row keeps its last two cells (the modified recursion reads two
 diagonals back).  Rows stream through rings of four 16-column tiles that
 helper warps fill a block of 16 steps ahead and drain a block behind; the
 forward's strip k reads row s0-1 back from p, the backward's strips run top
-down and hand the g of their first row to the strip below through two
-alternating hand-off rows (after p in the fused launch's scratch, a
-separate (2, B, T+1) scratch for the backward alone), and the helpers mask
-the band lo[b, t] <= s < lo[b, t] + K into the px and py tiles as they load
-them.  The forward alone fills p with -inf outside each rectangle, and the
+down and hand the g of their first row to the strip below through hand-off
+row k (after p in the fused launch's scratch, a separate (strips, B, T+1)
+scratch for the backward alone), and the helpers mask the band lo[b, t] <=
+s < lo[b, t] + K into the px and py tiles as they load them.  Strips run
+one after another, or all at once: then each strip publishes its progress
+on the row it hands on (the forward the top row's tiles stored, the
+backward the steps of its first row's g written) in a counter, the strip
+that reads that row waits on it, and a scheduler interleaves the strips'
+tile blocks in a seeded random order, each one resumed right after it
+publishes, so a count one tile or step ahead of what was written reads the
+NaN the scratch starts with; the results must equal the strip-serial
+schedule's bit for bit.  The forward alone fills p with -inf outside each rectangle, and the
 backward alone reads p (read-only here) and seeds with ans_grad.  The model
 shares the kernel's schedule, tile arithmetic and masks; its arithmetic is
 numpy's float32 logaddexp / exp.
@@ -28,6 +35,8 @@ another order than the JAX row scan, which moves p by a few float32 steps
 values (the split kernels' occupancy tolerance on the card, chip_smoke.py).
 A fault of the index logic moves a result by O(1).
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,14 +92,16 @@ def _band(lob, t, s, K):
     return _band_ok(lob[np.clip(t, 0, len(lob) - 1)], s, K)
 
 
-def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
-    """One strip of the forward as the kernel runs it.  The helper warps'
-    work of block m (the loads for block m+1, the stores of finished tiles)
-    runs beside the sweep's block m in the kernel; here the loads go before
-    it, and the stores both before and after it, which must read the same
-    values.  So a load into a slot still in use, a store of a tile not yet
-    finished, or a read of a tile never loaded poisons the result or fails
-    (the rings start as NaN)."""
+def _forward_strip(pxb, pyb, p, b, q, k, nk, s0, imax, mod, lob, K, R, scores, prog=None):
+    """One strip of the forward as the kernel runs it, a generator that
+    yields "wait" where the strip waits on the strip below and "block" after
+    each publication.  The helper warps' work of block m (the loads for
+    block m+1, the stores of finished tiles) runs beside the sweep's block m
+    in the kernel; here the loads go before it, and the stores both before
+    and after it, which must read the same values.  So a load into a slot
+    still in use, a store of a tile not yet finished, or a read of a tile
+    never loaded poisons the result or fails (the rings start as NaN).
+    ``prog``: the utterance's forward counters (strips at once), or None."""
     sb, tb, se, te = q
     span, t_hi, strip = te - tb, te - mod, 32 * R
     rpx, rpy, rp = (np.full((strip, RING), np.nan, np.float32) for _ in range(3))
@@ -108,7 +119,13 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
         v = (m + 1) * TILE + COLS
         tp = tb + v - mod
         ok = (k > 0) & (tp >= tb) & (tp <= t_hi)
-        hand[v & 63] = np.where(ok, _take(p[:, b], np.full_like(tp, s0 - 1), tp), NEG)
+        vals = np.full(TILE, NEG)
+        for c in np.flatnonzero(ok):  # one helper lane a column
+            # strip k-1 has stored the tile of its top row that holds tp
+            while prog is not None and prog[k - 1] < (tp[c] - tb) // TILE + 1:
+                yield "wait"
+            vals[c] = p[s0 - 1, b, tp[c]]
+        hand[v & 63] = vals
 
     def store(m):
         """Stores tile m + tile0(i) - 1 of every row; returns what it read."""
@@ -120,19 +137,27 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
             out.append(rp[i, v & 63].copy())
         return out
 
+    def publish(m):
+        """After store(m) and a block barrier: the top row's tiles 0 .. m +
+        tile0(imax) - 1 are stored."""
+        if prog is not None and k < nk - 1 and m + _tile0(imax) > 0:
+            prog[k] = m + _tile0(imax)
+
     rows = np.arange(strip)
     s = s0 + rows
     v1 = np.full(strip, NEG)
     v2 = np.full(strip, NEG)
     n = imax + span + 1
     nb = -(-n // TILE)
-    load(-1)
-    load(0)
+    yield from load(-1)
+    yield from load(0)
     for m in range(nb):
+        publish(m - 1)  # the helpers' stores of block m-1
+        yield "block"
         # the helpers run beside block m: their loads land before it and
         # their stores read tiles that block m must not change
         if m + 1 < nb:
-            load(m + 1)
+            yield from load(m + 1)
         before = store(m)
         for x in range(m * TILE, min(n, (m + 1) * TILE)):
             v = x - rows
@@ -152,19 +177,22 @@ def _forward_strip(pxb, pyb, p, b, q, k, s0, imax, mod, lob, K, R, scores):
             np.testing.assert_array_equal(x, y, err_msg="a stored tile changed during its block")
     store(nb)
     store(nb + 1)
+    publish(nb + 1)
+    yield "block"
 
 
-def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S, seed_g, pxg, pyg):
+def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S, seed_g, pxg, pyg,
+                    prog=None):
     """One strip of the backward (strips top down), as the forward's; g is
-    handed down through rows 0 and 1 of ``hrows`` and seeded with
-    ``seed_g``."""
+    handed down through row k of ``hrows`` and seeded with ``seed_g``;
+    ``prog``: the utterance's backward counters, or None."""
     sb, tb, se, te = q
     span, t_hi, strip = te - tb, te - mod, 32 * R
     T, T1 = pyg.shape[2], pxg.shape[2]
     rpp, rpx, rpy, rgx, rgy = (np.full((strip, RING), np.nan, np.float32) for _ in range(5))
     hand_p = np.full(RING, np.nan, np.float32)
     hand_g = np.full(RING, np.nan, np.float32)
-    g_in, g_out = (k + 1) & 1, k & 1
+    g_in, g_out = k + 1, k
 
     def load(m):
         for qk in range(imax + 1):
@@ -179,8 +207,13 @@ def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S
         w = (m + 1) * TILE + COLS
         tn = te - w + mod
         ok = (k < nk - 1) & (tn >= tb) & (tn <= te)
-        hand_p[w & 63] = np.where(ok, _take(p[:, b], np.full_like(tn, s0 + imax + 1), tn), NEG)
-        hand_g[w & 63] = np.where(ok, _take(hrows[:, b], np.full_like(tn, g_in), tn), np.float32(0))
+        hp, hg = np.full(TILE, NEG), np.zeros(TILE, np.float32)
+        for c in np.flatnonzero(ok):  # one helper lane a column
+            # the strip above has written its first row's g at w - dt
+            while prog is not None and prog[k + 1] < w[c] - mod + 1:
+                yield "wait"
+            hp[c], hg[c] = p[s0 + imax + 1, b, tn[c]], hrows[g_in, b, tn[c]]
+        hand_p[w & 63], hand_g[w & 63] = hp, hg
 
     def store(m):
         """Stores tile m + tile0(imax - i) - 1 of every row; returns what it read."""
@@ -196,6 +229,11 @@ def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S
             out += [rgy[i, w & 63].copy(), rgx[i, w & 63].copy()]
         return out
 
+    def publish(done):
+        """The first row's g of the first ``done`` steps of w is written."""
+        if prog is not None and k > 0 and done > 0:
+            prog[k] = done
+
     rows = np.arange(strip)
     s = s0 + rows
     pc1 = np.full(strip, NEG)
@@ -203,11 +241,13 @@ def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S
     g2 = np.zeros(strip, np.float32)
     n = imax + span + 1
     nb = -(-n // TILE)
-    load(-1)
-    load(0)
+    yield from load(-1)
+    yield from load(0)
     for m in range(nb):
+        publish(m * TILE - imax)  # steps 0 .. 16m-1 are done
+        yield "block"
         if m + 1 < nb:
-            load(m + 1)
+            yield from load(m + 1)
         before = store(m)
         for x in range(m * TILE, min(n, (m + 1) * TILE)):
             w = x - imax + rows
@@ -232,8 +272,10 @@ def _backward_strip(pxb, pyb, p, hrows, b, q, k, nk, s0, imax, mod, lob, K, R, S
             g2, g1 = g1, np.where(act, g, np.float32(0))
         for x, y in zip(store(m), before):
             np.testing.assert_array_equal(x, y, err_msg="a stored tile changed during its block")
+    publish(span + 1)
     store(nb)
     store(nb + 1)
+    yield "block"
 
 
 def _zero_outside(pxg, pyg, b, q):
@@ -270,19 +312,56 @@ def _strips(bnd, b, R):
     return q, [(k, sb + k * strip, min(strip - 1, se - sb - k * strip)) for k in range(nk)]
 
 
-def _forward_phase(px, py, p, bnd, lo, K, R, scores, b):
-    q, strips = _strips(bnd, b, R)
-    for k, s0, imax in strips:
-        _forward_strip(px[:, b], py[:, b], p, b, q, k, s0, imax, int(px.shape[2] == py.shape[2]),
-                       None if lo is None else lo[b], K, R, scores)
+def _grid_strips(S, R):
+    """Strips of the padded lattice: the hand-off rows and counters a
+    launch has for each utterance."""
+    return -(-(S + 1) // (32 * R))
 
 
-def _backward_phase(px, py, p, hrows, bnd, lo, K, R, ag, pxg, pyg, b):
+def _forward_phase(px, py, p, bnd, lo, K, R, scores, b, prog=None):
+    """The utterance's forward strips, bottom up, as generators."""
     q, strips = _strips(bnd, b, R)
-    for k, s0, imax in reversed(strips):
-        _backward_strip(px[:, b], py[:, b], p, hrows, b, q, k, len(strips), s0, imax,
-                        int(px.shape[2] == py.shape[2]), None if lo is None else lo[b], K, R,
-                        px.shape[0], ag, pxg, pyg)
+    return [_forward_strip(px[:, b], py[:, b], p, b, q, k, len(strips), s0, imax,
+                           int(px.shape[2] == py.shape[2]), None if lo is None else lo[b], K, R,
+                           scores, prog)
+            for k, s0, imax in strips]
+
+
+def _backward_phase(px, py, p, hrows, bnd, lo, K, R, ag, pxg, pyg, b, prog=None):
+    """The utterance's backward strips, bottom up, as generators."""
+    q, strips = _strips(bnd, b, R)
+    return [_backward_strip(px[:, b], py[:, b], p, hrows, b, q, k, len(strips), s0, imax,
+                            int(px.shape[2] == py.shape[2]), None if lo is None else lo[b], K, R,
+                            px.shape[0], ag, pxg, pyg, prog)
+            for k, s0, imax in strips]
+
+
+def _one_after_another(strips):
+    """Strip after strip: no strip may wait."""
+    for gen in strips:
+        assert "wait" not in gen, "a strip waited in the strip-serial schedule"
+
+
+def _at_once(strips, seed):
+    """Every strip at once: each round resumes every strip once, in a seeded
+    random order, each to its next wait or publication; a round in which
+    every strip waits is a deadlock."""
+    rng = np.random.default_rng(seed)
+    live = list(strips)
+    while live:
+        moved = False
+        for i in rng.permutation(len(live)):
+            try:
+                moved |= next(live[i]) != "wait"
+            except StopIteration:
+                live[i], moved = None, True
+        live = [g for g in live if g is not None]
+        assert moved or not live, "every strip waits on another: deadlock"
+
+
+def _counters(bnd, R, S):
+    """Zeroed progress counters of each utterance (one a grid strip)."""
+    return np.zeros((len(bnd), _grid_strips(S, R)), np.int64)
 
 
 def _outputs(px, py):
@@ -294,49 +373,79 @@ def _outputs(px, py):
             np.full((S + 1, B, T), np.nan, np.float32))
 
 
-def diagonal_model(px, py, bnd, lo=None, K=0, R=1):
+def diagonal_model(px, py, bnd, lo=None, K=0, R=1, at_once=None):
     """The fused launch: (scores [B], px_grad [S, B, T'], py_grad [S+1, B,
-    T], p scratch [S+3, B, T+1]) by the kernel's schedule, seed 1, the
-    hand-off rows after p in the scratch."""
+    T], p scratch [S+1+strips, B, T+1]) by the kernel's schedule, seed 1,
+    the hand-off rows after p in the scratch.  ``at_once``: None, strip
+    after strip; or the seed of the order in which all strips run at once,
+    each block its strip's forward, then its backward."""
     S, B, _ = px.shape
     T = py.shape[2]
-    p = np.full((S + 3, B, T + 1), np.nan, np.float32)
+    p = np.full((S + 1 + _grid_strips(S, R), B, T + 1), np.nan, np.float32)
     scores, pxg, pyg = _outputs(px, py)
+    fprog, bprog = _counters(bnd, R, S), _counters(bnd, R, S)
+    blocks = []
     with np.errstate(invalid="ignore", over="ignore"):
         for b in range(B):
             _zero_outside(pxg, pyg, b, tuple(int(v) for v in bnd[b]))
-            _forward_phase(px, py, p, bnd, lo, K, R, scores, b)
-            _backward_phase(px, py, p, p[S + 1 :], bnd, lo, K, R, 1.0, pxg, pyg, b)
+            if at_once is None:
+                _one_after_another(_forward_phase(px, py, p, bnd, lo, K, R, scores, b))
+                _one_after_another(reversed(
+                    _backward_phase(px, py, p, p[S + 1 :], bnd, lo, K, R, 1.0, pxg, pyg, b)))
+            else:
+                fwd = _forward_phase(px, py, p, bnd, lo, K, R, scores, b, fprog[b])
+                bwd = _backward_phase(px, py, p, p[S + 1 :], bnd, lo, K, R, 1.0, pxg, pyg, b,
+                                      bprog[b])
+                blocks += [itertools.chain(f, g) for f, g in zip(fwd, bwd)]
+        if at_once is not None:
+            _at_once(blocks, at_once)
     return scores, pxg, pyg, p
 
 
-def sweep_fwd_model(px, py, bnd, lo=None, K=0, R=1):
+def sweep_fwd_model(px, py, bnd, lo=None, K=0, R=1, at_once=None):
     """The forward launched alone: (p_rows [S+1, B, T+1], -inf outside each
-    rectangle, scores [B])."""
+    rectangle, scores [B]); ``at_once`` as :func:`diagonal_model`'s."""
     S, B, _ = px.shape
     p = np.full((S + 1, B, py.shape[2] + 1), np.nan, np.float32)
     scores = _outputs(px, py)[0]
+    fprog = _counters(bnd, R, S)
+    strips = []
     with np.errstate(invalid="ignore", over="ignore"):
         for b in range(B):
-            _forward_phase(px, py, p, bnd, lo, K, R, scores, b)
+            fwd = _forward_phase(px, py, p, bnd, lo, K, R, scores, b,
+                                 None if at_once is None else fprog[b])
+            if at_once is None:
+                _one_after_another(fwd)
+            strips += fwd
+        if at_once is not None:
+            _at_once(strips, at_once)
+        for b in range(B):
             _neg_outside(p, b, tuple(int(v) for v in bnd[b]))
     return p, scores
 
 
-def sweep_bwd_model(px, py, p_rows, bnd, ans_grad, lo=None, K=0, R=1):
+def sweep_bwd_model(px, py, p_rows, bnd, ans_grad, lo=None, K=0, R=1, at_once=None):
     """The backward launched alone: (px_grad, py_grad) seeded with
     ``ans_grad`` [B], reading ``p_rows`` (made read-only here: the kernel
     must not write it) and handing g rows down through a separate NaN-filled
-    (2, B, T+1) scratch."""
-    B = px.shape[1]
+    (strips, B, T+1) scratch; ``at_once`` as :func:`diagonal_model`'s."""
+    S, B, _ = px.shape
     p = p_rows.copy()
     p.setflags(write=False)
-    hrows = np.full((2, B, py.shape[2] + 1), np.nan, np.float32)
+    hrows = np.full((_grid_strips(S, R), B, py.shape[2] + 1), np.nan, np.float32)
     _, pxg, pyg = _outputs(px, py)
+    bprog = _counters(bnd, R, S)
+    strips = []
     with np.errstate(invalid="ignore", over="ignore"):
         for b in range(B):
             _zero_outside(pxg, pyg, b, tuple(int(v) for v in bnd[b]))
-            _backward_phase(px, py, p, hrows, bnd, lo, K, R, np.float32(ans_grad[b]), pxg, pyg, b)
+            bwd = _backward_phase(px, py, p, hrows, bnd, lo, K, R, np.float32(ans_grad[b]), pxg,
+                                  pyg, b, None if at_once is None else bprog[b])
+            if at_once is None:
+                _one_after_another(reversed(bwd))
+            strips += bwd
+        if at_once is not None:
+            _at_once(strips, at_once)
     return pxg, pyg
 
 
@@ -346,8 +455,21 @@ def _jax_reference(px, py, bnd, lo=None, K=0):
     return np.asarray(sc), np.asarray(gx), np.asarray(gy), np.asarray(p)
 
 
+def _same_bits(got, want, names, what):
+    for a, w, name in zip(got, want, names):
+        np.testing.assert_array_equal(a, w, err_msg=f"{what}: {name}")
+
+
 def _check(px, py, bnd, lo=None, K=0, R=1):
+    """The fused model against the JAX package; and its strips all at once,
+    in two orders, bit for bit against strip after strip."""
     sc, gx, gy, p = diagonal_model(px, py, bnd, lo, K, R)
+    for order in (1, 2):
+        got = diagonal_model(px, py, bnd, lo, K, R, at_once=order)
+        _same_bits(got[:3], (sc, gx, gy), ("scores", "px_grad", "py_grad"), "strips at once")
+        for b, (sb, tb, se, te) in enumerate(bnd):
+            np.testing.assert_array_equal(got[3][sb : se + 1, b, tb : te + 1],
+                                          p[sb : se + 1, b, tb : te + 1], "strips at once: p")
     sc_j, gx_j, gy_j, p_j = _jax_reference(px, py, bnd, lo, K)
     assert_loss_close(sc, sc_j, "scores")
     assert_close(gx, gx_j, OCC_ATOL, OCC_RTOL, "px_grad")
@@ -361,7 +483,7 @@ def _check(px, py, bnd, lo=None, K=0, R=1):
 @pytest.mark.parametrize("modified", [False, True], ids=["regular", "modified"])
 def test_model_matches_jax_across_strips(modified, offset):
     """S = 70 with R = 1: three 32-row strips, so both hand-offs (p rows up
-    in the forward, g rows down in the backward, the alternating rows) run
+    in the forward, g rows down in the backward, a hand-off row a strip) run
     between full strips and into a partial top strip; T = 100: four tiles
     per row, so the rings wrap; ragged ends."""
     px, py, bnd = rows_inputs(40, B=3, S=70, T=100, modified=modified, offset=offset)
@@ -434,15 +556,19 @@ def _check_split(px, py, bnd, lo=None, K=0, R=1):
     assert_close(gy, np.asarray(gy_j), OCC_ATOL, OCC_RTOL, "py_grad")
     fused = diagonal_model(px, py, bnd, lo, K, R)
     pair = (sc, *sweep_bwd_model(px, py, p, bnd, np.ones(B, np.float32), lo, K, R))
-    for a, f, name in zip(pair, fused, ("scores", "px_grad", "py_grad")):
-        np.testing.assert_array_equal(a, f, err_msg=f"pair vs fused {name}")
+    _same_bits(pair, fused, ("scores", "px_grad", "py_grad"), "pair vs fused")
+    # each phase with its strips all at once, bit for bit against strip after strip
+    _same_bits(sweep_fwd_model(px, py, bnd, lo, K, R, at_once=3), (p, sc), ("p", "scores"),
+               "forward, strips at once")
+    _same_bits(sweep_bwd_model(px, py, p, bnd, ag, lo, K, R, at_once=4), (gx, gy),
+               ("px_grad", "py_grad"), "backward, strips at once")
 
 
 @pytest.mark.parametrize("offset", [False, True], ids=["zero-begins", "offset"])
 @pytest.mark.parametrize("modified", [False, True], ids=["regular", "modified"])
 def test_split_model_matches_jax_across_strips(modified, offset):
     """S = 70 with R = 1: three strips, so the hand-offs run through the
-    separate 2-row scratch between full strips and into a partial top
+    separate (strips, B, T+1) scratch between full strips and into a partial top
     strip; ragged ends, and with ``offset`` non-zero begins, so p has -inf
     rows and columns on every side of a rectangle."""
     px, py, bnd = rows_inputs(47, B=3, S=70, T=100, modified=modified, offset=offset)
