@@ -22,6 +22,13 @@ world size away.)
 ``optax.adamw(lr)`` corresponds to ``torch.optim.AdamW(params, lr,
 betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)`` (optax's default decay
 is 1e-4, torch's 1e-2).
+
+Nonzero ``LossConfig.lm_only_scale`` or ``am_only_scale`` make stage 1 the
+smoothed simple loss (``rnnt_loss_smoothed``), as icefall's recipe has it.
+The icefall recipe's model (``TransducerConfig(recipe="icefall")``) is drawn
+with torch's default initialisers, as icefall's modules have them
+(:func:`_torch_init`).  The optimizer's step is the span
+``frt.model.optimizer``.
 """
 
 from __future__ import annotations
@@ -33,10 +40,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.losses import rnnt_loss_pruned, rnnt_loss_simple
+from ..ops.losses import rnnt_loss_pruned, rnnt_loss_simple, rnnt_loss_smoothed
 from ..parallel.sharding import all_reduce_sum, broadcast_from_first
 from ..ops.pruning import do_rnnt_pruning, get_rnnt_prune_ranges
-from .transducer import LayerNorm, PrunedTransducer, TransducerConfig
+from ..utils.profiling import annotate
+from .transducer import (LayerNorm, PrunedTransducer, RelPositionMultiHeadAttention,
+                         TransducerConfig)
 
 __all__ = [
     "LossConfig",
@@ -64,6 +73,9 @@ class LossConfig:
     rnnt_type: str = "regular"
     delay_penalty: float = 0.0
     impl: Optional[str] = None
+    # stage 1's smoothing (rnnt_loss_smoothed); both 0: rnnt_loss_simple
+    lm_only_scale: float = 0.0
+    am_only_scale: float = 0.0
 
 
 def make_boundary(out_lens: torch.Tensor, symbol_lens: torch.Tensor) -> torch.Tensor:
@@ -88,18 +100,15 @@ def pruned_transducer_loss(
     am, lm, simple_am, simple_lm, out_lens = model(features, feature_lens, symbols)
     boundary = make_boundary(out_lens, symbol_lens)
 
-    simple_loss, (px_grad, py_grad) = rnnt_loss_simple(
-        simple_lm,
-        simple_am,
-        symbols,
-        termination_symbol=blank,
-        boundary=boundary,
-        rnnt_type=loss_cfg.rnnt_type,
-        delay_penalty=loss_cfg.delay_penalty,
-        reduction="sum",
-        calc_gradients=True,
-        impl=loss_cfg.impl,
-    )
+    common = dict(termination_symbol=blank, boundary=boundary, rnnt_type=loss_cfg.rnnt_type,
+                  delay_penalty=loss_cfg.delay_penalty, reduction="sum", calc_gradients=True,
+                  impl=loss_cfg.impl)
+    if loss_cfg.lm_only_scale or loss_cfg.am_only_scale:
+        simple_loss, (px_grad, py_grad) = rnnt_loss_smoothed(
+            simple_lm, simple_am, symbols, lm_only_scale=loss_cfg.lm_only_scale,
+            am_only_scale=loss_cfg.am_only_scale, **common)
+    else:
+        simple_loss, (px_grad, py_grad) = rnnt_loss_simple(simple_lm, simple_am, symbols, **common)
     # the occupancies are not differentiable: they only pick the int ranges
     ranges = get_rnnt_prune_ranges(px_grad, py_grad, boundary, loss_cfg.s_range, impl=loss_cfg.impl)
     am_pruned, lm_pruned = do_rnnt_pruning(am, lm, ranges)
@@ -145,19 +154,50 @@ def _flax_init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
             nn.init.zeros_(mod.bias)
 
 
+@torch.no_grad()
+def _torch_init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """torch's default initialisers, as icefall's modules have them, drawn
+    from ``generator``: Linear and Conv weights kaiming-uniform with a =
+    sqrt(5) (bound sqrt(1 / fan_in)) and biases U(+-sqrt(1 / fan_in));
+    embeddings N(0, 1) with the padding row 0; norms' scales 1 and
+    biases 0; the relative-position attention's in-projection and biases
+    u, v xavier-uniform, its in- and out-projection biases 0."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            bound = 1.0 / math.sqrt(mod.weight[0].numel())  # fan_in: in (/ groups) x kernel
+            nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5), generator=generator)
+            if mod.bias is not None:
+                nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, generator=generator)
+            if mod.padding_idx is not None:
+                mod.weight[mod.padding_idx].zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            mod.reset_parameters()
+    # after the pass above, which reaches the attention's Dense layers later
+    for mod in model.modules():
+        if isinstance(mod, RelPositionMultiHeadAttention):
+            nn.init.xavier_uniform_(mod.in_proj.weight, generator=generator)
+            nn.init.zeros_(mod.in_proj.bias)
+            nn.init.zeros_(mod.out_proj.bias)
+            nn.init.xavier_uniform_(mod.pos_bias_u, generator=generator)
+            nn.init.xavier_uniform_(mod.pos_bias_v, generator=generator)
+
+
 def init_model(
     cfg: TransducerConfig,
     device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> PrunedTransducer:
-    """The model with flax's default initialisers, drawn on the CPU from
-    ``generator`` (the same weights on any device), then moved to
-    ``device``.  A CUDA device on a machine without one raises."""
+    """The model with flax's default initialisers (the icefall recipe's with
+    torch's, :func:`_torch_init`), drawn on the CPU from ``generator`` (the
+    same weights on any device), then moved to ``device``.  A CUDA device
+    on a machine without one raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_model: no CUDA device (pass device='cpu' to run on the CPU)")
     model = PrunedTransducer(cfg)
-    _flax_init(model, generator)
+    (_torch_init if cfg.icefall else _flax_init)(model, generator)
     return model.to(device)
 
 
@@ -192,7 +232,8 @@ def make_train_step(
             for p, g in zip(params, all_reduce_sum(grads, mesh)):
                 p.grad = g
             metrics = dict(zip(metrics, all_reduce_sum(list(metrics.values()), mesh)))
-        optimizer.step()
+        with annotate("frt.model.optimizer"):
+            optimizer.step()
         return metrics
 
     return step

@@ -32,6 +32,35 @@ JAX package keeps them NHWC.
 
 The dense products and convolutions are plain PyTorch ops: the JAX package
 computes them in XLA, outside any Pallas kernel.
+
+``TransducerConfig(recipe="icefall")`` builds instead the conformer of
+icefall's ``pruned_transducer_stateless`` recipe (k2-fsa/icefall,
+egs/librispeech/ASR; arXiv:2206.13236), with the same block order:
+
+  * the front end: two unpadded 3x3 stride-2 convs of d_model channels,
+    each with ReLU, the channel-major flatten, a Dense to d_model, then
+    x * sqrt(d_model); T = ((T_in - 1) // 2 - 1) // 2;
+  * :class:`RelPositionMultiHeadAttention`: Transformer-XL relative
+    positions in ESPnet's form (learned biases u and v, the position
+    scores shifted), the softmax in float32;
+  * the conv module's norm is BatchNorm1d (batch statistics over every
+    B x T position); every LayerNorm is torch's (eps 1e-5) and hands on
+    float32, as autocast's rule has it, so the residual stream stays
+    float32 and each Dense casts its input to the compute dtype;
+  * after the blocks a LayerNorm and a float32 Dense to the vocabulary: am;
+    the predictor is icefall's stateless decoder (blank-row embedding, one
+    zero frame of left context, a depthwise context conv without bias,
+    ReLU, a float32 Dense to the vocabulary): lm; the joiner is a float32
+    Dense(V, V) over tanh(am_pruned + lm_pruned).  am and lm are both the
+    simple loss's and the joiner's inputs.
+
+Its modules are their own classes (``Icefall*``), chosen once where the
+model is built; the flax recipe's modules are the JAX package's.
+
+The model's parts open spans in the profiler's timeline
+(``frt.model.subsampling``, ``.attention``, ``.conv_module``,
+``.feed_forward``, ``.predictor``, ``.joiner``), one flag test each
+without a profiler.
 """
 
 from __future__ import annotations
@@ -44,7 +73,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["TransducerConfig", "Encoder", "Predictor", "Joiner", "PrunedTransducer"]
+from ..utils.profiling import annotate
+
+__all__ = ["TransducerConfig", "Encoder", "Predictor", "Joiner", "PrunedTransducer",
+           "RelPositionMultiHeadAttention", "IcefallEncoder", "IcefallPredictor"]
+
+RECIPES = ("flax", "icefall")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +98,19 @@ class TransducerConfig:
     # [q - attention_left_context, q] encoder frames (None: all of kk <= q)
     causal: bool = False
     attention_left_context: Optional[int] = None
+    # the modules' recipe: "flax", the JAX package's model; "icefall", the
+    # conformer of icefall's pruned_transducer_stateless (module docstring)
+    recipe: str = "flax"
+
+    def __post_init__(self):
+        if self.recipe not in RECIPES:
+            raise ValueError(f"recipe must be one of {RECIPES}, got {self.recipe!r}")
+        if self.recipe == "icefall" and (self.causal or self.attention_left_context is not None):
+            raise ValueError("the icefall recipe is offline: causal=False, attention_left_context=None")
+
+    @property
+    def icefall(self) -> bool:
+        return self.recipe == "icefall"
 
 
 def _same_pads(length: int, k: int, stride: int) -> Tuple[int, int]:
@@ -76,20 +123,23 @@ def _same_pads(length: int, k: int, stride: int) -> Tuple[int, int]:
 
 def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A Conv1d/Conv2d applied with its input, weight and bias in ``dtype``."""
-    return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype))
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), bias)
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype`` (flax ``Dense(dtype=...)``);
     ``dtype=None`` computes in the promoted dtype of input and weight."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
-        super().__init__(d_in, d_out)
+    def __init__(self, d_in: int, d_out: int, dtype: Optional[torch.dtype] = None,
+                 bias: bool = True):
+        super().__init__(d_in, d_out, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.Module):
@@ -111,11 +161,23 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class TorchLayerNorm(nn.LayerNorm):
+    """torch's LayerNorm (eps 1e-5) over the float32 input, output float32:
+    icefall's ``nn.LayerNorm`` as autocast runs it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+def _layer_norm(cfg: "TransducerConfig", d: int) -> nn.Module:
+    return TorchLayerNorm(d) if cfg.icefall else LayerNorm(d, cfg.dtype)
+
+
 class FeedForward(nn.Module):
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
         d = cfg.d_model
-        self.ln = LayerNorm(d, cfg.dtype)
+        self.ln = _layer_norm(cfg, d)
         self.fc1 = Dense(d, d * cfg.ff_mult, cfg.dtype)
         self.fc2 = Dense(d * cfg.ff_mult, d, cfg.dtype)
 
@@ -153,6 +215,66 @@ class MultiHeadAttention(nn.Module):
         w = torch.softmax(w, dim=-1)
         o = torch.matmul(w, v).transpose(1, 2).reshape(B, Tq, d)
         return self.out(o)
+
+
+def rel_positions(T: int, d: int, device=None) -> torch.Tensor:
+    """(2T-1, d) float32 sinusoidal encodings of the relative positions
+    T-1, T-2, ..., -(T-1) (ESPnet's ``RelPositionalEncoding``): row r is
+    position T-1-r, sin in the even and cos in the odd columns."""
+    pos = torch.arange(T - 1, -T, -1, device=device, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, device=device, dtype=torch.float32)
+                    * -(math.log(10000.0) / d))
+    pe = torch.empty(2 * T - 1, d, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, 2T-1) scores against the relative positions -> (B, H, T, T)
+    with out[..., i, j] = x[..., i, T-1-i+j], the position i - j: a strided
+    view of the contiguous ``x`` (icefall's ``rel_shift``)."""
+    x = x.contiguous()
+    B, H, T, n = x.shape
+    sb, sh, st, sn = x.stride()
+    return x.as_strided((B, H, T, T), (sb, sh, st - sn, sn), x.storage_offset() + sn * (T - 1))
+
+
+class RelPositionMultiHeadAttention(nn.Module):
+    """icefall's ``RelPositionMultiheadAttention``, Transformer-XL relative
+    positions (Dai et al., arXiv:1901.02860, section 3.3) in ESPnet's form:
+    q, k, v from one in-projection, p = pe W_pos (no bias), and
+    score[b, h, i, j] = ((q_i + u_h) k_j + (q_i + v_h) p_{T-1-i+j}) / sqrt(hd);
+    padded keys masked, the softmax over keys in float32, then v and the
+    out-projection.  Products in ``dtype``."""
+
+    def __init__(self, d: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj = Dense(d, 3 * d, dtype)
+        self.linear_pos = Dense(d, d, dtype, bias=False)
+        self.out_proj = Dense(d, d, dtype)
+        self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, d // num_heads))
+        self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, d // num_heads))
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, T, d); ``pos`` (2T-1, d) :func:`rel_positions`;
+        ``key_mask`` bool (B, T), True on an utterance's frames."""
+        B, T, d = x.shape
+        H = self.num_heads
+        hd = d // H
+        q, k, v = self.in_proj(x).view(B, T, 3, H, hd).unbind(2)  # each (B, T, H, hd)
+        p = self.linear_pos(pos).view(2 * T - 1, H, hd).permute(1, 2, 0)  # (H, hd, 2T-1)
+        dt = q.dtype
+        qu = (q + self.pos_bias_u.to(dt)).transpose(1, 2)  # (B, H, T, hd)
+        qv = (q + self.pos_bias_v.to(dt)).transpose(1, 2)
+        ac = torch.matmul(qu, k.permute(0, 2, 3, 1))  # (B, H, T, T)
+        bd = rel_shift(torch.matmul(qv, p))  # (B, H, T, 2T-1) -> (B, H, T, T)
+        w = (ac.float() + bd) * hd ** -0.5  # bd promoted to float32
+        w = w.masked_fill(~key_mask[:, None, None, :], float("-inf"))
+        w = torch.softmax(w, dim=-1).to(dt)
+        o = torch.matmul(w, v.transpose(1, 2)).transpose(1, 2).reshape(B, T, d)
+        return self.out_proj(o)
 
 
 class ConvModule(nn.Module):
@@ -194,6 +316,26 @@ class ConvModule(nn.Module):
         return self._post(gw, (0, 0)), gw[:, x_new.shape[1]:]
 
 
+def _residuals(blk: nn.Module, x: torch.Tensor, pad_mask: torch.Tensor, attend) -> torch.Tensor:
+    """A conformer block's residual chain (half-step feed-forward, attention
+    over ``attend(ln_attn(x))``, conv module, half-step feed-forward, final
+    norm), each part in its span."""
+    with annotate("frt.model.feed_forward"):
+        h = blk.ff1(x)
+    x = torch.add(x, h, alpha=0.5)
+    y = blk.ln_attn(x)
+    with annotate("frt.model.attention"):
+        h = attend(y)
+    x = x + h
+    with annotate("frt.model.conv_module"):
+        h = blk.conv(x, pad_mask)
+    x = x + h
+    with annotate("frt.model.feed_forward"):
+        h = blk.ff2(x)
+    x = torch.add(x, h, alpha=0.5)
+    return blk.ln_out(x)
+
+
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
@@ -217,12 +359,7 @@ class ConformerBlock(nn.Module):
             if self.cfg.attention_left_context is not None:
                 win = win & (kk >= q - self.cfg.attention_left_context)
             attn_mask = attn_mask & win[None, None]
-        x = x + 0.5 * self.ff1(x)
-        y = self.ln_attn(x)
-        x = x + self.attn(y, y, attn_mask)
-        x = x + self.conv(x, pad_mask)
-        x = x + 0.5 * self.ff2(x)
-        return self.ln_out(x)
+        return _residuals(self, x, pad_mask, lambda y: self.attn(y, y, attn_mask))
 
     def step(self, x_new: torch.Tensor, att_cache: torch.Tensor, conv_tail: torch.Tensor,
              seen: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -292,7 +429,8 @@ class Encoder(nn.Module):
 
     def forward(self, features: torch.Tensor, feature_lens: torch.Tensor):
         x = features.to(self.cfg.dtype)[:, None]  # (B, 1, T_in, F)
-        x = self._project(self._subsample(self.sub2, self._subsample(self.sub1, x)))
+        with annotate("frt.model.subsampling"):
+            x = self._project(self._subsample(self.sub2, self._subsample(self.sub1, x)))
         T = x.shape[1]
         # SAME-padded stride-2 convs give ceil(L/2) frames each
         out_lens = (feature_lens + 3) // 4
@@ -358,16 +496,118 @@ class Predictor(nn.Module):
 
 
 class Joiner(nn.Module):
-    """Pruned joiner over (B, T, s_range, d_joiner) pairs."""
+    """Pruned joiner over (B, T, s_range, d_in) pairs: logits (B, T,
+    s_range, vocab_size) float32, the Dense computed in ``dtype`` (None: in
+    float32, as the icefall recipe's)."""
+
+    def __init__(self, d_in: int, vocab_size: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.out = Dense(d_in, vocab_size, dtype)
+
+    def forward(self, am_pruned: torch.Tensor, lm_pruned: torch.Tensor) -> torch.Tensor:
+        return self.out(torch.tanh(am_pruned + lm_pruned)).float()
+
+
+class IcefallConvModule(nn.Module):
+    """icefall's conformer convolution module: pointwise-GLU, padded frames
+    zeroed (the port's rule), depthwise conv centred by its own padding (an
+    odd kernel), BatchNorm1d (``norm``) in float32 over every B x T
+    position, swish, pointwise."""
+
+    def __init__(self, cfg: TransducerConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.ln_in = TorchLayerNorm(d)
+        self.pw_in = Dense(d, 2 * d, cfg.dtype)
+        self.dw = nn.Conv1d(d, d, cfg.conv_kernel, groups=d, padding=(cfg.conv_kernel - 1) // 2)
+        self.norm = nn.BatchNorm1d(d)
+        self.pw_out = Dense(d, d, cfg.dtype)
+
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        g = F.glu(self.pw_in(self.ln_in(x)), dim=-1)
+        g = torch.where(pad_mask[:, :, None], g, 0.0).transpose(1, 2)
+        g = _conv(self.dw, g, self.cfg.dtype)  # (B, d, T)
+        return self.pw_out(F.silu(self.norm(g.float())).transpose(1, 2))
+
+
+class IcefallConformerBlock(nn.Module):
+    """icefall's conformer block: :func:`_residuals` over torch's
+    LayerNorms, :class:`RelPositionMultiHeadAttention` and
+    :class:`IcefallConvModule`."""
+
+    def __init__(self, cfg: TransducerConfig):
+        super().__init__()
+        self.ff1 = FeedForward(cfg)
+        self.ln_attn = TorchLayerNorm(cfg.d_model)
+        self.attn = RelPositionMultiHeadAttention(cfg.d_model, cfg.num_heads, cfg.dtype)
+        self.conv = IcefallConvModule(cfg)
+        self.ff2 = FeedForward(cfg)
+        self.ln_out = TorchLayerNorm(cfg.d_model)
+
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """``pos``: the (2T-1, d) relative positions (:func:`rel_positions`)."""
+        return _residuals(self, x, pad_mask, lambda y: self.attn(y, pos, pad_mask))
+
+
+class IcefallEncoder(nn.Module):
+    """icefall's ``Conv2dSubsampling`` (two unpadded 3x3 stride-2 convs of
+    d_model channels, each with ReLU, the channel-major flatten, a Dense
+    to d_model), the xscale of ESPnet's ``RelPositionalEncoding``, the
+    blocks and ``after_norm``: (B, T_in, feature_dim) -> (B, ((T_in - 1)
+    // 2 - 1) // 2, d_model) float32, padded frames as computed."""
 
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
         self.cfg = cfg
-        self.out = Dense(cfg.d_joiner, cfg.vocab_size, cfg.dtype)
+        d = cfg.d_model
+        self.sub1 = nn.Conv2d(1, d, 3, stride=2)
+        self.sub2 = nn.Conv2d(d, d, 3, stride=2)
+        f4 = ((cfg.feature_dim - 1) // 2 - 1) // 2  # two unpadded stride-2 3x3 convs
+        self.proj = Dense(f4 * d, d, cfg.dtype)
+        self.blocks = nn.ModuleList(IcefallConformerBlock(cfg) for _ in range(cfg.num_layers))
+        self.after_norm = TorchLayerNorm(d)
 
-    def forward(self, am_pruned: torch.Tensor, lm_pruned: torch.Tensor) -> torch.Tensor:
-        x = torch.tanh(am_pruned + lm_pruned).to(self.cfg.dtype)
-        return self.out(x).float()
+    def forward(self, features: torch.Tensor, feature_lens: torch.Tensor):
+        dt = self.cfg.dtype
+        x = features.to(dt)[:, None]  # (B, 1, T_in, F)
+        with annotate("frt.model.subsampling"):
+            x = F.relu(_conv(self.sub2, F.relu(_conv(self.sub1, x, dt)), dt))
+            B, C2, T, F4 = x.shape
+            # channel-major, frequency-minor: (B, T, C2 * F4)
+            x = self.proj(x.transpose(1, 2).reshape(B, T, C2 * F4)).float() * math.sqrt(self.cfg.d_model)
+        out_lens = ((feature_lens - 1) // 2 - 1) // 2
+        pad_mask = torch.arange(T, device=x.device)[None, :] < out_lens[:, None]
+        pos = rel_positions(T, self.cfg.d_model, x.device)
+        for blk in self.blocks:
+            x = blk(x, pad_mask, pos)
+        return self.after_norm(x), out_lens
+
+
+class IcefallPredictor(nn.Module):
+    """icefall's stateless ``Decoder``: (B, S) symbols -> (B, S+1,
+    vocab_size) float32, lm; the symbols with one blank before them,
+    embedded (the blank's row 0 and without gradient, ``padding_idx``),
+    k-1 zero frames of left context, a depthwise conv of width k without
+    bias, ReLU and a float32 Dense to the vocabulary."""
+
+    def __init__(self, cfg: TransducerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.k = max(cfg.predictor_context, 1)
+        d = cfg.d_model
+        self.embed = nn.Embedding(cfg.vocab_size, d, padding_idx=cfg.blank_id)
+        self.conv = nn.Conv1d(d, d, self.k, groups=d, bias=False)
+        self.out = Dense(d, cfg.vocab_size)
+
+    def forward(self, symbols: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        blank = self.cfg.blank_id
+        y = F.pad(symbols.long(), (1, 0), value=blank)  # (B, S+1)
+        x = F.embedding(y, self.embed.weight.to(dt), padding_idx=blank).transpose(1, 2)
+        x = F.pad(x, (self.k - 1, 0))  # (B, d, S+k)
+        x = F.relu(_conv(self.conv, x, dt)).transpose(1, 2)  # (B, S+1, d)
+        return self.out(x)  # float32: Dense promotes to its weight's dtype
 
 
 class PrunedTransducer(nn.Module):
@@ -380,22 +620,36 @@ class PrunedTransducer(nn.Module):
         simple_am (B, T, C)          vocab-space projection, simple loss
         simple_lm (B, S+1, C)
       stage 2 ``join``: pruned pairs -> logits (B, T, s_range, C).
+
+    The icefall recipe has no projections: its encoder's float32 Dense to
+    the vocabulary (``encoder_out``) gives am (B, T, C) and its predictor lm
+    (B, S+1, C), returned as both pairs.
     """
 
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.icefall:
+            self.encoder = IcefallEncoder(cfg)
+            self.predictor = IcefallPredictor(cfg)
+            self.encoder_out = Dense(cfg.d_model, cfg.vocab_size)
+            self.joiner = Joiner(cfg.vocab_size, cfg.vocab_size)
+            return
         self.encoder = Encoder(cfg)
         self.predictor = Predictor(cfg)
         self.am_proj = Dense(cfg.d_model, cfg.d_joiner)
         self.lm_proj = Dense(cfg.d_model, cfg.d_joiner)
         self.simple_am_proj = Dense(cfg.d_model, cfg.vocab_size)
         self.simple_lm_proj = Dense(cfg.d_model, cfg.vocab_size)
-        self.joiner = Joiner(cfg)
+        self.joiner = Joiner(cfg.d_joiner, cfg.vocab_size, cfg.dtype)
 
     def forward(self, features, feature_lens, symbols):
         enc, out_lens = self.encoder(features, feature_lens)
-        pred = self.predictor(symbols)
+        with annotate("frt.model.predictor"):
+            pred = self.predictor(symbols)
+        if self.cfg.icefall:
+            am = self.encoder_out(enc)
+            return am, pred, am, pred, out_lens
         return (
             self.am_proj(enc),
             self.lm_proj(pred),
@@ -405,7 +659,8 @@ class PrunedTransducer(nn.Module):
         )
 
     def join(self, am_pruned: torch.Tensor, lm_pruned: torch.Tensor) -> torch.Tensor:
-        return self.joiner(am_pruned, lm_pruned)
+        with annotate("frt.model.joiner"):
+            return self.joiner(am_pruned, lm_pruned)
 
     def encode_stream(self, chunk: torch.Tensor, enc_state: dict) -> Tuple[torch.Tensor, dict]:
         """Streaming stage 1 for one chunk: (am rows, new encoder state)."""
