@@ -18,7 +18,10 @@ gate (``fast_rnnt_tpu_torch.utils.parity``) at the headline shape before
 the first timing (``parity``: the shipped route against the plain route on
 the card, each route's launches counted, ``enforce_parity``, then a run
 with the fused kernel's occupancies scaled by 1.01 that must fail it),
-then drives these paths at B=30, T=1000, S=100,
+holds the pruned lattice's three kernels (``csrc/pruned_rows.cu``) to
+their plain version at the recipe's shape (B=8, T=12000, S=1200, K=5,
+C=500: px, py and d_logits, with times, bounds and memory), then drives
+these paths at B=30, T=1000, S=100,
 C=500, s_range=5, on inputs made exactly as ``bench.py`` makes them
 (seed 0), each with every launch count set to 0 just before and read just
 after:
@@ -55,8 +58,8 @@ after:
     ``benchmarks/harness.py``'s batch (B=8, T_in=1000, S=100, s_range=5,
     seed 0), AdamW(1e-3, weight_decay 1e-4): a first step with
     ``LossConfig(impl="plain")`` on a copy launches no loss kernel and
-    gives the kernel step's simple loss to rel 1e-4; the six loss kernels
-    once each, the losses and their gradients w.r.t. the loss's inputs held to
+    gives the kernel step's simple loss to rel 1e-4; the nine loss kernels
+    (the six and the pruned lattice's three) once each, the losses and their gradients w.r.t. the loss's inputs held to
     the plain versions on copies on the CPU (fed the card's ranges), 10
     more steps whose loss falls, then step time, audio-seconds/s, peak
     memory and the device-time split of the loss kernels and the model's
@@ -97,7 +100,7 @@ after:
     utterances through ``fbank_cpu`` and ``RaggedBatcher``, the
     ``TransducerConfig()`` training step on two ranks of 4 utterances on
     the one card, worker processes of this script over gloo with CUDA
-    tensors, then one rank on NCCL: the six loss kernels once per rank
+    tensors, then one rank on NCCL: the nine loss kernels once per rank
     per step, the all-reduced gradients equal to the sum of the shards'
     single-process gradients bit for bit, the loss falls, and on each gloo
     rank a ``collective_census`` of one step: three all-reduces, no other
@@ -957,10 +960,122 @@ def rand_case(rng, Bc, Sc, Tc, modified, banded, offset, constrained=False):
     return px, py, bnd, lo, 0
 
 
+# the recipe's pruned lattice (perfbench's c500.long-recipe): B, T, S, K, C
+PRUNED_SHAPE = (8, 12000, 1200, 5, 500)
+# px and py, d_logits against the plain version in float32: the card tests'
+# tolerances (tests/test_torch_cuda.py): the kernels' log-sum-exp sums in
+# another order than torch.logsumexp
+PRUNED_TOL = {"px": (1e-5, 1e-6), "py": (1e-5, 1e-6), "d_logits": (1e-5, 1e-5)}
+
+
+def pruned_lattice_phase(dev):
+    """The pruned lattice's kernels (``csrc/pruned_rows.cu``) at the
+    recipe's shape, float32, against ``pruned_lattice_plain`` on the same
+    card tensors: px, py and d_logits at ``PRUNED_TOL`` with the -inf, +inf
+    and NaN patterns equal; each kernel's device ms from the profiler, the
+    plain forward's and backward's CUDA-event ms, the bytes' bounds, and a
+    forward and backward's memory above its inputs with the cotangents
+    s-major (as the recursion hands them back) and B-major (a copy in the
+    backward).  Returns ({kernel: report entry}, {kernel: bound})."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import pruned
+
+    Bp, Tp, Sp, Kp, Cp = PRUNED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(23)
+    logits = torch.randn((Bp, Tp, Kp, Cp), generator=g, device=dev)
+    sym = torch.randint(1, Cp, (Bp, Sp), generator=g, device=dev, dtype=torch.int32)
+    lo = torch.randint(0, Sp + 2 - Kp, (Bp, Tp), generator=g, device=dev).sort(1).values
+    rg = (lo[:, :, None] + torch.arange(Kp, device=dev)).to(torch.int32)
+    te = torch.randint(Tp // 2, Tp + 1, (Bp,), generator=g, device=dev)
+    se = torch.randint(Sp // 2, Sp + 1, (Bp,), generator=g, device=dev)
+    zero = torch.zeros_like(te)
+    bnd = torch.stack([zero, zero, se, te], 1).to(torch.int32)
+    # cotangents laid out as the recursion's row gradients: s-major
+    gx = torch.randn((Sp, Bp, Tp + 1), generator=g, device=dev).movedim(0, 1)
+    gy = torch.randn((Sp + 1, Bp, Tp), generator=g, device=dev).movedim(0, 1)
+
+    def fwd(fn):
+        return fn(logits, sym, rg, 0, bnd, "regular")
+
+    def fwd_bwd(fn, cx=gx, cy=gy):
+        x = logits.detach().requires_grad_()
+        px, py = fn(x, sym, rg, 0, bnd, "regular")
+        (d,) = torch.autograd.grad((px, py), x, (cx, cy))
+        return px, py, d
+
+    got = [x.detach() for x in fwd_bwd(pruned.pruned_lattice)]
+    want = [x.detach() for x in fwd_bwd(pruned.pruned_lattice_plain)]
+    torch.cuda.synchronize()
+    errs = {}
+    for a, b, what in zip(got, want, ("px", "py", "d_logits")):
+        if not torch.equal(torch.isposinf(a), torch.isposinf(b)):
+            raise Failed(f"pruned-lattice {what}: +inf pattern differs")
+        errs[what] = finite_err(a, b, f"pruned-lattice {what}", *PRUNED_TOL[what])
+    del got, want
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    gx_b, gy_b = gx.contiguous(), gy.contiguous()  # B-major: the backward copies them
+    runs = {
+        "kernels": lambda: fwd_bwd(pruned.pruned_lattice),
+        "kernels, B-major cotangents": lambda: fwd_bwd(pruned.pruned_lattice, gx_b, gy_b),
+        "plain": lambda: fwd_bwd(pruned.pruned_lattice_plain),
+    }
+    mem = {k: peak_above(fn) for k, fn in runs.items()}
+    ms = {k: kernel_ms(fn) for k, fn in runs.items()}
+    plain_fwd = kernel_ms(lambda: fwd(pruned.pruned_lattice_plain))
+    kern_fwd = kernel_ms(lambda: fwd(pruned.pruned_lattice))
+    del gx_b, gy_b
+    prof = profile_step(runs["kernels"])
+    if prof is None:
+        raise Failed("pruned-lattice: the profiler saw no device activity")
+    rows, _, _ = prof
+    names = {"pruned_band": "::band_kernel<", "pruned_rows": "::rows_kernel<",
+             "pruned_bwd": "::bwd_kernel<"}
+    dev_ms = {}
+    for name, tag in names.items():
+        hit = [r for r in rows if tag in r[0]]
+        if [r[2] for r in hit] != [1.0]:
+            raise Failed(f"pruned-lattice: {name} launched {[r[2] for r in hit]} times a step, expected once")
+        dev_ms[name] = hit[0][1] / 1e3
+    # each input read once, each output written once: the logits and
+    # d_logits, the rows, and [B, T, K] band values, normalisers, ranges and
+    # the band's cotangents
+    n_in, band = Bp * Tp * Kp * Cp * 4, Bp * Tp * Kp * 4
+    n_rows = (Sp * Bp * (Tp + 1) + (Sp + 1) * Bp * Tp) * 4
+    bounds = {
+        "pruned_band": bound(n_in + 4 * band, 0),  # ranges in; px, py band values, lse out
+        "pruned_rows": bound(2 * band + Bp * Tp * 4 + n_rows, 0),  # band values, lo in; rows out
+        "pruned_bwd": bound(2 * n_in + 4 * band, 0),  # logits, lse, ranges, band cotangents in
+    }
+    plain = {"pruned_band": plain_fwd, "pruned_rows": plain_fwd, "pruned_bwd": ms["plain"] - plain_fwd}
+    err = {"pruned_band": "px", "pruned_rows": "py", "pruned_bwd": "d_logits"}
+    report = {name: dict(err=errs[err[name]][0], rel=errs[err[name]][1], tol=PRUNED_TOL[err[name]],
+                         ms=dev_ms[name], plain_ms=plain[name]) for name in names}
+    phase("pruned-lattice", f"get_rnnt_logprobs_pruned's kernels at the recipe's shape B={Bp} T={Tp} "
+          f"S={Sp} K={Kp} C={Cp} float32 against the plain version on the card: "
+          + "; ".join(f"{k} max abs err {v[0]:.3e} rel {v[1]:.3e} (tol {PRUNED_TOL[k]})"
+                      for k, v in errs.items())
+          + "; -inf, +inf and NaN patterns equal; kernel ms (profiler) "
+          + ", ".join(f"{k} {dev_ms[k]:.4f} (bound {bounds[k][0]:.4f} by {bounds[k][1]})" for k in names)
+          + f"; forward {kern_fwd:.4f} ms against the plain {plain_fwd:.4f}; forward and backward "
+          + ", ".join(f"{k} {ms[k]:.4f} ms, {mem[k]:.1f} MiB above the inputs" for k in runs))
+    return report, bounds
+
+
 def launch_counters():
     """Each kernel wrapper's launch count by its name in the ``kernels``
     line: {name: (the wrapper module's LAUNCHES dict, key)}."""
-    from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild, pruned, ranges, wavefront
 
     return {
         "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
@@ -973,6 +1088,9 @@ def launch_counters():
         "wavefront_fused": (wavefront.LAUNCHES, "fused"),
         "wavefront_scan_fwd": (wavefront.LAUNCHES, "scan_fwd"),
         "wavefront_scan_bwd": (wavefront.LAUNCHES, "scan_bwd"),
+        "pruned_band": (pruned.LAUNCHES, "band"),
+        "pruned_rows": (pruned.LAUNCHES, "rows"),
+        "pruned_bwd": (pruned.LAUNCHES, "bwd"),
     }
 
 
@@ -1044,7 +1162,8 @@ def step_samples(step, n=60):
 # benchmarks/harness.py:116-127 (BASELINE.json config #5): the model's batch
 MODEL_B, MODEL_T_IN, MODEL_S = 8, 1000, 100
 # the port's own kernels, by the name the profiler gives their launches
-LOSS_KERNELS = ("latbuild_", "image_kernel", "lm_parts_kernel", "ranges_", "sweep_kernel", "scan_")
+LOSS_KERNELS = ("latbuild_", "image_kernel", "lm_parts_kernel", "ranges_", "sweep_kernel", "scan_",
+                "::band_kernel<", "::rows_kernel<", "::bwd_kernel<")
 
 
 def model_batch(cfg, seed=0):
@@ -1076,7 +1195,7 @@ def rel_err(got, want):
 
 def model_train_phase(dev, t, counted):
     """The full-width training step: one step under the launch counters
-    (the six loss kernels once each), its losses and their gradients
+    (the nine loss kernels once each), its losses and their gradients
     w.r.t. the loss's inputs held to the plain versions on copies on the
     CPU (fed the card's ranges), 10 more steps, then step time, memory and
     the device-time split.  Returns the step's launch counts."""
@@ -1121,7 +1240,7 @@ def model_train_phase(dev, t, counted):
         metrics, launches, first_ms, peak_first, base = counted(
             lambda: step(batch), "model-train",
             {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
-             "wavefront_bwd": 1, "ranges": 1})
+             "wavefront_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1})
     (s_lm, s_am, sym), kw_s = seen["simple"][0][:3], seen["simple"][1]
     (logits, _, r_card), kw_p = seen["pruned"][0][:3], seen["pruned"][1]
     T_enc = s_am.shape[1]
@@ -1185,7 +1304,7 @@ def model_train_phase(dev, t, counted):
     loss_us = sum(r[1] for r in rows if any(k in r[0] for k in LOSS_KERNELS))
     phase("model-train", f"profile, torch.profiler, 10 steps: device busy {100 * busy:.1f}% of the device "
           f"window; kernel time {total:.1f} us per step ({100 * total / (ms * 1e3):.1f}% of the "
-          f"{ms:.3f} ms step), {sum(r[2] for r in rows):.0f} launches per step: the six loss kernels "
+          f"{ms:.3f} ms step), {sum(r[2] for r in rows):.0f} launches per step: the nine loss kernels "
           f"{loss_us:.1f} us ({100 * loss_us / total:.1f}%), the model's layers, the loss's torch "
           f"glue and AdamW {total - loss_us:.1f} us ({100 * (total - loss_us) / total:.1f}%)")
     for kname, us, calls in rows[:25]:
@@ -1747,15 +1866,16 @@ TRACE_DIR = os.path.join(HERE, "build", "trace")
 
 def sweep_phase(name):
     """The phase (1 forward, 2 backward, 3 both) in a profiler's name of a
-    ``sweep_kernel`` instantiation, or None for another kernel: the last
-    template argument, ``3``, ``(Phases)3`` or ``kBoth``."""
+    ``sweep_kernel`` instantiation, or None for another kernel: the fourth
+    template argument (``<St, kMod, kBand, kPh, kAt>``), ``3``,
+    ``(Phases)3`` or ``kBoth``."""
     import re
 
     m = re.search(r"sweep_kernel<([^<>]*)>", name)
     if m is None:
         return None
-    last = re.sub(r"^\(\w+\)", "", m.group(1).split(",")[-1].strip())
-    return {"1": 1, "2": 2, "3": 3, "kFwd": 1, "kBwd": 2, "kBoth": 3}.get(last)
+    ph = re.sub(r"^\(\w+\)", "", m.group(1).split(",")[3].strip())
+    return {"1": 1, "2": 2, "3": 3, "kFwd": 1, "kBwd": 2, "kBoth": 3}.get(ph)
 
 
 def kernel_families(kernels):
@@ -2088,7 +2208,7 @@ def dp_train_phase(dev, model_ms):
     cfg = TransducerConfig()
     batch, audio_s, fbank_s = dp_batch(cfg)
     want = {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
-            "wavefront_bwd": 1, "ranges": 1}
+            "wavefront_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1}
     results = {}
     for backend, world in (("gloo", DP_WORLD), ("nccl", 1)):
         with tempfile.TemporaryDirectory() as out_dir:
@@ -3456,6 +3576,11 @@ def main():
     ) + f"; ranges flips {n_flip}; occupancy conservation rel err kernel {cons[0]:.2e} "
       f"plain {cons[1]:.2e}")
 
+    # the pruned lattice's kernels at the recipe's shape
+    pruned_report, pruned_bounds = pruned_lattice_phase(dev)
+    report.update(pruned_report)
+    bounds.update(pruned_bounds)
+
     # --- 4. the paths: forward only, training, smoothed training ------------
     counters = launch_counters()
 
@@ -3802,7 +3927,7 @@ def main():
     for name, want in recipe_arms.items():
         (loss_r, l_r, *g_r, r_r), n_r, first_r, peak_r, base_r = counted(
             armed(name, recipe_step), f"recipe-train ({name})",
-            {"latbuild_fwd": 1, "latbuild_bwd": 1, "ranges": 1, **want})
+            {"latbuild_fwd": 1, "latbuild_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1, **want})
         # stage 1 is the training step's (the split arm's gives the same
         # bits), so the ranges must be the training step's; the losses each
         # to rel 1e-4, and the batch sum
@@ -3852,13 +3977,13 @@ def main():
     (loss_b, l_b, *g_b, r_b), n_b, first_b, peak_b, base_b = counted(
         recipe_step_bf16, "recipe-train-bf16",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_fwd": 1,
-         "wavefront_bwd": 1, "ranges": 1})
+         "wavefront_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1})
     if not (torch.isfinite(loss_b) and all(torch.isfinite(g).all() for g in g_b)):
         raise Failed("recipe-train-bf16: non-finite loss or gradient")
     out_x, _, _, _, _ = counted(
         armed("scan", recipe_step_bf16), "recipe-train-bf16 (scan arm)",
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
-         "wavefront_scan_bwd": 1, "ranges": 1})
+         "wavefront_scan_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1})
     scan_rb = scan_diff(out_x, (loss_b, l_b, *g_b, r_b), "recipe-train-bf16 (scan arm)")
     del out_x
     if not torch.equal(r_b, r_f32):
@@ -3994,6 +4119,11 @@ def main():
                                "fast_rnnt_tpu/ops/kernels/wavefront.py:224"),
         "wavefront_scan_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
                                "fast_rnnt_tpu/ops/kernels/wavefront.py:420"),
+        # the pruned lattice's kernels replace no Pallas kernel: the JAX
+        # package's get_rnnt_logprobs_pruned is jnp
+        "pruned_band": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
+        "pruned_rows": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
+        "pruned_bwd": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
     }
     # each kernel's launches from the first path that runs it
     path_launches = {}

@@ -66,6 +66,15 @@ _SIGNATURES = {
     # gy, gx, boundary, S1, B, T, T1x, K, adjust_step, raw (scratch), out,
     # threads, dtype, stream
     "frt_ranges": [P, P, P, I, I, I, I, I, I, P, P, I, I, P],
+    # logits, symbols, ranges, B, T, K, S, C, term_sym, term_col, sym64, rg64,
+    # dtype, vec, px_band, py_band, lse, stream
+    "frt_pruned_band": [P] * 3 + [I] * 11 + [P] * 4,
+    # px_band, py_band, ranges, boundary, B, T, T1, K, S, mode, rg64, bnd64,
+    # dtype, px_rows, py_rows, stream
+    "frt_pruned_rows": [P] * 4 + [I] * 9 + [P] * 3,
+    # logits, lse, gpx, gpy, symbols, ranges, boundary, B, T, T1, K, S, C,
+    # term_sym, term_col, mode, sym64, rg64, bnd64, dtype, vec, d_logits, stream
+    "frt_pruned_bwd": [P] * 7 + [I] * 14 + [P] * 2,
 }
 
 _lock = threading.Lock()

@@ -123,7 +123,7 @@ def _round_operand(x: torch.Tensor, prec: str) -> torch.Tensor:
     return x + (r - x.detach())
 
 
-# The simple and smoothed builds' route (the JAX package's switch,
+# The simple, smoothed and pruned builds' route (the JAX package's switch,
 # fast_rnnt_tpu/ops/lattice.py:84): "auto", the kernels on a CUDA tensor and
 # the plain builds on a CPU tensor; "kernel", the kernels (a CPU tensor
 # raises); "plain", the plain builds on any device.
@@ -132,7 +132,7 @@ _LATTICE_BUILD_IMPL = "auto"
 
 
 def set_lattice_build_impl(impl: str) -> None:
-    """Select the simple and smoothed lattice builds' route, forward and
+    """Select the simple, smoothed and pruned lattice builds' route, forward and
     VJP: ``"auto"`` | ``"kernel"`` | ``"plain"``.  Nothing reroutes
     silently: ``"kernel"`` on a CPU tensor raises ValueError, and so does
     an unknown name."""
@@ -573,39 +573,26 @@ def get_rnnt_logprobs_pruned(
     termination_symbol: int,
     boundary: Optional[torch.Tensor] = None,
     rnnt_type: str = "regular",
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(px, py) from a pruned joiner output [B, T, s_range, C] (reference
     rnnt_loss.py:853-1020): a per-frame normalizer, the pruned symbols'
     logits, each frame's window placed back at its absolute symbol rows,
     -inf elsewhere.  px [B, S, T(+1)], py [B, S+1, T], in the logits'
-    dtype."""
+    dtype.  ``impl`` as :func:`get_rnnt_logprobs_rows`': on a CUDA tensor
+    the kernels of ``kernels/pruned.py`` write the recursion's s-major rows
+    and px, py are their (B, S, T)-major views; on a CPU tensor, or with
+    ``impl="plain"``, the plain version."""
     _check_rnnt_type(rnnt_type)
     if rnnt_type == "constrained" and ranges.shape[2] < 2:
         # the constrained px adds py of the next symbol row at t+1; with a
         # width-1 window that row is outside the band, so every px arc is
         # -inf and every loss infinite
         raise ValueError("constrained RNN-T needs s_range >= 2")
-    B, T, K, C = logits.shape
-    S = symbols.shape[1]
-    dev = logits.device
-    sym_wt = torch.cat(
-        [symbols.long(), torch.full((B, 1), int(termination_symbol), dtype=torch.long, device=dev)],
-        dim=1,
-    )  # [B, S+1]
-    rg = ranges.long()
-    rg_ok = (rg >= 0) & (rg <= S)
-    pruned = torch.gather(sym_wt[:, None, :].expand(B, T, S + 1), 2, rg.clamp(0, S))
-    pruned = torch.where(rg_ok, pruned, 0)  # [B, T, K]; a range outside [0, S] reads symbol 0
-    psym, pvalid = _symbol_index(pruned, C)
-    normalizers = torch.logsumexp(logits, dim=3)  # [B, T, K]
-    px = torch.where(pvalid, torch.gather(logits, 3, psym[..., None])[..., 0], 0.0) - normalizers
-    py_band = logits[:, :, :, termination_symbol] - normalizers
-    lo = ranges[:, :, 0]
-    px = _scatter_window(px, lo, S + 1)[:, :, :S].transpose(1, 2)  # [B, S, T]
-    if rnnt_type == "regular":
-        px = _neg_inf_column(px)
-    py = _scatter_window(py_band, lo, S + 1).transpose(1, 2)  # [B, S+1, T]
-    return _finish(px, py, rnnt_type, boundary)
+    from .kernels import pruned
+
+    return pruned.pruned_lattice(logits, symbols, ranges, termination_symbol, boundary, rnnt_type,
+                                 impl)
 
 
 @partitioned({"lm": 0, "am": 0, "symbols": 0, "ranges": 0, "boundary": 0}, 0)

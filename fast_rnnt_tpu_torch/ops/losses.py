@@ -302,13 +302,14 @@ def rnnt_loss_pruned(
     (reference rnnt_loss.py:1022-1130), the loss only; differentiable
     w.r.t. ``logits``.  Under autograd the recursion runs the forward and
     the occupancy backward kernels, or the fused kernel where
-    ``recursion._FUSE_SCORES_VJP`` is set."""
+    ``recursion._FUSE_SCORES_VJP`` is set.  ``impl`` routes the pruned
+    lattice (``get_rnnt_logprobs_pruned``) as well as the recursion."""
     check_rnnt_inputs(
         logits=logits, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary, ranges=ranges,
     )
     px, py = get_rnnt_logprobs_pruned(logits, symbols, ranges, termination_symbol, boundary,
-                                      rnnt_type)
+                                      rnnt_type, impl=impl)
     return _recursion_loss(px, py, boundary, rnnt_type, delay_penalty, reduction, False, impl)
 
 

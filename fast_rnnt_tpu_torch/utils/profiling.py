@@ -119,10 +119,14 @@ def counters() -> Dict[str, int]:
     kernels, since the process started: ``recursion.strip_blocks``, the
     blocks of the diagonal-sweep launches (``ops/kernels/wavefront.py``
     ``BLOCKS``; B x strips a launch, where an utterance's strips run at
-    once).  Read it before and after a window for the window's count."""
-    from ..ops.kernels import wavefront
+    once); ``pruned_lattice.kernel_frames``, the B x T frames of each
+    pruned lattice the kernels built (``ops/kernels/pruned.py``
+    ``FRAMES``).  Read it before and after a window for the window's
+    count."""
+    from ..ops.kernels import pruned, wavefront
 
-    return {"recursion.strip_blocks": wavefront.BLOCKS["sweep"]}
+    return {"recursion.strip_blocks": wavefront.BLOCKS["sweep"],
+            "pruned_lattice.kernel_frames": pruned.FRAMES}
 
 
 @contextlib.contextmanager

@@ -126,6 +126,34 @@ def band(seed, B, S, T, K):
     return np.sort(lo, axis=1).astype(np.int32)
 
 
+def pruned_inputs(seed, B=3, T=13, S=6, K=3, C=11, edges=False):
+    """(logits [B, T, K, C] float32, symbols [B, S], ranges [B, T, K],
+    boundary [B, 4]) in numpy for the pruned lattice: ranges lo + arange(K)
+    from monotone starts lo in [0, S+1-K] (windows that reach row S, whose
+    symbol is the termination symbol), utterance 0 full length.  ``edges``
+    (B >= 4): utterance 1 empty (t_end = t_begin = 0), utterance 2 with
+    s_end = 0, starts below 0 and past S+1-K in utterance 3 (ranges outside
+    [0, S]), symbols -1 and C (out of the vocabulary)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(B, T, K, C)).astype(np.float32)
+    symbols = rng.integers(1, C, size=(B, S)).astype(np.int32)
+    se = rng.integers(0, S + 1, size=B)
+    te = rng.integers(1, T + 1, size=B)
+    se[0], te[0] = S, T
+    lo = np.sort(rng.integers(0, S + 2 - K, size=(B, T)), axis=1)
+    if edges:
+        te[1] = se[1] = 0
+        se[2] = 0
+        lo[3, : T // 3] -= K
+        lo[3, T // 3 : T // 2] -= 1
+        lo[3, -(T // 3):] += rng.integers(1, K + 1)
+        if S:
+            symbols[0, 0], symbols[2, -1] = -1, C
+    boundary = np.stack([np.zeros(B), np.zeros(B), se, te], axis=1).astype(np.int32)
+    ranges = (lo[:, :, None] + np.arange(K)[None, None, :]).astype(np.int32)
+    return logits, symbols, ranges, boundary
+
+
 def assert_ranges_match(got, want, scores, what=""):
     """Window starts equal, or each differing start a near-tie of the
     window scores ``scores`` (K', B, T)."""

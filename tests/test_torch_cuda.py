@@ -19,14 +19,16 @@ pruning-window kernels on edge and long shapes, in every storage dtype;
 the transducer model's loss (its six kernel launches, against the same
 model on the CPU), its decoders and the forced alignment on the card;
 streaming and ``StreamServer`` on the card at the tiny causal width; the
-route switches and the parity gate at a small shape."""
+route switches and the parity gate at a small shape; the pruned lattice's
+kernels (px, py and d_logits in every dtype and RNN-T type, on edge shapes
+and at the recipe's shape, and the rows handed to the recursion)."""
 
 import numpy as np
 import pytest
 import torch
 
 import fast_rnnt_tpu_torch as ft
-from fast_rnnt_tpu_torch.ops.kernels import latbuild, ranges, wavefront
+from fast_rnnt_tpu_torch.ops.kernels import latbuild, pruned, ranges, wavefront
 from fast_rnnt_tpu_torch.ops.pruning import _window_scores, adjust_pruning_lower_bound
 from fast_rnnt_tpu_torch.utils import from_numpy
 
@@ -41,6 +43,7 @@ from ._torch_parity import (
     loss_inputs,
     occupancies,
     pad_utts,
+    pruned_inputs,
     ranges_boundary,
     ranges_edge_id,
     rows_inputs,
@@ -1060,7 +1063,7 @@ def test_streaming_reset_on_cuda_restores_fresh_state(dev):
 
 
 def _launch_counts():
-    return [dict(m.LAUNCHES) for m in (wavefront, latbuild, ranges)]
+    return [dict(m.LAUNCHES) for m in (wavefront, latbuild, ranges, pruned)]
 
 
 @pytest.mark.parametrize("loss_fn", [ft.rnnt_loss_simple_pruned, ft.rnnt_loss_smoothed_pruned],
@@ -1186,6 +1189,188 @@ def test_per_call_impl_on_cuda(dev, monkeypatch):
 
     shipped = run(None)
     assert all(torch.equal(a, b) for a, b in zip(run("cuda"), shipped))
+    recursion.set_default_impl("plain")
+    lattice.set_lattice_build_impl("plain")
+    switched = run(None)
+    recursion.set_default_impl("cuda")
+    lattice.set_lattice_build_impl("kernel")
+    before = _launch_counts()
+    plain = run("plain")
+    assert _launch_counts() == before
+    assert all(torch.equal(a, b) for a, b in zip(plain, switched))
+
+
+# The pruned lattice's kernels (csrc/pruned_rows.cu) against their plain
+# version on the card.  float32: the kernels' log-sum-exp sums in another
+# order than torch.logsumexp, a few float32 steps at |lse| <= ~10, so px and
+# py within 1e-5 + 1e-6 |x|, d_logits within 1e-5 + 1e-5 |x| (a softmax of
+# those normalisers times cotangents ~N(0, 1)).  bfloat16 and float16: the
+# kernels compute in float32 and round where the plain version's arithmetic
+# rounds (the normaliser, the difference, the constrained add), so against
+# the plain version on the float32 logits px and py lie within eps max|lse|
+# + eps |x| (+ 1e-5), eps the dtype's step at 1, the sum of those half-step
+# roundings, and d_logits, rounded once, within eps |x| + 1e-5 max|g|.
+# Against the plain version in the same dtype, whose torch.logsumexp rounds
+# in that dtype too, the two normalisers lie within two steps at max|lse|:
+# px, py within 2 eps max|lse| + 2 eps |x| (+ 1e-5), d_logits within
+# (2 eps max|lse| + 2 eps) max(|g_px| + |g_py|) + 2 eps |x|.  The -inf,
+# +inf and NaN patterns are equal everywhere.
+
+PRUNED_CASES = {
+    "ragged": dict(seed=31, B=3, T=37, S=9, K=4, C=29),
+    "edges": dict(seed=32, B=4, T=41, S=8, K=3, C=33, edges=True),
+    "k2": dict(seed=33, B=3, T=25, S=7, K=2, C=500),
+    "k_s1": dict(seed=34, B=2, T=19, S=5, K=6, C=24),
+    "s0": dict(seed=35, B=3, T=11, S=0, K=1, C=16),
+    "t1": dict(seed=36, B=3, T=1, S=6, K=3, C=17),
+}
+
+
+def _pruned_run(fn, logits, sym, rg, bnd, rnnt_type, gx=None, gy=None):
+    """(px, py, d_logits) with cotangents gx, gy on every element of px and
+    py (-inf ones included), drawn where not given."""
+    x = logits.detach().clone().requires_grad_()
+    px, py = fn(x, sym, rg, 0, bnd, rnnt_type)
+    if gx is None:
+        g = torch.Generator(device=x.device).manual_seed(7)
+        gx = torch.randn(px.shape, generator=g, device=x.device)
+        gy = torch.randn(py.shape, generator=g, device=x.device)
+    (d,) = torch.autograd.grad((px, py), x, (gx.to(px.dtype), gy.to(py.dtype)))
+    torch.cuda.synchronize()
+    return px.detach(), py.detach(), d, gx, gy
+
+
+def _same_nonfinite(a, b, what):
+    for f in (torch.isneginf, torch.isposinf, torch.isnan):
+        assert torch.equal(f(a), f(b)), f"{what}: {f.__name__} pattern"
+
+
+def _close_where_finite(a, b, atol, rtol, what):
+    _same_nonfinite(a, b, what)
+    fin = torch.isfinite(b)
+    torch.testing.assert_close(a[fin].double(), b[fin].double(), atol=atol, rtol=rtol, msg=what)
+
+
+def _pruned_compare(dev, kw, rnnt_type, dtype, index=torch.int32, with_bnd=True):
+    logits, sym, rg, bnd = pruned_inputs(**kw)
+    logits = torch.tensor(logits, dtype=dtype, device=dev)
+    sym, rg, bnd = (torch.tensor(x, dtype=index, device=dev) for x in (sym, rg, bnd))
+    bnd = bnd if with_bnd else None
+    before = dict(pruned.LAUNCHES), pruned.FRAMES
+    got = _pruned_run(ft.get_rnnt_logprobs_pruned, logits, sym, rg, bnd, rnnt_type)
+    B, T = logits.shape[:2]
+    assert {k: n - before[0][k] for k, n in pruned.LAUNCHES.items()} == {"band": 1, "rows": 1, "bwd": 1}
+    assert pruned.FRAMES - before[1] == B * T
+    assert got[0].movedim(1, 0).is_contiguous() and got[1].movedim(1, 0).is_contiguous()
+    plain = _pruned_run(pruned.pruned_lattice_plain, logits, sym, rg, bnd, rnnt_type, *got[3:])
+    lse = torch.logsumexp(logits.float(), 3)
+    m = lse[torch.isfinite(lse)].abs().max().item() if lse.numel() else 0.0
+    if dtype == torch.float32:
+        for a, b, what in zip(got[:2], plain[:2], ("px", "py")):
+            _close_where_finite(a, b, 1e-5, 1e-6, what)
+        _close_where_finite(got[2], plain[2], 1e-5, 1e-5, "d_logits")
+        return
+    eps = torch.finfo(dtype).eps
+    g = (got[3].abs().max() + got[4].abs().max()).item() if got[3].numel() else 0.0
+    wide = _pruned_run(pruned.pruned_lattice_plain, logits.float(), sym, rg, bnd, rnnt_type,
+                       got[3].to(dtype).float(), got[4].to(dtype).float())
+    for a, b, what in zip(got[:2], wide[:2], ("px", "py")):
+        assert a.dtype == dtype
+        _close_where_finite(a, b, eps * m + 1e-5, eps, f"{what} vs float32")
+    _close_where_finite(got[2], wide[2], 1e-5 * max(g, 1.0), eps, "d_logits vs float32")
+    for a, b, what in zip(got[:2], plain[:2], ("px", "py")):
+        _close_where_finite(a, b, 2 * eps * m + 1e-5, 2 * eps, f"{what} vs plain")
+    _close_where_finite(got[2], plain[2], (2 * eps * m + 2 * eps) * max(g, 1.0), 2 * eps,
+                        "d_logits vs plain")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("rnnt_type", ["regular", "modified", "constrained"])
+@pytest.mark.parametrize("case", list(PRUNED_CASES))
+def test_pruned_lattice_kernels_match_the_plain_version(dev, case, rnnt_type, dtype):
+    """Ragged boundaries, empty and s_end = 0 utterances, windows at row S
+    and ranges outside [0, S], out-of-vocabulary symbols, K = 2 and
+    K = S + 1, S = 0, T = 1: px, py and d_logits (tolerances above)."""
+    kw = PRUNED_CASES[case]
+    if rnnt_type == "constrained" and kw["K"] < 2:
+        logits, sym, rg, bnd = from_numpy(*pruned_inputs(**kw), device=dev)
+        with pytest.raises(ValueError, match="s_range >= 2"):
+            ft.get_rnnt_logprobs_pruned(logits, sym, rg, 0, bnd, rnnt_type)
+        return
+    _pruned_compare(dev, kw, rnnt_type, dtype)
+
+
+@pytest.mark.parametrize("rnnt_type", ["regular", "constrained"])
+def test_pruned_lattice_kernels_take_int64_and_no_boundary(dev, rnnt_type):
+    _pruned_compare(dev, PRUNED_CASES["edges"], rnnt_type, torch.float32, torch.int64, False)
+
+
+def test_pruned_lattice_kernels_at_the_recipe_shape(dev):
+    """The recipe's pruned lattice for one utterance: T 12000, S 1200, K 5,
+    C 500, float32."""
+    _pruned_compare(dev, dict(seed=37, B=1, T=12000, S=1200, K=5, C=500), "regular",
+                    torch.float32)
+
+
+def test_pruned_loss_hands_the_rows_to_the_recursion(dev, monkeypatch):
+    """rnnt_loss_pruned hands the kernels' rows to the recursion with no
+    copy (the same storage), and its loss and gradient agree with the plain
+    lattice's (loss 1e-4 + 1e-5 |x|, gradient the float32 tolerance above)."""
+    from fast_rnnt_tpu_torch.ops import lattice
+    from fast_rnnt_tpu_torch.ops import recursion as trec
+
+    logits, sym, rg, bnd = from_numpy(*pruned_inputs(38, B=3, T=50, S=9, K=4, C=40), device=dev)
+    made, seen = [], []
+    route, rows = pruned.pruned_lattice, trec.mutual_information_rows
+
+    def keep(*a):
+        out = route(*a)
+        made.append([t.data_ptr() for t in out])
+        return out
+
+    def look(px_rows, py_rows, *a, **k):
+        seen.append([px_rows.data_ptr(), py_rows.data_ptr()])
+        return rows(px_rows, py_rows, *a, **k)
+
+    monkeypatch.setattr(pruned, "pruned_lattice", keep)
+    monkeypatch.setattr(trec, "mutual_information_rows", look)
+
+    def loss():
+        x = logits.clone().requires_grad_()
+        out = ft.rnnt_loss_pruned(x, sym, rg, 0, bnd, reduction="none")
+        return out.detach(), torch.autograd.grad(out.sum(), x)[0]
+
+    got = loss()
+    assert made and seen == made
+    monkeypatch.setattr(lattice, "_LATTICE_BUILD_IMPL", "plain")  # the recursion's route kept
+    want = loss()
+    assert_loss_close(got[0], want[0])
+    _close_where_finite(got[1], want[1], 1e-5, 1e-5, "d_logits")
+
+
+def test_pruned_loss_per_call_impl_on_cuda(dev, monkeypatch):
+    """rnnt_loss_pruned's impl="plain" launches no kernel on CUDA tensors,
+    the pruned lattice's included, and wins over the process switches
+    pinned to the kernels; impl="cuda" launches the lattice's three kernels
+    once each and gives the shipped route's bits."""
+    from fast_rnnt_tpu_torch.ops import lattice, recursion
+
+    monkeypatch.setattr(recursion, "_DEFAULT_IMPL", None)
+    monkeypatch.setattr(lattice, "_LATTICE_BUILD_IMPL", "auto")
+    logits, sym, rg, bnd = from_numpy(*pruned_inputs(39, B=3, T=40, S=7, K=3, C=20), device=dev)
+
+    def run(impl):
+        x = logits.clone().requires_grad_()
+        loss = ft.rnnt_loss_pruned(x, sym, rg, 0, bnd, reduction="none", impl=impl)
+        (g,) = torch.autograd.grad(loss.sum(), x)
+        torch.cuda.synchronize()
+        return [loss.detach().cpu(), g.cpu()]
+
+    shipped = run(None)
+    before = dict(pruned.LAUNCHES)
+    assert all(torch.equal(a, b) for a, b in zip(run("cuda"), shipped))
+    assert {k: n - before[k] for k, n in pruned.LAUNCHES.items()} == {"band": 1, "rows": 1, "bwd": 1}
     recursion.set_default_impl("plain")
     lattice.set_lattice_build_impl("plain")
     switched = run(None)
