@@ -7,13 +7,13 @@ Builds the port's CUDA kernels from ``fast_rnnt_tpu_torch/csrc``, checks
 each kernel against its plain PyTorch version on the card (small ragged
 shapes, with the recursion kernels also in bfloat16 and float16 storage,
 the build kernels also on bf16 and f16 lm and am, the sweep pair seeded
-with ones against the fused kernel bit for bit, and the row-scan pair;
+with ones against the fused kernel bit for bit;
 the smoothed build backward on 256 seeded draws in bf16 and at each
 matmul precision, its plain version on the forward's residuals with
 d_uni's weight rd bit for bit (``duni-sweep``; every torch draw of the
 script comes from a seeded generator, and a failure names its case and
 seed); the golden path-enumeration vectors; the headline shape, with the sweep
-pair timed against the row scans, unbanded and banded), runs the parity
+pair timed unbanded and banded), runs the parity
 gate (``fast_rnnt_tpu_torch.utils.parity``) at the headline shape before
 the first timing (``parity``: the shipped route against the plain route on
 the card, each route's launches counted, ``enforce_parity``, then a run
@@ -39,8 +39,8 @@ after:
     kernels in their bf16 mode), each held to the plain path on the card;
   * the real-joiner recipe (``rnnt_loss_simple`` with occupancies,
     ``get_rnnt_prune_ranges``, ``do_rnnt_pruning``, the joiner
-    ``am_p + lm_p``, ``rnnt_loss_pruned``), as shipped and with the scores
-    op's fuse switch on: with this additive joiner it is the training
+    ``am_p + lm_p``, ``rnnt_loss_pruned``), as shipped and split: with
+    this additive joiner it is the training
     step's function, so loss and gradients are held to the training
     step's; then with bf16 pruned logits (a bf16 lattice in the recursion),
     held to the float32 recipe;
@@ -125,13 +125,10 @@ after:
 
 The occupancies of the ``calc_gradients`` calls come from the fused
 kernel, a diagonal sweep, and stage 2 (the scores op and its backward)
-runs the same kernel's forward and backward phases launched apart.  Two
-A/B arms are swapped in here, not in the package: ``split`` runs the
+runs the same kernel's forward and backward phases launched apart.  One
+A/B arm is swapped in here, not in the package: ``split`` runs the
 phases apart in the fused kernel's place, and must give the shipped
-arm's bits; ``scan`` runs stage 2 through the row-scan pair, the
-recursion before the sweep pair (stage 1 and the ranges are the same in
-both), and is held to the shipped arm's losses and gradients at the train
-tolerances.  Each arm is timed in turns against the shipped one.
+arm's bits.  It is timed in turns against the shipped arm.
 
 Last it measures where the steps' time goes: device
 time per kernel and the device's busy share under ``torch.profiler``, and
@@ -276,24 +273,16 @@ def _split_rows(px_rows, py_rows, boundary, lo=None, K=0, impl=None):
 @contextlib.contextmanager
 def arm(name):
     """``"shipped"``: the package as it is; ``"split"``: the calc_gradients
-    calls run the sweep pair in place of the fused kernel; ``"scan"``: the
-    scores op (stage 2) runs the row-scan pair in place of the sweep pair;
-    ``"vjp"``: the scores op's ``_FUSE_SCORES_VJP`` switch on."""
-    from fast_rnnt_tpu_torch.ops import recursion as trec
+    calls run the sweep pair in place of the fused kernel."""
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
 
-    saved = (wavefront.fused_rows, wavefront.forward_rows, wavefront.backward_rows)
+    saved = wavefront.fused_rows
     if name == "split":
         wavefront.fused_rows = _split_rows
-    if name == "scan":
-        wavefront.forward_rows = wavefront.forward_rows_scan
-        wavefront.backward_rows = wavefront.backward_rows_scan
-    trec._FUSE_SCORES_VJP = name == "vjp"
     try:
         yield
     finally:
-        wavefront.fused_rows, wavefront.forward_rows, wavefront.backward_rows = saved
-        trec._FUSE_SCORES_VJP = False
+        wavefront.fused_rows = saved
 
 
 def armed(name, fn):
@@ -360,39 +349,6 @@ def grad_err(got, want, name, tol=GRAD_TOL, step=0.0):
     return err, rel
 
 
-def arm_diff(got, want, name):
-    """One step's outputs in another arm against the shipped arm's.  Where
-    the two arms' stage 1 sums in another order, a window start may flip
-    at a near-tie and the ranges and the pruned stage move with it: the
-    outputs are compared on the utterances whose ranges agree (all, for a
-    step without ranges), per-utterance outputs (the losses among them) on
-    their rows and a batch sum only when every utterance agrees.  Losses (a
-    scalar or one per utterance) are held to GRAD_TOL of max |shipped|;
-    occupancies and gradients, which carry the two recursions' fp32
-    round-off as the plain reference's do, to TRAIN_GRAD_TOL."""
-    import torch
-
-    if all(torch.equal(a, b) for a, b in zip(got, want)):
-        return "bit-equal"
-    agree = None
-    if not got[-1].is_floating_point():  # the ranges, last
-        agree = (got[-1] == want[-1]).flatten(1).all(1)
-    rel, n_agree = 0.0, None if agree is None else int(agree.sum())
-    for i, (a, b) in enumerate(zip(got, want)):
-        if agree is not None and a.dim() == 0 and not bool(agree.all()):
-            continue  # a batch sum over an utterance whose ranges moved
-        if agree is not None and a.dim() > 0:
-            a, b = a[agree], b[agree]
-        if not b.is_floating_point():
-            if not torch.equal(a, b):
-                raise Failed(f"{name}: output {i} (ranges) differs from the shipped arm's")
-            continue
-        tol = GRAD_TOL if b.dim() <= 1 else TRAIN_GRAD_TOL
-        rel = max(rel, grad_err(a.reshape(-1), b.reshape(-1), f"{name} output {i}", tol)[1])
-    where = "" if agree is None else f" on the {n_agree} of {len(agree)} utterances whose ranges agree"
-    return f"max diff {rel:.3e} of max{where}"
-
-
 # training gradients against the plain reference, which runs its own fp32
 # recursion: fp32 occupancies of a 1000-frame lattice carry ~3e-3 of
 # round-off (p reaches |p| ~ 4e3, where a float32 step is 4.9e-4, and an
@@ -428,17 +384,6 @@ def same_bits(got, want, name):
     return "bit-equal"
 
 
-def scan_diff(got, want, name):
-    """The ``scan`` arm against the shipped one: the same stage 1, so the
-    ranges (last) must be equal, and the losses and gradients within
-    arm_diff's tolerances on every utterance."""
-    import torch
-
-    if not torch.equal(got[-1], want[-1]):
-        raise Failed(f"{name}: ranges differ from the shipped arm's (stage 1 is the same)")
-    return arm_diff(got, want, name)
-
-
 def kernel_bounds(bnd, build_rate=3, esize=4, bf16_ops=False):
     """Bound of each kernel at this run's headline inputs: each input read
     once, each output written once, fp32 (4 bytes).  The build kernels need
@@ -470,9 +415,6 @@ def kernel_bounds(bnd, build_rate=3, esize=4, bf16_ops=False):
         "latbuild_fwd": bound(4 * (x * (am + lm) + sym + B + px + py), gemm, **mm),
         "wavefront_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
         "wavefront_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
-        # the row scans compute the same functions
-        "wavefront_scan_fwd": bound(4 * (npx + npy + 4 * B + p + B), 7 * ncell),
-        "wavefront_scan_bwd": bound(4 * (npx + npy + ncell + 5 * B + px + py), 10 * ncell),
         # fwd + bwd with p kept in scratch: px, py and the boundary in, the
         # scores and both occupancies out
         "wavefront_fused": bound(4 * (npx + npy + 4 * B + B + px + py), 17 * ncell),
@@ -807,16 +749,14 @@ def recursion_checks(px, py, bnd, lo, K, seed):
     sweep pair against its plain versions (p in every cell, a random seed
     per utterance holding 0 and a negative value), the pair seeded with
     ones against the fused kernel bit for bit, the fused kernel against its
-    plain version, both deterministic, and the row-scan pair against its
-    plain versions and the fused kernel (to the fused kernel's plain
-    tolerance: a diagonal sweep sums in another order than the row scans).
-    The random seeds come from a generator seeded with ``seed``.  Returns
-    ({kernel or kernel/dtype: max abs err}, max |fused - scan|)."""
+    plain version, both deterministic.  The random seeds come from a
+    generator seeded with ``seed``.  Returns {kernel or kernel/dtype: max
+    abs err}."""
     import torch
 
     from fast_rnnt_tpu_torch.ops.kernels import wavefront
 
-    err, vs_scan = {}, 0.0
+    err = {}
     Bc = px.shape[1]
     ones = torch.ones(Bc, device=px.device)
     ag = torch.randn(Bc, device=px.device, generator=torch.Generator(device=px.device).manual_seed(seed)) * 2
@@ -863,25 +803,7 @@ def recursion_checks(px, py, bnd, lo, K, seed):
             raise Failed(f"sweep pair ({name}): a second run gives other bits")
         pair = (sc_k, *wavefront.backward_rows(x, y, p_k, bnd, ones, lo, K))
         same_bits(pair, (sc_f, gx_f, gy_f), f"sweep pair vs fused ({name})")
-        # the row scans against their plain versions and the fused kernel
-        p_s, sc_s = wavefront.forward_rows_scan(x, y, bnd, lo, K)
-        err["wavefront_scan_fwd" + sfx] = max(
-            finite_err(p_s, p_p, f"scan fwd p ({name})", 1e-4, 1e-5)[0],
-            finite_err(sc_s, sc_p, f"scan fwd scores ({name})", 1e-4, 1e-5)[0],
-        )
-        err["wavefront_scan_bwd" + sfx] = max(
-            finite_err(a, b, f"scan bwd {n} ({name})", 1e-5, occ_rtol)[0]
-            for a, b, n in zip(wavefront.backward_rows_scan(x, y, p_s, bnd, ag, lo, K),
-                               wavefront.backward_rows_plain(x, y, p_s, bnd, ag, lo, K),
-                               ("px_grad", "py_grad")))
-        gx_s, gy_s = wavefront.backward_rows_scan(x, y, p_s, bnd, ones, lo, K)
-        vs_scan = max(
-            vs_scan,
-            finite_err(sc_f, sc_s, f"fused vs scan scores ({name})", 1e-4, 1e-5)[0],
-            finite_err(gx_f, gx_s, f"fused vs scan px_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
-            finite_err(gy_f, gy_s, f"fused vs scan py_grad ({name})", 1e-5, occ_rtol + 9e-4)[0],
-        )
-    return err, vs_scan
+    return err
 
 
 def range_flips(k_starts, p_starts, scores, name, gap_tol=1e-3):
@@ -1086,8 +1008,6 @@ def launch_counters():
         "latbuild_fwd_parts": (latbuild.LAUNCHES, "fwd_parts"),
         "latbuild_bwd_parts": (latbuild.LAUNCHES, "bwd_parts"),
         "wavefront_fused": (wavefront.LAUNCHES, "fused"),
-        "wavefront_scan_fwd": (wavefront.LAUNCHES, "scan_fwd"),
-        "wavefront_scan_bwd": (wavefront.LAUNCHES, "scan_bwd"),
         "pruned_band": (pruned.LAUNCHES, "band"),
         "pruned_rows": (pruned.LAUNCHES, "rows"),
         "pruned_bwd": (pruned.LAUNCHES, "bwd"),
@@ -1162,7 +1082,7 @@ def step_samples(step, n=60):
 # benchmarks/harness.py:116-127 (BASELINE.json config #5): the model's batch
 MODEL_B, MODEL_T_IN, MODEL_S = 8, 1000, 100
 # the port's own kernels, by the name the profiler gives their launches
-LOSS_KERNELS = ("latbuild_", "image_kernel", "lm_parts_kernel", "ranges_", "sweep_kernel", "scan_",
+LOSS_KERNELS = ("latbuild_", "image_kernel", "lm_parts_kernel", "ranges_", "sweep_kernel",
                 "::band_kernel<", "::rows_kernel<", "::bwd_kernel<")
 
 
@@ -3198,17 +3118,18 @@ def headline_kernels(am, lm, sym, bnd):
     )
     del res16, lm16, am16, lmp_x16, amp16, w16, w, dpx, dpy, dnd
 
-    # the sweep pair (stage 2) and the row-scan pair against their plain
-    # versions: p in every cell, the backward seeded with ones (the
-    # occupancies the ranges and stage 1 use) and with random seeds
+    # the sweep pair (stage 2) against its plain versions: p in every cell,
+    # the backward seeded with ones (the occupancies the ranges and stage 1
+    # use) and with random seeds
     p_k, sc_k = wavefront.forward_rows(px_k, py_k, bnd)
     p_p, sc_p = wavefront.forward_rows_plain(px_k, py_k, bnd)
     e = worst(finite_err(p_k, p_p, "headline fwd p", 1e-4, 1e-5),
               finite_err(sc_k, sc_p, "headline fwd scores", 1e-4, 1e-5))
-    fwd_plain_ms = kernel_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1)
+    del p_p
     report["wavefront_fwd"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
-        ms=kernel_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd)),
+        plain_ms=kernel_ms(lambda: wavefront.forward_rows_plain(px_k, py_k, bnd), inner=1),
     )
     ones = torch.ones(B, device=dev)
     ag = torch.rand(B, device=dev, generator=gen) * 4 - 2  # seeds in [-2, 2)
@@ -3219,36 +3140,19 @@ def headline_kernels(am, lm, sym, bnd):
               *(finite_err(a, b, f"headline bwd {n} (random seeds)", 1e-5, 1e-4) for a, b, n in zip(
                   wavefront.backward_rows(px_k, py_k, p_k, bnd, ag),
                   wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ag), ("px_grad", "py_grad"))))
-    bwd_plain_ms = kernel_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1)
     report["wavefront_bwd"] = dict(
         err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|, seeds 1 and random",
-        ms=kernel_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)), plain_ms=bwd_plain_ms,
+        ms=kernel_ms(lambda: wavefront.backward_rows(px_k, py_k, p_k, bnd, ones)),
+        plain_ms=kernel_ms(lambda: wavefront.backward_rows_plain(px_k, py_k, p_k, bnd, ones), inner=1),
     )
-    p_s, sc_s = wavefront.forward_rows_scan(px_k, py_k, bnd)
-    e = worst(finite_err(p_s, p_p, "headline scan fwd p", 1e-4, 1e-5),
-              finite_err(sc_s, sc_p, "headline scan fwd scores", 1e-4, 1e-5))
-    report["wavefront_scan_fwd"] = dict(
-        err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| in every cell of p",
-        ms=kernel_ms(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd)), plain_ms=fwd_plain_ms,
-    )
-    gx_s, gy_s = wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)
-    e = worst(*(finite_err(a, b, f"headline scan bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
-        (gx_s, gy_s), wavefront.backward_rows_plain(px_k, py_k, p_s, bnd, ones), ("px_grad", "py_grad"))))
-    report["wavefront_scan_bwd"] = dict(
-        err=e[0], rel=e[1], tol="1e-5 + 1e-4|x|",
-        ms=kernel_ms(lambda: wavefront.backward_rows_scan(px_k, py_k, p_s, bnd, ones)), plain_ms=bwd_plain_ms,
-    )
-    del p_p
 
     # the fused kernel: against its plain version, twice for its
-    # determinism, bit for bit against the sweep pair (its own phases), and
-    # against the row scans to the plain version's tolerance (a diagonal
-    # sweep sums in another order than the row scans).  The plain version
-    # runs its own forward: its p differs from the kernel's by up to ~5e-3
-    # at |p| ~ 4e3 (the fwd check above), and an occupancy is the exp of a
-    # difference of three p values, so the occupancies are held to the JAX
-    # package's fp32 occupancy bound, 1e-2 relative
-    # (fast_rnnt_tpu/ops/recursion.py:867)
+    # determinism, and bit for bit against the sweep pair (its own phases).
+    # The plain version runs its own forward: its p differs from the
+    # kernel's by up to ~5e-3 at |p| ~ 4e3 (the fwd check above), and an
+    # occupancy is the exp of a difference of three p values, so the
+    # occupancies are held to the JAX package's fp32 occupancy bound, 1e-2
+    # relative (fast_rnnt_tpu/ops/recursion.py:867)
     sc_f, gx_f, gy_f = wavefront.fused_rows(px_k, py_k, bnd)
     sc_fp, gx_fp, gy_fp = wavefront.fused_rows_plain(px_k, py_k, bnd)
     e = worst(finite_err(sc_f, sc_fp, "headline fused scores", 1e-4, 1e-5),
@@ -3258,10 +3162,7 @@ def headline_kernels(am, lm, sym, bnd):
     if not all(torch.equal(a, b) for a, b in zip((sc_f, gx_f, gy_f), wavefront.fused_rows(px_k, py_k, bnd))):
         raise Failed("headline fused: a second run gives other bits")
     same_bits((sc_k, gx_k, gy_k), (sc_f, gx_f, gy_f), "headline sweep pair vs fused")
-    vs_scan = worst(finite_err(sc_f, sc_s, "headline fused vs scan scores", 1e-4, 1e-5),
-                    finite_err(gx_f, gx_s, "headline fused vs scan px_grad", 1e-5, 1e-2),
-                    finite_err(gy_f, gy_s, "headline fused vs scan py_grad", 1e-5, 1e-2))
-    del sc_f, gx_f, gy_f, gx_s, gy_s
+    del sc_f, gx_f, gy_f
 
     # under the main path's own stage-2 band: the ranges of these
     # occupancies, as the main path computes them
@@ -3269,30 +3170,15 @@ def headline_kernels(am, lm, sym, bnd):
     bd = (lo, S_RANGE)
     pb, scb = wavefront.forward_rows(px_k, py_k, bnd, *bd)
     pb_p, scb_p = wavefront.forward_rows_plain(px_k, py_k, bnd, *bd)
-    ps_b, scs_b = wavefront.forward_rows_scan(px_k, py_k, bnd, *bd)
     e_band = worst(finite_err(pb, pb_p, "headline banded fwd p", 1e-4, 1e-5),
                    finite_err(scb, scb_p, "headline banded fwd scores", 1e-4, 1e-5),
-                   finite_err(ps_b, pb_p, "headline banded scan fwd p", 1e-4, 1e-5),
-                   finite_err(scs_b, scb_p, "headline banded scan fwd scores", 1e-4, 1e-5),
                    *(finite_err(a, b, f"headline banded bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
                        wavefront.backward_rows(px_k, py_k, pb, bnd, ag, *bd),
-                       wavefront.backward_rows_plain(px_k, py_k, pb, bnd, ag, *bd), ("px_grad", "py_grad"))),
-                   *(finite_err(a, b, f"headline banded scan bwd {n}", 1e-5, 1e-4) for a, b, n in zip(
-                       wavefront.backward_rows_scan(px_k, py_k, ps_b, bnd, ag, *bd),
-                       wavefront.backward_rows_plain(px_k, py_k, ps_b, bnd, ag, *bd), ("px_grad", "py_grad"))))
+                       wavefront.backward_rows_plain(px_k, py_k, pb, bnd, ag, *bd), ("px_grad", "py_grad"))))
     del pb_p, scb_p
-
-    # the sweep pair against the row scans in turns (scan, sweep, sweep,
-    # scan), unbanded and banded
-    turns = {}
-    for name, (pp, ps, lb) in (("full", (p_k, p_s, ())), ("band", (pb, ps_b, bd))):
-        turns[name] = (
-            in_turns(lambda: wavefront.forward_rows_scan(px_k, py_k, bnd, *lb),
-                     lambda: wavefront.forward_rows(px_k, py_k, bnd, *lb)),
-            in_turns(lambda: wavefront.backward_rows_scan(px_k, py_k, ps, bnd, ones, *lb),
-                     lambda: wavefront.backward_rows(px_k, py_k, pp, bnd, ones, *lb)),
-        )
-    del pb, ps_b, p_s
+    band_ms = (kernel_ms(lambda: wavefront.forward_rows(px_k, py_k, bnd, *bd)),
+               kernel_ms(lambda: wavefront.backward_rows(px_k, py_k, pb, bnd, ones, *bd)))
+    del pb
 
     # the pair seeded with ones against the fused kernel bit for bit, in
     # every storage dtype, unbanded and banded
@@ -3306,23 +3192,20 @@ def headline_kernels(am, lm, sym, bnd):
             n_bits += 1
     del pq, sq, x, y
 
-    # bf16 storage (the recipe's stage 2 runs in it): the sweep pair and the
-    # row scans against their plain versions as the float32 ones are held,
-    # the fused kernel against its plain version, and the times
+    # bf16 storage (the recipe's stage 2 runs in it): the sweep pair
+    # against its plain versions as the float32 one is held, the fused
+    # kernel against its plain version, and the times
     px16, py16 = px_k.bfloat16(), py_k.bfloat16()
     step16 = STORAGE_STEP["bfloat16"]
     p16_p, sc16_p = wavefront.forward_rows_plain(px16, py16, bnd)
-    e16 = {}
-    for pname, fwd, bwd in (("sweep", wavefront.forward_rows, wavefront.backward_rows),
-                            ("scan", wavefront.forward_rows_scan, wavefront.backward_rows_scan)):
-        p16, sc16 = fwd(px16, py16, bnd)
-        e16[pname] = max(
-            finite_err(p16, p16_p, f"headline bf16 {pname} fwd p", 1e-4, 1e-5)[0],
-            finite_err(sc16, sc16_p, f"headline bf16 {pname} fwd scores", 1e-4, 1e-5)[0],
-            *(finite_err(a, b, f"headline bf16 {pname} bwd {n}", 1e-5, 1e-4 + step16)[0]
-              for a, b, n in zip(bwd(px16, py16, p16, bnd, ones),
-                                 wavefront.backward_rows_plain(px16, py16, p16, bnd, ones),
-                                 ("px_grad", "py_grad"))))
+    p16, sc16 = wavefront.forward_rows(px16, py16, bnd)
+    e16 = {"sweep": max(
+        finite_err(p16, p16_p, "headline bf16 sweep fwd p", 1e-4, 1e-5)[0],
+        finite_err(sc16, sc16_p, "headline bf16 sweep fwd scores", 1e-4, 1e-5)[0],
+        *(finite_err(a, b, f"headline bf16 sweep bwd {n}", 1e-5, 1e-4 + step16)[0]
+          for a, b, n in zip(wavefront.backward_rows(px16, py16, p16, bnd, ones),
+                             wavefront.backward_rows_plain(px16, py16, p16, bnd, ones),
+                             ("px_grad", "py_grad"))))}
     del p16_p, sc16_p, p16, sc16
     o_k = wavefront.fused_rows(px16, py16, bnd)
     o_p = wavefront.fused_rows_plain(px16, py16, bnd)
@@ -3330,12 +3213,8 @@ def headline_kernels(am, lm, sym, bnd):
                        *(finite_err(a, b, f"headline bf16 fused {n}", 1e-5, 1e-2 + step16)[0]
                          for a, b, n in zip(o_k[1:], o_p[1:], ("px_grad", "py_grad"))))
     del o_k, o_p
-
-    def pair_ms(fwd, bwd, x, y):
-        return kernel_ms(lambda: bwd(x, y, fwd(x, y, bnd)[0], bnd, ones))
-
-    bf16_ms = (pair_ms(wavefront.forward_rows_scan, wavefront.backward_rows_scan, px16, py16),
-               pair_ms(wavefront.forward_rows, wavefront.backward_rows, px16, py16),
+    bf16_ms = (kernel_ms(lambda: wavefront.backward_rows(
+                   px16, py16, wavefront.forward_rows(px16, py16, bnd)[0], bnd, ones)),
                kernel_ms(lambda: wavefront.fused_rows(px16, py16, bnd)))
     del px16, py16
     fused_ab = in_turns(lambda: wavefront.fused_rows(px_k, py_k, bnd),
@@ -3345,22 +3224,19 @@ def headline_kernels(am, lm, sym, bnd):
     def fmt(xs):
         return ", ".join(f"{x:.4f}" for x in xs)
 
-    for k, i in (("wavefront_fwd", 0), ("wavefront_bwd", 1)):
-        report[k]["note"] = (f"(in turns scan, sweep, sweep, scan: full {fmt(turns['full'][i])} ms, under "
-                             f"the main path's stage-2 band {fmt(turns['band'][i])} ms)")
-    report["wavefront_scan_fwd"]["note"] = (
-        f"(banded, the main path's band K={S_RANGE}: sweep and scan pairs vs plain max abs err "
-        f"{e_band[0]:.3e}, random seeds in the backward; sweep pair seeded with ones == fused bit for bit "
-        f"in {n_bits} runs, f32/bf16/f16, full and banded)")
+    report["wavefront_fwd"]["note"] = f"(under the main path's stage-2 band K={S_RANGE}: {band_ms[0]:.4f} ms)"
+    report["wavefront_bwd"]["note"] = (
+        f"(under the main path's stage-2 band K={S_RANGE}: {band_ms[1]:.4f} ms; banded sweep pair vs plain "
+        f"max abs err {e_band[0]:.3e}, random seeds in the backward; sweep pair seeded with ones == fused bit "
+        f"for bit in {n_bits} runs, f32/bf16/f16, full and banded)")
     report["wavefront_fused"] = dict(
         err=e[0], rel=e[1], tol="1e-4 + 1e-5|x| scores, 1e-5 + 1e-2|x| occupancies; deterministic",
         ms=(fused_ab[0] + fused_ab[3]) / 2,
         plain_ms=kernel_ms(lambda: wavefront.fused_rows_plain(px_k, py_k, bnd), inner=1),
-        note=(f"(in turns fused, sweep pair, sweep pair, fused {fmt(fused_ab)} ms; fused vs scan pair max "
-              f"abs diff {vs_scan[0]:.3e} (rel {vs_scan[1]:.3e}, tol as vs plain); bf16 storage: scan pair "
-              f"{bf16_ms[0]:.4f} ms, sweep pair {bf16_ms[1]:.4f} ms, fused {bf16_ms[2]:.4f} ms; max abs err "
-              f"vs plain: sweep pair {e16['sweep']:.3e}, scan pair {e16['scan']:.3e} (tol 1e-4 + 1e-5|x| p, "
-              f"1e-5 + (1e-4 + 2^-7)|x| occupancies), fused {e16['fused']:.3e} (1e-5 + (1e-2 + 2^-7)|x|))"),
+        note=(f"(in turns fused, sweep pair, sweep pair, fused {fmt(fused_ab)} ms; bf16 storage: sweep pair "
+              f"{bf16_ms[0]:.4f} ms, fused {bf16_ms[1]:.4f} ms; max abs err vs plain: sweep pair "
+              f"{e16['sweep']:.3e} (tol 1e-4 + 1e-5|x| p, 1e-5 + (1e-4 + 2^-7)|x| occupancies), fused "
+              f"{e16['fused']:.3e} (1e-5 + (1e-2 + 2^-7)|x|))"),
     )
     # occupancy conservation: the occupancies of one utterance sum to its
     # path length.  fp32 occupancies of a long lattice carry ~1e-3 of
@@ -3492,16 +3368,14 @@ def main():
     # the recursion kernels in every storage dtype on fresh draws of every
     # case, on the constrained lattice (banded and not) and over two
     # 128-row strips of the sweep (banded and not)
-    vs_scan = 0.0
     rec_cases = cases + [(3, 6, 40, True, False, True, True), (3, 6, 40, True, True, True, True),
                          (2, 140, 60, False, False, True), (2, 140, 60, True, True, True)]
     for i, case in enumerate(rec_cases):
         px, py, bnd, lo, K = t(*rand_case(rng, *case))
         try:
-            errs, d = recursion_checks(px, py, bnd, lo, K, 200 + i)
+            errs = recursion_checks(px, py, bnd, lo, K, 200 + i)
         except Failed as e:
             raise Failed(f"{e} (kernels-small recursion case {i} {case}, seed {200 + i})") from e
-        vs_scan = max(vs_scan, d)
         for name, err in errs.items():
             small[name] = max(small.get(name, 0.0), err)
     phase("kernels-small", f"{len(cases)} ragged cases (regular/modified/constrained, banded, "
@@ -3512,8 +3386,7 @@ def main():
           f"gradients {GRAD_TOL} of max |plain| (bf16 inputs {BF16_CONTRACT_TOL}, a bf16 output plus one "
           f"bf16 step), ranges flips near-ties); the sweep pair's p in every cell, its backward on random "
           f"seeds with 0 and a negative one; sweep pair seeded with ones == fused bit for bit, both "
-          f"deterministic, in {len(rec_cases)} cases x 3 storage dtypes; fused vs scan pair max abs diff "
-          f"{vs_scan:.3e} (tol as fused vs plain)")
+          f"deterministic, in {len(rec_cases)} cases x 3 storage dtypes")
 
     # the smoothed build backward's d_uni on seeded draws, the plain version
     # on the kernels' exact contract and, counted, on the earlier one
@@ -3612,18 +3485,12 @@ def main():
         step, "main path (forward)",
         {"wavefront_fused": 1, "wavefront_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
-    # the split arm: stage 1 through the sweep pair, the same bits; the
-    # scan arm: stage 2 through the row scans
+    # the split arm: stage 1 through the sweep pair, the same bits
     out_x, _, _, peak_x, base_x = counted(
         armed("split", step), "main path (forward, split arm)",
         {"wavefront_fwd": 2, "wavefront_bwd": 1, "latbuild_fwd": 1, "ranges": 1},
     )
     same_fwd = same_bits(out_x, (simple, pruned, rng_k), "main path (split arm)")
-    out_x, _, _, peak_sc, base_sc = counted(
-        armed("scan", step), "main path (forward, scan arm)",
-        {"wavefront_fused": 1, "wavefront_scan_fwd": 1, "latbuild_fwd": 1, "ranges": 1},
-    )
-    scan_fwd = scan_diff(out_x, (simple, pruned, rng_k), "main path (scan arm)")
     del out_x
     if peak_mb > FWD_PEAK_MIB or peak_mb - base_mb > FWD_ABOVE_MIB:
         raise Failed(f"forward-only peak {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above what was "
@@ -3670,7 +3537,6 @@ def main():
         raise Failed(f"losses vs plain path: rel err simple {rel_s:.3e} pruned {rel_p:.3e} > 1e-4")
     step_ms = cuda_ms(step)
     ab_fwd = in_turns(armed("split", step), step)
-    ab_fwd_scan = in_turns(armed("scan", step), step)
     phase("main-path", f"rnnt_loss_simple_pruned B={B} T={T} S={S} C={C} s_range={S_RANGE} "
           f"fp32, forward only: launches {json.dumps(launches)}; loss rel err vs plain simple {rel_s:.3e} "
           f"pruned {rel_p:.3e}; raw window-argmax flips {n_flip} (max score gap {gap:.3e}); ranges = the "
@@ -3682,9 +3548,7 @@ def main():
           f"sum simple {simple.sum().item():.3f} pruned {pruned.sum().item():.3f}; "
           f"split arm {same_fwd}, peak "
           f"{peak_x:.1f} MiB ({peak_x - base_x:.1f} MiB above what was allocated before it); in turns (split, shipped, shipped, split) "
-          + ", ".join(f"{x:.4f}" for x in ab_fwd) + f" ms; scan arm (stage 2 by the row scans) {scan_fwd}, "
-          f"peak {peak_sc:.1f} MiB ({peak_sc - base_sc:.1f} above); in turns (scan, shipped, shipped, scan) "
-          + ", ".join(f"{x:.4f}" for x in ab_fwd_scan) + " ms")
+          + ", ".join(f"{x:.4f}" for x in ab_fwd) + " ms")
 
     # training: bench.py's step, the gradient of 0.5 * simple + pruned
     am_g, lm_g = am.clone().requires_grad_(), lm.clone().requires_grad_()
@@ -3706,12 +3570,6 @@ def main():
         {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fwd": 2, "wavefront_bwd": 2, "ranges": 1},
     )
     same_train = same_bits(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (split arm)")
-    out_x, launches_scan, _, _, _ = counted(
-        armed("scan", train_step), "training (scan arm)",
-        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
-         "wavefront_scan_bwd": 1, "ranges": 1},
-    )
-    scan_train = scan_diff(out_x, (loss_t, l_t, g_am, g_lm, r_t), "training (scan arm)")
     del out_x
     loss_f = 0.5 * simple.sum() + pruned.sum()
     rel_l = ((loss_t - loss_f).abs() / loss_f.abs()).item()
@@ -3730,7 +3588,6 @@ def main():
     del g_am, g_lm, w_am, w_lm, g2x, g2y, gx_p, gy_p, px_p, py_p
     train_ms = cuda_ms(train_step)
     ab_train = in_turns(armed("split", train_step), train_step)
-    ab_train_scan = in_turns(armed("scan", train_step), train_step)
     phase("train", f"grad of 0.5*simple + pruned (reduction sum) w.r.t. (am, lm), B={B} T={T} "
           f"S={S} C={C} s_range={S_RANGE} fp32: launches {json.dumps(launches_t)}; loss "
           f"{loss_t.item():.3f} (rel {rel_l:.1e} from the forward path's); gradients vs plain "
@@ -3739,8 +3596,7 @@ def main():
           f"{first_t:.1f} ms); peak {peak_t:.1f} MiB ({peak_t - base_t:.1f} MiB above the inputs); "
           f"split arm {same_train}, peak {peak_tx:.1f} MiB ({peak_tx - base_tx:.1f} MiB above what was "
           f"allocated before it); in turns (split, shipped, shipped, split) "
-          + ", ".join(f"{x:.4f}" for x in ab_train) + f" ms; scan arm {scan_train}; in turns (scan, shipped, "
-          f"shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_train_scan) + " ms")
+          + ", ".join(f"{x:.4f}" for x in ab_train) + " ms")
 
     # the bf16-input mode (bench.py's second row, the JAX package's "production
     # mixed precision"): bf16 am and lm, a bf16 lattice; held to the float32
@@ -3766,13 +3622,6 @@ def main():
     )
     if g_b[0].dtype != torch.bfloat16 or g_b[1].dtype != torch.bfloat16:
         raise Failed(f"train-bf16: gradient dtypes {g_b[0].dtype} {g_b[1].dtype}")
-    out_x, _, _, _, _ = counted(
-        armed("scan", train_step_bf16), "train-bf16 (scan arm)",
-        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
-         "wavefront_scan_bwd": 1, "ranges": 1},
-    )
-    scan_b = scan_diff(out_x, (loss_b, *g_b, r_b), "train-bf16 (scan arm)")
-    del out_x
     # the float32 reference prunes with the bf16 step's ranges: where bf16
     # occupancies move a window start (a near-tie), the pruned gradient moves
     # with it, by O(1), and that is no precision loss of the step
@@ -3795,7 +3644,6 @@ def main():
         latbuild.lattice_rows_plain(lm16, am16, sym, 0, "regular", bnd), ("px", "py"))))
     del g_b, g_r, am_r, lm_r, lm16, am16
     train_bf16_ms = cuda_ms(train_step_bf16)
-    ab_b = in_turns(armed("scan", train_step_bf16), train_step_bf16)
     phase("train-bf16", f"grad of 0.5*simple + pruned w.r.t. bf16 (am, lm), lattice_dtype bf16, B={B} T={T} "
           f"S={S} C={C} s_range={S_RANGE}: launches {json.dumps(launches_b)}; loss {loss_b.item():.3f} vs "
           f"float32 on the rounded inputs (pruned with these ranges; its own move {n_moved} frames) "
@@ -3803,8 +3651,7 @@ def main():
           f"gradients (bf16) max abs diff {g_gap[0]:.3e} ({g_gap[1]:.3e} of max, tol {TRAIN_BF16_GRAD_TOL}); "
           f"bf16 build vs plain max abs err {e_b[0]:.3e} (tol 1e-4 + 1e-5|x|); step {train_bf16_ms:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
-          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs); scan arm {scan_b}; in turns "
-          f"(scan, shipped, shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_b) + " ms")
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
     del loss_r, s_r, p_r
 
     # smoothed training: rnnt_loss_smoothed_pruned, default scales
@@ -3914,14 +3761,11 @@ def main():
         loss = 0.5 * simple.sum() + pruned.sum()
         return (loss.detach(), (0.5 * simple + pruned).detach(), *torch.autograd.grad(loss, (am_g, lm_g)), r)
 
-    # shipped: stage 1 fused, stage 2 the sweep pair; vjp: stage 2 fused too
-    # (_FUSE_SCORES_VJP); split: both stages through the sweep pair (the
-    # shipped arm's bits); scan: stage 2 through the row scans
+    # shipped: stage 1 fused, stage 2 the sweep pair; split: both stages
+    # through the sweep pair (the shipped arm's bits)
     recipe_arms = {
         "shipped": {"wavefront_fused": 1, "wavefront_fwd": 1, "wavefront_bwd": 1},
-        "vjp": {"wavefront_fused": 2},
         "split": {"wavefront_fwd": 2, "wavefront_bwd": 2},
-        "scan": {"wavefront_fused": 1, "wavefront_scan_fwd": 1, "wavefront_scan_bwd": 1},
     }
     recipe = {}
     for name, want in recipe_arms.items():
@@ -3946,8 +3790,7 @@ def main():
                 f"vs train {rel_r:.3e} (tol 1e-4, each and, when all agree, the sum); gradients max abs "
                 f"err {e_r[0]:.3e} ({e_r[1]:.3e} of max, tol {TRAIN_GRAD_TOL})")
         if name != "shipped":
-            cmp = {"split": same_bits, "scan": scan_diff}.get(name, arm_diff)
-            held += f"; vs the shipped arm {cmp((loss_r, l_r, *g_r, r_r), recipe['shipped'][0], name)}"
+            held += f"; vs the shipped arm {same_bits((loss_r, l_r, *g_r, r_r), recipe['shipped'][0], name)}"
         recipe[name] = ((loss_r, l_r, *g_r, r_r), n_r)
         ms_r = cuda_ms(armed(name, recipe_step))
         phase("recipe-train", f"{name} arm: rnnt_loss_simple (calc_gradients) -> get_rnnt_prune_ranges "
@@ -3957,12 +3800,12 @@ def main():
               f"median of {REPS} runs of 10 steps; first call {first_r:.1f} ms); peak {peak_r:.1f} MiB "
               f"({peak_r - base_r:.1f} MiB above the inputs)")
     del g_r
-    launches_recipe = recipe["vjp"][1]
+    launches_recipe = recipe["shipped"][1]
     (loss_f32, _, *g_f32, r_f32), _ = recipe["shipped"]
     del recipe
     # the arms in turns, in one process
-    ab_recipe = in_turns(*(armed(name, recipe_step) for name in ("scan", "split", "shipped", "vjp")))
-    phase("recipe-train", "in turns (scan, split, shipped, vjp, vjp, shipped, split, scan): "
+    ab_recipe = in_turns(armed("split", recipe_step), recipe_step)
+    phase("recipe-train", "in turns (split, shipped, shipped, split): "
           + ", ".join(f"{x:.4f}" for x in ab_recipe) + " ms")
 
     # the mixed-precision form: bf16 pruned logits, so a bf16 lattice in the
@@ -3980,12 +3823,6 @@ def main():
          "wavefront_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1})
     if not (torch.isfinite(loss_b) and all(torch.isfinite(g).all() for g in g_b)):
         raise Failed("recipe-train-bf16: non-finite loss or gradient")
-    out_x, _, _, _, _ = counted(
-        armed("scan", recipe_step_bf16), "recipe-train-bf16 (scan arm)",
-        {"latbuild_fwd": 1, "latbuild_bwd": 1, "wavefront_fused": 1, "wavefront_scan_fwd": 1,
-         "wavefront_scan_bwd": 1, "ranges": 1, "pruned_band": 1, "pruned_rows": 1, "pruned_bwd": 1})
-    scan_rb = scan_diff(out_x, (loss_b, l_b, *g_b, r_b), "recipe-train-bf16 (scan arm)")
-    del out_x
     if not torch.equal(r_b, r_f32):
         raise Failed("recipe-train-bf16: ranges differ from the float32 recipe's (same stage 1)")
     gap = (loss_b - loss_f32).abs().item()
@@ -3996,14 +3833,12 @@ def main():
         raise Failed(f"recipe-train-bf16: gradients {g_gap:.3e} of max from float32's > {BF16_GRAD_TOL}")
     del g_b, g_f32
     ms_b = cuda_ms(recipe_step_bf16)
-    ab_rb = in_turns(armed("scan", recipe_step_bf16), recipe_step_bf16)
     phase("recipe-train-bf16", f"the recipe with bf16 pruned logits (a bf16 lattice in the sweep pair): "
           f"launches {json.dumps(n_b)}; loss {loss_b.item():.3f} vs float32 {loss_f32.item():.3f}: gap "
           f"{gap:.3e} ({gap / loss_f32.abs().item():.3e} rel; tol 0.1 + 5e-2|x| and {BF16_LOSS_RTOL}|x|); "
           f"gradients vs float32 max abs diff {g_gap:.3e} of max (tol {BF16_GRAD_TOL}); step {ms_b:.4f} ms "
           f"(CUDA events, median of {REPS} runs of 10 steps; first call {first_b:.1f} ms); peak "
-          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs); scan arm {scan_rb}; in turns "
-          f"(scan, shipped, shipped, scan) " + ", ".join(f"{x:.4f}" for x in ab_rb) + " ms")
+          f"{peak_b:.1f} MiB ({peak_b - base_b:.1f} MiB above the inputs)")
 
     # the unpruned loss of full logits [BJ, T, S+1, C] (808 MB at BJ = 4),
     # with occupancies and a backward, shipped (fused) and split; with the
@@ -4071,10 +3906,9 @@ def main():
     example_phase()
 
     # --- 5. where the steps' time goes (measurements) ----------------------
-    for name, fn in (("forward", step), ("train", train_step), ("train (scan arm)", armed("scan", train_step)),
-                     ("train-bf16", train_step_bf16),
+    for name, fn in (("forward", step), ("train", train_step), ("train-bf16", train_step_bf16),
                      ("smoothed-train", smoothed_step), ("smoothed-train-bf16", smoothed_step_bf16),
-                     ("recipe-train", recipe_step), ("recipe-train (vjp arm)", armed("vjp", recipe_step))):
+                     ("recipe-train", recipe_step)):
         prof = profile_step(fn)
         if prof is None:
             raise Failed(f"profile of the {name} step: the profiler saw no device activity")
@@ -4113,12 +3947,6 @@ def main():
                                "fast_rnnt_tpu/ops/kernels/latbuild.py:920"),
         "wavefront_fused": ("fast_rnnt_tpu_torch/csrc/wavefront_fused.cu",
                             "fast_rnnt_tpu/ops/kernels/wavefront.py:623"),
-        # the row scans, which no package path runs: launches from the
-        # training step's scan arm
-        "wavefront_scan_fwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
-                               "fast_rnnt_tpu/ops/kernels/wavefront.py:224"),
-        "wavefront_scan_bwd": ("fast_rnnt_tpu_torch/csrc/wavefront.cu",
-                               "fast_rnnt_tpu/ops/kernels/wavefront.py:420"),
         # the pruned lattice's kernels replace no Pallas kernel: the JAX
         # package's get_rnnt_logprobs_pruned is jnp
         "pruned_band": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
@@ -4127,7 +3955,7 @@ def main():
     }
     # each kernel's launches from the first path that runs it
     path_launches = {}
-    for counts in (launches, launches_t, launches_s, launches_recipe, launches_scan):
+    for counts in (launches, launches_t, launches_s, launches_recipe):
         for k, n in counts.items():
             if n:
                 path_launches.setdefault(k, n)

@@ -1,6 +1,5 @@
-// Shared device helpers of the lattice kernels: -inf-safe log-add, the
-// safe exp of the occupancy backward, a warp sum and a block-wide
-// inclusive scan.
+// Shared device helpers of the lattice kernels: -inf, a warp sum and a
+// block-wide inclusive scan.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,38 +8,6 @@
 namespace frt {
 
 constexpr float kNegInf = -std::numeric_limits<float>::infinity();
-
-// log(exp(x) + exp(y)); two -inf inputs give -inf, not NaN.
-__device__ __forceinline__ float log_add(float x, float y) {
-  float m = fmaxf(x, y);
-  if (m == kNegInf) return kNegInf;
-  return m + log1pf(expf(-fabsf(x - y)));
-}
-
-// exp(x), with the arguments whose exp overflows float32 (x > 88.6) or is
-// NaN mapped to 0: occupancy terms made of -inf - -inf contribute nothing.
-__device__ __forceinline__ float safe_exp(float x) {
-  return (isnan(x) || x > 88.6f) ? 0.f : expf(x);
-}
-
-// One element of a first-order linear recurrence x_t = a_t (x) x_{t-1} (+) b_t.
-struct Pair {
-  float a, b;
-};
-
-// log-semiring: x_t = logadd(a_t + x_{t-1}, b_t).  (l then r).
-struct LogOp {
-  __device__ __forceinline__ Pair operator()(Pair l, Pair r) const {
-    return {l.a + r.a, log_add(l.b + r.a, r.b)};
-  }
-};
-
-// ordinary algebra: x_t = a_t * x_{t-1} + b_t.  (l then r).
-struct LinOp {
-  __device__ __forceinline__ Pair operator()(Pair l, Pair r) const {
-    return {l.a * r.a, fmaf(l.b, r.a, r.b)};
-  }
-};
 
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -53,9 +20,6 @@ struct MinOp {
   __device__ __forceinline__ int operator()(int l, int r) const { return min(l, r); }
 };
 
-__device__ __forceinline__ Pair shfl_up(Pair v, int d) {
-  return {__shfl_up_sync(0xffffffffu, v.a, d), __shfl_up_sync(0xffffffffu, v.b, d)};
-}
 __device__ __forceinline__ int shfl_up(int v, int d) {
   return __shfl_up_sync(0xffffffffu, v, d);
 }

@@ -73,13 +73,46 @@
 // it at under half an instruction a cycle.  Latency / issue bound, one SM a
 // strip, not bandwidth bound (~37 MB moved at the headline shape).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-#include "wavefront_rows.cuh"
+#include "common.cuh"
 
 using namespace frt;
 
 namespace {
+
+// Storage-type codes of the C entries: 0 float, 1 bfloat16, 2 float16.
+enum StorageCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// px/py (and the occupancies written back) are stored as St = float,
+// __nv_bfloat16 or __half; every value is widened to float as it is read.
+// p is always float: it reaches |p| ~ 4e3 on a 1000-frame lattice, where a
+// bf16 step is 16.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <class St>
+__device__ __forceinline__ St from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
+
+// an utterance's boundary rectangle [sb, se] x [tb, te]
+struct Bnd {
+  int sb, tb, se, te;
+};
+
+__device__ __forceinline__ Bnd load_bnd(const int* bnd, int b) {
+  return {bnd[4 * b], bnd[4 * b + 1], bnd[4 * b + 2], bnd[4 * b + 3]};
+}
 
 constexpr int kR = 4;  // rows per lane: row i of a strip is lane i % 32, slot i / 32
 constexpr int kStrip = 32 * kR;  // rows per strip
@@ -107,8 +140,11 @@ __device__ __forceinline__ float lg2(float x) {
 }
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// log(exp(x) + exp(y)) and safe_exp (common.cuh) by the SFU: as close to a
-// float64 reference as the row scans' accurate ones (PERF.md)
+// log(exp(x) + exp(y)), -inf for two -inf inputs, and the occupancy
+// backward's safe exp, exp(x) with the x whose exp overflows float32
+// (x > 88.6) or is NaN mapped to 0 (-inf - -inf contributes nothing), both
+// by the SFU: as close to a float64 reference as libm's expf and log1pf
+// (PERF.md)
 __device__ __forceinline__ float log_add_fast(float x, float y) {
   const float m = fmaxf(x, y);
   const float r = fmaf(lg2(1.f + ex2(-fabsf(x - y) * kLog2e)), kLn2, m);
@@ -702,6 +738,10 @@ int launch_sweep(const Args& a, int modified, int threads, int dtype, void* stre
 }
 
 }  // namespace
+
+extern "C" const char* frt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
 
 // Every entry: px (S, B, T') and py (S+1, B, T) in the storage type named by
 // `dtype` (StorageCode); lo may be NULL (no band); `threads` must be 256 (one

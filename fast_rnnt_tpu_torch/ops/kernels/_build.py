@@ -45,10 +45,6 @@ _SIGNATURES = {
     "frt_sweep_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, P, I, I, I, P, P],
     # device: the sweep kernels' blocks the device holds at once
     "frt_sweep_resident": [I],
-    # the row scans: frt_scan_fwd as frt_sweep_fwd and frt_scan_bwd as
-    # frt_sweep_bwd, without the hand-off rows, nk and ctr
-    "frt_scan_fwd": [P, P, P, P, I, I, I, I, I, P, P, I, I, P],
-    "frt_scan_bwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, I, I, P],
     # px, py, boundary, lo, K, S, B, T, modified, p (scratch, S+1+strips
     # rows), scores, pxg, pyg, threads, dtype, nk, ctr, stream
     "frt_wavefront_fused": [P, P, P, P, I, I, I, I, I, P, P, P, P, I, I, I, P, P],

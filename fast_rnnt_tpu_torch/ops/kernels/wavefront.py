@@ -1,6 +1,6 @@
 """Forward, occupancy-backward and fused lattice recursion: wrappers of the
-CUDA kernels in ``csrc/wavefront_fused.cu`` and their plain PyTorch
-versions, and of the row-scan pair in ``csrc/wavefront.cu``.
+CUDA kernel in ``csrc/wavefront_fused.cu`` and their plain PyTorch
+versions.
 
 Replaces the Pallas kernels ``fast_rnnt_tpu/ops/kernels/wavefront.py``
 ``_fwd_kernel`` (:224, entry ``forward_rows_pallas`` :366),
@@ -12,9 +12,6 @@ forward alone (:func:`forward_rows`), the backward alone
 first two give the third's bits.  Over a lattice of more than one 128-row
 strip a launch sweeps an utterance's strips at once, a block each, where
 they fit on the device together (``BLOCKS`` counts the blocks launched).
-The row-scan pair
-(:func:`forward_rows_scan`, :func:`backward_rows_scan`) is the first port
-of the first two; no package path calls it, and it keeps a T cap.
 
 A CPU tensor runs the plain version (``recursion._forward_rows_plain`` /
 ``_backward_rows_plain``); a CUDA tensor launches the kernel or raises.
@@ -46,14 +43,12 @@ __all__ = [
     "forward_rows_plain",
     "backward_rows_plain",
     "fused_rows_plain",
-    "forward_rows_scan",
-    "backward_rows_scan",
     "LAUNCHES",
     "BLOCKS",
 ]
 
-# fwd / bwd / fused: the diagonal sweep; scan_fwd / scan_bwd: the row scans
-LAUNCHES = {"fwd": 0, "bwd": 0, "fused": 0, "scan_fwd": 0, "scan_bwd": 0}
+# launches of the sweep kernel by the phases they run
+LAUNCHES = {"fwd": 0, "bwd": 0, "fused": 0}
 # blocks of the sweep launches: B x strips each where an utterance's strips
 # run at once, B where each utterance's block sweeps them one after another
 BLOCKS = {"sweep": 0}
@@ -61,8 +56,7 @@ BLOCKS = {"sweep": 0}
 forward_rows_plain = _forward_rows_plain
 backward_rows_plain = _backward_rows_plain
 
-_MAX_SMEM = 232_448  # bytes of shared memory one Hopper block may use
-# storage dtype -> the kernels' StorageCode (csrc/wavefront_rows.cuh)
+# storage dtype -> the kernels' StorageCode (csrc/wavefront_fused.cu)
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the sweep kernels' block: one warp sweeps a 128-row strip's diagonals,
 # seven move its tiles between device and shared memory
@@ -110,13 +104,6 @@ def _schedule(S: int, B: int, dev: torch.device) -> Tuple[int, Optional[torch.Te
     return nk, ctr
 
 
-def _threads(width: int) -> int:
-    """Row scans: one block per utterance; up to 1024 threads, one per
-    lattice column when the row fits (each thread scans a segment of
-    ceil(W / threads))."""
-    return min(1024, max(32, -(-width // 32) * 32))
-
-
 def _check_cuda(px_rows, py_rows, boundary, lo, extra=()):
     """Device, dtype, shape and contiguity checks; returns (S, B, T', T,
     storage code).  ``extra`` tensors must be float32."""
@@ -154,17 +141,6 @@ def _check_index(S: int, B: int, T: int, rows: int) -> None:
     """The sweep kernels index a (rows, B, T+1) float32 tensor in int32."""
     if rows * B * (T + 1) >= 2**31:
         raise ValueError(f"S={S} B={B} T={T}: a ({rows}, B, T+1) lattice exceeds int32 indexing")
-
-
-def _check_split(px_rows, py_rows, boundary, lo, extra=()):
-    """``_check_cuda`` plus the row scans' shared-memory cap (four
-    (T+1)-float rows); returns (S, B, T', T, threads, storage code)."""
-    S, B, T1, T, code = _check_cuda(px_rows, py_rows, boundary, lo, extra)
-    nt = _threads(T + 1)
-    smem = (4 * (T + 1) + nt) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"T={T} needs {smem} B of shared memory (> {_MAX_SMEM})")
-    return S, B, T1, T, nt, code
 
 
 def _check_p(p_rows, ans_grad, S, B, T):
@@ -254,70 +230,6 @@ def backward_rows(
     _build.check(err, "sweep_bwd")
     LAUNCHES["bwd"] += 1
     BLOCKS["sweep"] += B * nk
-    return px_grad, py_grad
-
-
-def forward_rows_scan(
-    px_rows: torch.Tensor,
-    py_rows: torch.Tensor,
-    boundary: torch.Tensor,
-    lo: Optional[torch.Tensor] = None,
-    K: int = 0,
-    impl: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`forward_rows` by the row-scan kernel (T <= 14,271); the plain
-    version on a CPU tensor."""
-    if not _kernel_route(px_rows, impl):
-        return _forward_rows_plain(px_rows, py_rows, boundary, lo, K)
-    S, B, T1, T, nt, code = _check_split(px_rows, py_rows, boundary, lo)
-    p_rows = torch.empty((S + 1, B, T + 1), dtype=torch.float32, device=px_rows.device)
-    scores = torch.empty((B,), dtype=torch.float32, device=px_rows.device)
-    if B == 0:
-        return p_rows, scores
-    lib = _build.load_library()
-    err = lib.frt_scan_fwd(
-        _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(boundary),
-        _build.ptr(lo), int(K), S, B, T, int(T1 == T),
-        _build.ptr(p_rows), _build.ptr(scores), nt, code,
-        _build.stream_ptr(px_rows.device),
-    )
-    _build.check(err, "scan_fwd")
-    LAUNCHES["scan_fwd"] += 1
-    return p_rows, scores
-
-
-def backward_rows_scan(
-    px_rows: torch.Tensor,
-    py_rows: torch.Tensor,
-    p_rows: torch.Tensor,
-    boundary: torch.Tensor,
-    ans_grad: torch.Tensor,
-    lo: Optional[torch.Tensor] = None,
-    K: int = 0,
-    impl: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`backward_rows` by the row-scan kernel (T <= 14,271); the plain
-    version on a CPU tensor."""
-    if not _kernel_route(px_rows, impl):
-        return _backward_rows_plain(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K)
-    S, B, T1, T, nt, code = _check_split(
-        px_rows, py_rows, boundary, lo,
-        extra=(("p_rows", p_rows), ("ans_grad", ans_grad)),
-    )
-    _check_p(p_rows, ans_grad, S, B, T)
-    px_grad = torch.empty_like(px_rows)
-    py_grad = torch.empty_like(py_rows)
-    if B == 0:
-        return px_grad, py_grad
-    lib = _build.load_library()
-    err = lib.frt_scan_bwd(
-        _build.ptr(px_rows), _build.ptr(py_rows), _build.ptr(p_rows),
-        _build.ptr(boundary), _build.ptr(lo), int(K), _build.ptr(ans_grad),
-        S, B, T, int(T1 == T), _build.ptr(px_grad), _build.ptr(py_grad), nt, code,
-        _build.stream_ptr(px_rows.device),
-    )
-    _build.check(err, "scan_bwd")
-    LAUNCHES["scan_bwd"] += 1
     return px_grad, py_grad
 
 

@@ -301,8 +301,7 @@ def rnnt_loss_pruned(
     """Pruned RNN-T loss from a pruned joiner output [B, T, s_range, C]
     (reference rnnt_loss.py:1022-1130), the loss only; differentiable
     w.r.t. ``logits``.  Under autograd the recursion runs the forward and
-    the occupancy backward kernels, or the fused kernel where
-    ``recursion._FUSE_SCORES_VJP`` is set.  ``impl`` routes the pruned
+    the occupancy backward kernels.  ``impl`` routes the pruned
     lattice (``get_rnnt_logprobs_pruned``) as well as the recursion."""
     check_rnnt_inputs(
         logits=logits, symbols=symbols,

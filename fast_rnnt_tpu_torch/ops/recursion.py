@@ -14,9 +14,9 @@ diagonal-sweep kernel of ``kernels/wavefront.py``: its fused forward +
 occupancy-backward launch where the occupancies are asked for
 (``calc_gradients=True``), its forward phase alone for scores, and its
 backward phase alone, seeded with the score gradient, on demand under
-autograd (or the fused launch, with ``_FUSE_SCORES_VJP``); on a CPU tensor
-they run the plain versions below (S+1 sequential rows, each solved by a
-doubling scan over t, see ``numerics.py``).  :func:`set_default_impl`
+autograd; on a CPU tensor they run the plain versions below (S+1
+sequential rows, each solved by a doubling scan over t, see
+``numerics.py``).  :func:`set_default_impl`
 picks that route for the recursion and the pruning ranges: ``"plain"``
 runs the plain versions on any device (the parity gate's independent path
 on the card), ``"cuda"`` requires the kernels, and a name given to
@@ -136,14 +136,6 @@ def _kernel_route(x: torch.Tensor, impl: Optional[str] = None) -> bool:
     registered implementation is not theirs, so they take the plain
     versions for it, as the JAX package's ranges do."""
     return _route(x, impl) == "cuda"
-
-# The scores op under autograd (pipeline stage 2) keeps p and runs the
-# backward kernel when the gradient is asked for.  With this switch (the JAX
-# package's, recursion.py:646-647) it runs the fused kernel in the forward
-# and keeps the two occupancy tensors instead (twice p's bytes in
-# float32).  Off: on the H100 the recipe step gains no time from it
-# (PERF.md).
-_FUSE_SCORES_VJP = False
 
 
 def _normalize_boundary(
@@ -416,15 +408,13 @@ class _MIRowsWithGrads(torch.autograd.Function):
 class _MIRowsScores(torch.autograd.Function):
     """Scores only.  When a gradient is needed it saves p (or a registered
     implementation's residual) and runs the backward recursion, seeded with
-    the incoming score gradient, on demand; or, with ``_FUSE_SCORES_VJP``,
-    runs the fused kernel now, saves the occupancies (seed 1) and only
-    rescales them in the backward.  ``route`` is the forward's, and the
-    backward runs it."""
+    the incoming score gradient, on demand.  ``route`` is the forward's,
+    and the backward runs it."""
 
     @staticmethod
     def forward(ctx, px_rows, py_rows, boundary, lo, K, route):
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        ctx.route, ctx.K, ctx.fused, ctx.shards = route, K, False, current_shards()
+        ctx.route, ctx.K, ctx.shards = route, K, current_shards()
         if route in _IMPL:
             px, py = _custom_args(px_rows, py_rows, boundary, lo, K)
             res, scores = _IMPL[route][0](px, py, boundary)
@@ -436,11 +426,6 @@ class _MIRowsScores(torch.autograd.Function):
             return _forward_scores_rows_plain(px_rows, py_rows, boundary, lo, K)
         from .kernels import wavefront
 
-        ctx.fused = needs_grad and _FUSE_SCORES_VJP
-        if ctx.fused:
-            scores, gx, gy = wavefront.fused_rows(px_rows, py_rows, boundary, lo, K, route)
-            ctx.save_for_backward(gx, gy)
-            return scores
         p_rows, scores = wavefront.forward_rows(px_rows, py_rows, boundary, lo, K, route)
         if needs_grad:
             ctx.save_for_backward(px_rows, py_rows, boundary, lo, p_rows)
@@ -450,10 +435,6 @@ class _MIRowsScores(torch.autograd.Function):
     def backward(ctx, g_scores):
         from .kernels import wavefront
 
-        if ctx.fused:
-            gx, gy = ctx.saved_tensors
-            scale = g_scores[None, :, None].to(gx.dtype)
-            return scale * gx, scale * gy, None, None, None, None
         if ctx.route in _IMPL:
             px_rows, py_rows, boundary, lo = ctx.saved_tensors
             gx, gy = _custom_backward(ctx.route, px_rows, py_rows, ctx.res, boundary,

@@ -9,8 +9,8 @@ holds the sweep pair (``forward_rows`` / ``backward_rows``) to its plain
 versions (p in every cell; the backward on random seeds, one of them 0),
 to the fused kernel bit for bit when seeded with ones, and to itself on a
 second run; runs the forward at T = 20000 against float64; and times the
-sweep pair against the row scans in turns at chip_smoke's headline lattice
-(B=30, T=1000, S=100, C=500, seed 0), unbanded and under the stage-2 band
+sweep pair and the fused kernel at chip_smoke's headline lattice (B=30,
+T=1000, S=100, C=500, seed 0), the pair unbanded and under the stage-2 band
 of its own ranges.  Exits non-zero on a failed check.  A lighter probe
 than chip_smoke.py, for iterating on the recursion kernels.
 """
@@ -83,12 +83,9 @@ def main():
     ones = torch.ones(cs.B, device=dev)
     for name, band in (("full", ()), ("banded", (lo, cs.S_RANGE))):
         p = wf.forward_rows(px, py, bnd, *band)[0]
-        ps = wf.forward_rows_scan(px, py, bnd, *band)[0]
-        f = cs.in_turns(lambda: wf.forward_rows_scan(px, py, bnd, *band), lambda: wf.forward_rows(px, py, bnd, *band))
-        b = cs.in_turns(lambda: wf.backward_rows_scan(px, py, ps, bnd, ones, *band),
-                        lambda: wf.backward_rows(px, py, p, bnd, ones, *band))
-        print(f"{name}: in turns scan, sweep, sweep, scan: fwd " + ", ".join(f"{t:.4f}" for t in f)
-              + " ms; bwd " + ", ".join(f"{t:.4f}" for t in b) + " ms", flush=True)
+        f = cs.cuda_ms(lambda: wf.forward_rows(px, py, bnd, *band))
+        b = cs.cuda_ms(lambda: wf.backward_rows(px, py, p, bnd, ones, *band))
+        print(f"{name}: sweep fwd {f:.4f} ms; bwd {b:.4f} ms", flush=True)
     print(f"fused {cs.cuda_ms(lambda: wf.fused_rows(px, py, bnd)):.4f} ms", flush=True)
     print("failed checks:", bad)
     return 1 if bad else 0

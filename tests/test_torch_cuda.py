@@ -10,10 +10,10 @@ needs no JAX).
 chip_smoke.py compares every kernel with its plain version at small
 ragged shapes and at the headline shape, and drives the main path; the
 cases here are the ones it does not cover: random shapes, very long
-utterances (the sweep kernels past the row scans' cap), the sweep kernels
+utterances (the sweep kernels at T = 12000 and 20000), the sweep kernels
 over several strips, at S = 0 and banded, out-of-range symbols, the storage
 dtypes at random shapes, float16 lm and am, the CUDA dtype, size and
-gradient rules, the fused kernel's launches in the recipe, and the
+gradient rules, the recursion's launches in the recipe, and the
 forward-only build's memory; the smoothed build on bf16 lm and am; the
 pruning-window kernels on edge and long shapes, in every storage dtype;
 the transducer model's loss (its six kernel launches, against the same
@@ -306,8 +306,8 @@ def test_forward_only_build_launches_no_backward_and_keeps_no_residual(dev):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_kernels_match_plain_on_random_shapes(dev, seed):
-    """Random ragged shapes: segments of several cells per thread (T > 1024),
-    S = 0 and 1, width-1 and full-width bands, one-utterance batches."""
+    """Random ragged shapes: T up to 2200, S = 0 and 1, width-1 and
+    full-width bands, one-utterance batches."""
     rng = np.random.default_rng(100 + seed)
     B, S, T = int(rng.integers(1, 6)), int(rng.integers(0, 13)), int(rng.integers(1, 2200))
     modified, offset = bool(rng.integers(2)), bool(rng.integers(2))
@@ -318,14 +318,12 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
     p_p, s_p = wavefront.forward_rows_plain(px, py, bnd, lo, K)
     g = torch.Generator(device=dev).manual_seed(100 + seed)
     ag = torch.randn(B, device=dev, generator=g)
-    for fwd, bwd in ((wavefront.forward_rows, wavefront.backward_rows),
-                     (wavefront.forward_rows_scan, wavefront.backward_rows_scan)):
-        p_k, s_k = fwd(px, py, bnd, lo, K)
-        assert_loss_close(s_k, s_p)
-        assert_close(p_k, p_p, 1e-4, 1e-5)
-        for a, b in zip(bwd(px, py, p_k, bnd, ag, lo, K),
-                        wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
-            assert_close(a, b, 1e-5, 1e-4)
+    p_k, s_k = wavefront.forward_rows(px, py, bnd, lo, K)
+    assert_loss_close(s_k, s_p)
+    assert_close(p_k, p_p, 1e-4, 1e-5)
+    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ag, lo, K),
+                    wavefront.backward_rows_plain(px, py, p_k, bnd, ag, lo, K)):
+        assert_close(a, b, 1e-5, 1e-4)
     if S >= 1 and not K:
         gx, gy = wavefront.backward_rows(px, py, p_k, bnd, torch.ones(B, device=dev))
         Kr = int(rng.integers(1 if modified else 2, S + 2)) if S >= 1 else 1
@@ -349,28 +347,24 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
         assert_close(px_c, px_p + py_p[1:], 1e-4, 1e-5)
 
 
-@pytest.mark.parametrize("pair", ["sweep", "scan"])
 @pytest.mark.parametrize("modified", [False, True])
-def test_wavefront_kernels_long_utterance(dev, modified, pair):
+def test_wavefront_kernels_long_utterance(dev, modified):
     """T = 12000 (the ROADMAP's longest scaling shape): the sweep pair over
-    12,013 diagonals, and the row scans at twelve cells per thread, the
-    largest rows they keep in shared memory."""
-    fwd, bwd = {"sweep": (wavefront.forward_rows, wavefront.backward_rows),
-                "scan": (wavefront.forward_rows_scan, wavefront.backward_rows_scan)}[pair]
+    12,013 diagonals."""
     px, py, bnd = from_numpy(*rows_inputs(9, B=2, S=12, T=12000, modified=modified), device=dev)
-    p_k, s_k = fwd(px, py, bnd)
+    p_k, s_k = wavefront.forward_rows(px, py, bnd)
     p_p, s_p = wavefront.forward_rows_plain(px, py, bnd)
     assert_loss_close(s_k, s_p)
     ones = torch.ones(2, device=dev)
-    for a, b in zip(bwd(px, py, p_k, bnd, ones),
+    for a, b in zip(wavefront.backward_rows(px, py, p_k, bnd, ones),
                     wavefront.backward_rows_plain(px, py, p_k, bnd, ones)):
         assert_close(a, b, 1e-5, 1e-3)
 
 
 @pytest.mark.parametrize("banded", [False, True], ids=["full", "banded"])
 @pytest.mark.parametrize("modified", [False, True])
-def test_sweep_pair_past_the_scan_cap(dev, modified, banded):
-    """T = 20000, which the row scans refuse: the sweep pair against the
+def test_sweep_pair_at_20000_frames(dev, modified, banded):
+    """T = 20000, past any row kept in shared memory: the sweep pair against the
     plain version run in float64 (scores 1e-4 + 1e-5|x|; occupancies at
     3e-3, the long-utterance bound of the fused kernel's test), with seeds
     that hold 0 and a negative value.  p, in every cell: float32 round-off
@@ -398,9 +392,9 @@ def test_fused_kernel_long_utterance(dev, modified):
     p scratch (15 rows of 12001 floats per utterance) round-trips through
     L2.  Its scores agree with the split pair's, and its occupancies with
     its plain version's in float32 and in float64 to the long-utterance
-    bound.  (The split pair's own occupancies are 1.4e-3 from the float64
-    ones here, an H100 reading in PERF.md: the row scans' float32
-    round-off, so the occupancies are held to float64, not to them.)"""
+    bound.  (A float32 recursion's occupancies are 1.4e-3 from the float64
+    ones here, an H100 reading in PERF.md: float32 round-off, so the
+    occupancies are held to float64, not to a float32 pair.)"""
     px, py, bnd = from_numpy(*rows_inputs(10, B=2, S=12, T=12000, modified=modified), device=dev)
     sc, gx, gy = wavefront.fused_rows(px, py, bnd)
     p_k, s_k = wavefront.forward_rows(px, py, bnd)
@@ -636,62 +630,38 @@ def test_storage_dtypes_match_plain_on_random_shapes(dev, seed, dtype):
 
 def test_recursion_dtype_and_size_rules_on_cuda(dev):
     """float64 and mixed px/py dtypes raise TypeError in every recursion
-    wrapper; past the shared-memory limit the row scans raise ValueError,
-    with no fallback, and the sweep kernels, which keep no row in shared
-    memory, run."""
+    wrapper, with no fallback; at T = 15000 the sweep kernels, which keep
+    no row in shared memory, run."""
     px, py, bnd = from_numpy(*rows_inputs(11, B=2, S=3, T=8), device=dev)
     p, _ = wavefront.forward_rows(px, py, bnd)
     ones = torch.ones(2, device=dev)
     for x, y in ((px.double(), py.double()), (px, py.bfloat16()), (px.half(), py.bfloat16())):
-        for fwd in (wavefront.forward_rows, wavefront.forward_rows_scan, wavefront.fused_rows):
+        for fwd in (wavefront.forward_rows, wavefront.fused_rows):
             with pytest.raises(TypeError):
                 fwd(x, y, bnd)
-        for bwd in (wavefront.backward_rows, wavefront.backward_rows_scan):
-            with pytest.raises(TypeError):
-                bwd(x, y, p, bnd, ones)
+        with pytest.raises(TypeError):
+            wavefront.backward_rows(x, y, p, bnd, ones)
     px, py, bnd = from_numpy(*rows_inputs(12, B=1, S=2, T=15000), device=dev)
-    p = torch.zeros((3, 1, 15001), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        wavefront.forward_rows_scan(px, py, bnd)
-    with pytest.raises(ValueError, match="shared memory"):
-        wavefront.backward_rows_scan(px, py, p, bnd, torch.ones(1, device=dev))
     p, sc = wavefront.forward_rows(px, py, bnd)
     assert torch.isfinite(sc).all()
     assert all(torch.isfinite(g).all() for g in wavefront.backward_rows(px, py, p, bnd, torch.ones(1, device=dev)))
     assert torch.isfinite(wavefront.fused_rows(px, py, bnd)[0]).all()
 
 
-def test_fuse_switches_launch_the_fused_kernel(dev, monkeypatch):
+def test_recipe_launches_the_fused_kernel_and_the_pair(dev):
     """The recipe's stage 1 launches the fused kernel once and stage 2 the
-    sweep pair; with the scores op's switch set, stage 2 launches the fused
-    kernel too and neither of the pair, and the loss and gradients agree
-    with the pair's stage 2 (loss 1e-4 + 1e-5|x|, gradients 1e-5 + 1e-3|x|:
-    the pruned gradient rescales seed-1 occupancies in one arm and seeds
-    the backward with it in the other).  No path launches the row scans."""
-    from fast_rnnt_tpu_torch.ops import recursion as trec
-
+    sweep pair, the forward phase and, for the gradient, the backward
+    phase, once each."""
     am, lm, sym, b = from_numpy(*loss_inputs(13, B=3, T=60, S=8, C=16), device=dev)
-
-    def recipe():
-        am_l, lm_l = am.clone().requires_grad_(), lm.clone().requires_grad_()
-        s, (gx, gy) = ft.rnnt_loss_simple(lm_l, am_l, sym, 0, b, reduction="sum", calc_gradients=True)
-        r = ft.get_rnnt_prune_ranges(gx, gy, b, 3)
-        am_p, lm_p = ft.do_rnnt_pruning(am_l, lm_l, r)
-        loss = 0.5 * s + ft.rnnt_loss_pruned(am_p + lm_p, sym, r, 0, b, reduction="sum")
-        return (loss.detach(), *torch.autograd.grad(loss, (am_l, lm_l)))
-
+    am, lm = am.requires_grad_(), lm.requires_grad_()
     before = dict(wavefront.LAUNCHES)
-    ref = recipe()
-    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {
-        "fwd": 1, "bwd": 1, "fused": 1, "scan_fwd": 0, "scan_bwd": 0}
-    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
-    before = dict(wavefront.LAUNCHES)
-    got = recipe()
-    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {
-        "fwd": 0, "bwd": 0, "fused": 2, "scan_fwd": 0, "scan_bwd": 0}
-    assert_loss_close(got[0], ref[0])
-    for a, w in zip(got[1:], ref[1:]):
-        assert_close(a, w, 1e-5, 1e-3)
+    s, (gx, gy) = ft.rnnt_loss_simple(lm, am, sym, 0, b, reduction="sum", calc_gradients=True)
+    r = ft.get_rnnt_prune_ranges(gx, gy, b, 3)
+    am_p, lm_p = ft.do_rnnt_pruning(am, lm, r)
+    loss = 0.5 * s + ft.rnnt_loss_pruned(am_p + lm_p, sym, r, 0, b, reduction="sum")
+    grads = torch.autograd.grad(loss, (am, lm))
+    assert {k: wavefront.LAUNCHES[k] - before[k] for k in before} == {"fwd": 1, "bwd": 1, "fused": 1}
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
 
 
 def test_rnnt_loss_bf16_logits_on_cuda(dev):

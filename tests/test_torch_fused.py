@@ -1,9 +1,10 @@
 """Port parity: the fused forward + occupancy-backward recursion
 (fast_rnnt_tpu_torch.ops.kernels.wavefront.fused_rows, its plain version on
 the CPU) vs the JAX package's fused Pallas kernel in interpret mode and vs
-the port's split pair, the storage dtypes, the fused path of the
-calc_gradients op, and the scores op's fuse switch of
-fast_rnnt_tpu_torch.ops.recursion (only the port's module is patched)."""
+the port's split pair, the storage dtypes, and the kernel route of the
+rows ops of fast_rnnt_tpu_torch.ops.recursion: the calc_gradients op runs
+the fused launch, the scores op the forward phase and, under autograd,
+the backward phase (spied on the port's module only)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import fast_rnnt_tpu as jft
 import fast_rnnt_tpu_torch as ft
 from fast_rnnt_tpu.ops.kernels import wavefront as jwf
 from fast_rnnt_tpu.ops import recursion as jrec
@@ -112,26 +114,27 @@ def test_storage_dtypes_match_jax_xla_in_float32(dtype):
     assert_close(gy.float(), gy_j, 1e-5, storage_rtol(dt), "py_grad")
 
 
-def _spy_fused(monkeypatch):
+def _spy_rows(monkeypatch):
+    """Record which of the three sweep entries the rows ops call, in order."""
     calls = []
-    real = wavefront.fused_rows
+    for name in ("fused_rows", "forward_rows", "backward_rows"):
+        real = getattr(wavefront, name)
 
-    def spy(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
+        def spy(*a, _name=name, _real=real, **k):
+            calls.append(_name)
+            return _real(*a, **k)
 
-    monkeypatch.setattr(wavefront, "fused_rows", spy)
+        monkeypatch.setattr(wavefront, name, spy)
     return calls
 
 
 @pytest.mark.parametrize("calc_gradients", [False, True], ids=["scores_op", "grads_op"])
 @pytest.mark.parametrize("banded", [False, True], ids=["full", "banded"])
-def test_switches_route_rows_ops_through_fused(monkeypatch, banded, calc_gradients):
-    """The calc_gradients op always, and the scores op with the port's
-    switch set, run the fused kernel's path, and d(w . scores)/d(px, py)
-    still matches jax.grad."""
-    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
-    calls = _spy_fused(monkeypatch)
+def test_grads_op_runs_fused_and_scores_op_the_pair(monkeypatch, banded, calc_gradients):
+    """The calc_gradients op runs the fused launch once; the scores op runs
+    the forward phase once and its VJP the backward phase once, never the
+    fused launch; d(w . scores)/d(px, py) matches jax.grad either way."""
+    calls = _spy_rows(monkeypatch)
     px, py, bnd, lo, K = _case(11, False, banded, B=3, S=5, T=11, offset=False)
     w = np.random.default_rng(1).random(3).astype(np.float32)
 
@@ -149,54 +152,68 @@ def test_switches_route_rows_ops_through_fused(monkeypatch, banded, calc_gradien
         calc_gradients=calc_gradients,
     )
     ((out[0] if calc_gradients else out) * torch.from_numpy(w)).sum().backward()
-    assert calls == [1]
+    assert calls == (["fused_rows"] if calc_gradients else ["forward_rows", "backward_rows"])
     assert_lattice_close(tpx.grad, jgx, "d px")
     assert_lattice_close(tpy.grad, jgy, "d py")
 
 
-def _pipeline_grads(loss_fn, am, lm, sym, bnd, **kw):
-    tam, tlm = tt(am).requires_grad_(), tt(lm).requires_grad_()
-    s, p, r = loss_fn(tlm, tam, tt(sym), 0, 3, boundary=tt(bnd), reduction="sum", **kw)
-    (0.5 * s + p).backward()
-    return s.detach(), p.detach(), r, tam.grad, tlm.grad
+_JAX_PIPELINES = {"simple": jft.rnnt_loss_simple_pruned, "smoothed": jft.rnnt_loss_smoothed_pruned}
+_TORCH_PIPELINES = {"simple": ft.rnnt_loss_simple_pruned, "smoothed": ft.rnnt_loss_smoothed_pruned}
 
 
 @pytest.mark.parametrize("pipeline", ["simple", "smoothed"])
 @pytest.mark.parametrize("rnnt_type", ["regular", "modified", "constrained"])
-def test_pruned_pipelines_unchanged_with_switches(monkeypatch, rnnt_type, pipeline):
-    """Losses, ranges and gradients of both two-stage pruned pipelines are
-    the same with the scores op's fuse switch on as off (stage 1 runs the
-    fused path either way, stage 2 too with the switch on)."""
-    loss_fn = ft.rnnt_loss_simple_pruned if pipeline == "simple" else ft.rnnt_loss_smoothed_pruned
+def test_pruned_pipelines_run_stage1_fused_and_stage2_the_pair(monkeypatch, rnnt_type, pipeline):
+    """Both two-stage pruned pipelines run stage 1 (with occupancies) by the
+    fused launch and stage 2 (the scores op and its VJP) by the forward and
+    backward phases; losses, ranges and the gradient of 0.5 * stage 1 +
+    stage 2 w.r.t. (am, lm) match the JAX pipeline's (impl="xla")."""
     am, lm, sym, bnd = loss_inputs(13, B=3, T=14, S=5, C=9)
-    ref = _pipeline_grads(loss_fn, am, lm, sym, bnd, rnnt_type=rnnt_type)
-    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
-    calls = _spy_fused(monkeypatch)
-    got = _pipeline_grads(loss_fn, am, lm, sym, bnd, rnnt_type=rnnt_type)
-    assert calls == [1, 1]  # stage 1 (with grads) and stage 2 (scores op)
-    assert torch.equal(got[2], ref[2])
-    for a, b, what in zip(got, ref, ("simple", "pruned", "ranges", "d am", "d lm")):
-        assert_lattice_close(a, b, what)
+
+    def jf(am_, lm_):
+        s, p, r = _JAX_PIPELINES[pipeline](lm_, am_, jj(sym), 0, 3, boundary=jj(bnd),
+                                           rnnt_type=rnnt_type, reduction="sum", impl="xla")
+        return 0.5 * s + p, (s, p, r)
+
+    (_, (s_j, p_j, r_j)), (jga, jgl) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(
+        *jj(am, lm))
+    calls = _spy_rows(monkeypatch)
+    tam, tlm = tt(am).requires_grad_(), tt(lm).requires_grad_()
+    s, p, r = _TORCH_PIPELINES[pipeline](tlm, tam, tt(sym), 0, 3, boundary=tt(bnd),
+                                         rnnt_type=rnnt_type, reduction="sum")
+    (0.5 * s + p).backward()
+    assert calls == ["fused_rows", "forward_rows", "backward_rows"]
+    np.testing.assert_array_equal(to_np(r), np.asarray(r_j))
+    assert_loss_close(s.detach(), s_j, "stage 1")
+    assert_loss_close(p.detach(), p_j, "pruned")
+    assert_lattice_close(tam.grad, jga, "d am")
+    assert_lattice_close(tlm.grad, jgl, "d lm")
 
 
-def test_recipe_unchanged_with_switches(monkeypatch):
-    """rnnt_loss_pruned's gradient through the fused scores VJP equals the
-    split path's."""
+def test_recipe_runs_stage1_fused_and_stage2_the_pair(monkeypatch):
+    """The real-joiner recipe (rnnt_loss_simple with occupancies, ranges,
+    do_rnnt_pruning, the joiner am_p + lm_p, rnnt_loss_pruned) takes the same
+    route, and its loss and (am, lm) gradient match the JAX recipe's."""
     am, lm, sym, bnd = loss_inputs(15, B=3, T=12, S=5, C=10)
 
-    def recipe():
-        tam, tlm = tt(am).requires_grad_(), tt(lm).requires_grad_()
-        _, (gx, gy) = ft.rnnt_loss_simple(tlm, tam, tt(sym), 0, tt(bnd), calc_gradients=True)
-        ranges = ft.get_rnnt_prune_ranges(gx, gy, tt(bnd), 3)
-        am_p, lm_p = ft.do_rnnt_pruning(tam, tlm, ranges)
-        loss = ft.rnnt_loss_pruned(am_p + lm_p, tt(sym), ranges, 0, tt(bnd), reduction="sum")
-        loss.backward()
-        return loss.detach(), tam.grad, tlm.grad
+    def jf(am_, lm_):
+        _, (gx, gy) = jft.rnnt_loss_simple(lm_, am_, jj(sym), 0, jj(bnd), calc_gradients=True,
+                                           impl="xla")
+        ranges = jft.get_rnnt_prune_ranges(gx, gy, jj(bnd), 3)
+        am_p, lm_p = jft.do_rnnt_pruning(am_, lm_, ranges)
+        return jft.rnnt_loss_pruned(am_p + lm_p, jj(sym), ranges, 0, jj(bnd), reduction="sum",
+                                    impl="xla"), ranges
 
-    ref = recipe()
-    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", True)
-    calls = _spy_fused(monkeypatch)
-    got = recipe()
-    assert calls == [1, 1]
-    for a, b, what in zip(got, ref, ("loss", "d am", "d lm")):
-        assert_lattice_close(a, b, what)
+    (want, r_j), (jga, jgl) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(*jj(am, lm))
+    calls = _spy_rows(monkeypatch)
+    tam, tlm = tt(am).requires_grad_(), tt(lm).requires_grad_()
+    _, (gx, gy) = ft.rnnt_loss_simple(tlm, tam, tt(sym), 0, tt(bnd), calc_gradients=True)
+    ranges = ft.get_rnnt_prune_ranges(gx, gy, tt(bnd), 3)
+    am_p, lm_p = ft.do_rnnt_pruning(tam, tlm, ranges)
+    loss = ft.rnnt_loss_pruned(am_p + lm_p, tt(sym), ranges, 0, tt(bnd), reduction="sum")
+    loss.backward()
+    assert calls == ["fused_rows", "forward_rows", "backward_rows"]
+    np.testing.assert_array_equal(to_np(ranges), np.asarray(r_j))
+    assert_loss_close(loss.detach(), want, "loss")
+    assert_lattice_close(tam.grad, jga, "d am")
+    assert_lattice_close(tlm.grad, jgl, "d lm")

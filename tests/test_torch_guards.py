@@ -167,23 +167,24 @@ def test_cpu_training_launches_no_kernel():
     assert _build._lib is None
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
-def test_cpu_recipe_launches_no_kernel(monkeypatch, fused):
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_cpu_recipe_launches_no_kernel(train):
     """The real-joiner recipe and the full-logits loss on CPU tensors run
-    the plain versions only, with the scores op's fuse switch off and on."""
-    from fast_rnnt_tpu_torch.ops import recursion as trec
-
-    monkeypatch.setattr(trec, "_FUSE_SCORES_VJP", fused)
+    the plain versions only, with gradients (the scores op keeps p for its
+    VJP) and without (the scores op's plain forward alone)."""
     before = _all_launches()
     am, lm, sym, bnd = tt(*loss_inputs(22, B=2, T=10, S=4, C=7))
-    am.requires_grad_(), lm.requires_grad_()
+    am.requires_grad_(train), lm.requires_grad_(train)
     s, (gx, gy) = ft.rnnt_loss_simple(lm, am, sym, 0, bnd, reduction="sum", calc_gradients=True)
     ranges = ft.get_rnnt_prune_ranges(gx, gy, bnd, 2)
     am_p, lm_p = ft.do_rnnt_pruning(am, lm, ranges)
     p = ft.rnnt_loss_pruned(torch.tanh(am_p + lm_p), sym, ranges, 0, bnd, reduction="sum")
     full = ft.rnnt_loss(am[:, :, None, :] + lm[:, None, :, :], sym, 0, bnd, calc_gradients=True)[0]
-    (0.5 * s + p + full).backward()
-    assert am.grad.isfinite().all() and lm.grad.isfinite().all()
+    total = 0.5 * s + p + full
+    assert total.isfinite() and total.requires_grad == train
+    if train:
+        total.backward()
+        assert am.grad.isfinite().all() and lm.grad.isfinite().all()
     assert _all_launches() == before
     assert _build._lib is None
 

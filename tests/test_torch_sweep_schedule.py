@@ -120,7 +120,7 @@ def test_launches_hand_the_kernel_its_schedule(recorder, S):
         assert args[at] == nk, name
         assert (args[at + 1] is None) == (nk == 1), name
     assert recorder.index == [S + 1, S + 1, S + 1 + wavefront._strips(S)]
-    assert wavefront.LAUNCHES == {"fwd": 1, "bwd": 1, "fused": 1, "scan_fwd": 0, "scan_bwd": 0}
+    assert wavefront.LAUNCHES == {"fwd": 1, "bwd": 1, "fused": 1}
     assert profiling.counters()["recursion.strip_blocks"] - start == 3 * B * nk
     assert wavefront.BLOCKS["sweep"] - start == 3 * B * nk
 
