@@ -994,10 +994,211 @@ def pruned_lattice_phase(dev):
     return report, bounds
 
 
+# the largest duration bucket of the conformer cell's traffic, 8 heads of 64
+RELPOS_SHAPE = (45, 434, 8, 64)
+# norm-wise errors ||got - want|| / ||want|| of (o, each gradient) in bf16,
+# against the float64 statement of the kernels' function and against the
+# plain version, which rounds qu k^T to bf16 before adding bd: about 2.5
+# times this phase's readings on an H100 (2.9e-3, 2.7e-3; 4.4e-3, 4.7e-3:
+# PERF.md row 12), below the planted faults' (5.7e-2 and 0.40)
+RELPOS_TOL = {"o": 8e-3, "grad": 8e-3}
+RELPOS_PLAIN_TOL = {"o": 1e-2, "grad": 1.2e-2}
+RELPOS_NAMES = ("o", "dqu", "dk", "dv", "dbd_raw")
+# the planted faults: dS set to 0 where P is below each of these
+RELPOS_DROPS = (1e-2, 1e-3)
+RELPOS_TIMEOUT_S = 600
+
+
+def relpos_contract(qu, k, v, bd, mask, drop_below=None):
+    """The attention kernels' function in float64: exact scores and
+    softmax, the probabilities rounded to the inputs' dtype for the product
+    with v (the rounding passed through by the gradient); ``drop_below``
+    plants a fault, dS set to 0 wherever P < drop_below."""
+    import torch
+
+    from fast_rnnt_tpu_torch.ops.kernels import relpos_attention as ra
+
+    dt = qu.dtype
+    ac = torch.einsum("bihd,bjhd->bhij", qu.double(), k.double())
+    w = (ac + ra.rel_shift(bd.double())) * qu.shape[3] ** -0.5
+    w = w.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(w, dim=-1)
+    if drop_below is not None:
+        small = p.detach() < drop_below
+        w.register_hook(lambda ds: ds.masked_fill(small, 0))
+    p = p + (p.to(dt).double() - p).detach()
+    return torch.einsum("bhij,bjhd->bihd", p, v.double()).to(dt)
+
+
+def relpos_worker(out_dir):
+    """The ``relpos-attention`` phase in a process of its own (``chip_smoke.py
+    --relpos-worker DIR``), so that its profiler and its memory touch
+    no other phase: the attention kernels (``csrc/relpos_attention.cu``) at
+    the conformer cell's largest bucket in bf16.  o and the gradients of qu,
+    k, v and bd_raw held by their norm-wise errors against
+    ``relpos_contract`` (``RELPOS_TOL``) and against ``relpos_attention_plain``
+    on the same card tensors (``RELPOS_PLAIN_TOL``); the planted faults
+    (``RELPOS_DROPS``) must fail ``RELPOS_TOL``; d(bd_raw) 0 where no score
+    reads bd_raw; one launch of each kernel a step and B x H x T rows a
+    forward by the wrapper's counters.  Then each kernel's device ms
+    (profiler, per launch), the plain version's and a library yardstick's
+    forward and forward-backward ms (CUDA events:
+    ``scaled_dot_product_attention`` with the shifted, scaled and masked bd
+    as a float bias, built outside the timing; the port never calls it), and
+    the bounds.  Writes ``relpos.json`` into ``out_dir``."""
+    import torch
+    import torch.nn.functional as F
+
+    from fast_rnnt_tpu_torch.ops.kernels import relpos_attention as ra
+
+    dev = torch.device("cuda", 0)
+    Bq, Tq, Hq, hd = RELPOS_SHAPE
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(25)
+    _, k, v = torch.randn((Bq, Tq, 3, Hq, hd), generator=g, device=dev).to(dt).unbind(2)
+    qu = torch.randn((Bq, Tq, Hq, hd), generator=g, device=dev).to(dt)
+    L = 2 * Tq - 1 + (-(2 * Tq - 1) % 8)  # padded and stored (H, B, T, L) as the module makes it
+    bd = (torch.randn((Hq, Bq, Tq, L), generator=g, device=dev) * hd ** 0.5).to(dt).transpose(0, 1)
+    lens = torch.randint(Tq * 3 // 4, Tq + 1, (Bq,), generator=g, device=dev)
+    lens[0] = Tq
+    mask = torch.arange(Tq, device=dev)[None, :] < lens[:, None]
+    do = torch.randn((Bq, Tq, Hq, hd), generator=g, device=dev).to(dt)
+
+    def fwd(fn):
+        return fn(qu, k, v, bd, mask)
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_() for x in (qu, k, v, bd)]
+        o = fn(*xs, mask)
+        return [o, *torch.autograd.grad(o, xs, do)]
+
+    def norm_errs(got, want):
+        return {n: float((a.double() - b.double()).norm() / b.double().norm())
+                for n, a, b in zip(RELPOS_NAMES, got, want)}
+
+    launches, rows = dict(ra.LAUNCHES), ra.ROWS
+    got = [x.detach() for x in fwd_bwd(ra.relpos_attention)]
+    step_launches = {n: ra.LAUNCHES[n] - launches[n] for n in launches}
+    if step_launches != {"fwd": 1, "bwd_q": 1, "bwd_kv": 1} or ra.ROWS - rows != Bq * Hq * Tq:
+        raise Failed(f"relpos-attention: a step launched {step_launches} and counted {ra.ROWS - rows} "
+                     f"rows, expected one of each and {Bq * Hq * Tq}")
+    for x, what in zip(got, RELPOS_NAMES):
+        if not torch.isfinite(x).all():
+            raise Failed(f"relpos-attention {what}: not finite")
+    want = [x.detach() for x in fwd_bwd(relpos_contract)]
+    plain = [x.detach() for x in fwd_bwd(ra.relpos_attention_plain)]
+    errs = {"contract": norm_errs(got, want), "plain": norm_errs(got, plain),
+            "plain_vs_contract": norm_errs(plain, want)}
+    max_abs = {n: float((a.double() - b.double()).abs().max()) for n, a, b in zip(RELPOS_NAMES, got, want)}
+    del plain
+    for drop in RELPOS_DROPS:
+        bad = [x.detach() for x in fwd_bwd(lambda *a: relpos_contract(*a, drop_below=drop))]
+        errs[f"fault {drop}"] = norm_errs(bad, want)
+    del bad, want
+    with open(os.path.join(out_dir, "relpos.json"), "w") as f:
+        json.dump({"errs": errs}, f)  # the readings, kept where a check below fails
+    for which, tol in (("contract", RELPOS_TOL), ("plain", RELPOS_PLAIN_TOL)):
+        for what, e in errs[which].items():
+            if e > tol["o" if what == "o" else "grad"]:
+                raise Failed(f"relpos-attention {what}: norm-wise error {e:.3e} against the {which} "
+                             f"over {tol}; readings {errs}")
+    for drop in RELPOS_DROPS:
+        fault = errs[f"fault {drop}"]
+        missed = [n for n in ("dqu", "dk", "dbd_raw") if fault[n] <= RELPOS_TOL["grad"]]
+        if missed:
+            raise Failed(f"relpos-attention: with dS dropped where P < {drop} the check passes "
+                         f"{missed}: {fault}")
+    reached = torch.zeros((Tq, L), dtype=torch.bool, device=dev)
+    ra.rel_shift(reached[None, None])[0, 0].fill_(True)
+    if got[4][:, :, ~reached].any():
+        raise Failed("relpos-attention: d(bd_raw) is not 0 where no score reads bd_raw")
+    del got
+
+    c = hd ** -0.5
+    bias = (ra.rel_shift(bd).float() * c).masked_fill(~mask[:, None, None, :], float("-inf")).to(dt)
+    qh, kh, vh = (x.transpose(1, 2) for x in (qu, k, v))
+
+    def sdpa(bias_, q_=qh, k_=kh, v_=vh):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias_, scale=c)
+
+    def sdpa_fwd_bwd():
+        xs = [x.detach().requires_grad_() for x in (qh, kh, vh, bias)]
+        o = sdpa(xs[3], *xs[:3])
+        return torch.autograd.grad(o, xs, do.transpose(1, 2))
+
+    ms = {"plain_fwd": kernel_ms(lambda: fwd(ra.relpos_attention_plain)),
+          "plain": kernel_ms(lambda: fwd_bwd(ra.relpos_attention_plain)),
+          "kernels_fwd": kernel_ms(lambda: fwd(ra.relpos_attention)),
+          "kernels": kernel_ms(lambda: fwd_bwd(ra.relpos_attention)),
+          "library_fwd": kernel_ms(lambda: sdpa(bias)),
+          "library": kernel_ms(sdpa_fwd_bwd)}
+    prof = profile_step(lambda: fwd_bwd(ra.relpos_attention))
+    if prof is None:
+        raise Failed("relpos-attention: the profiler saw no device activity")
+    dev_ms = {}
+    for name, tag in (("relpos_fwd", "::fwd_tc<"), ("relpos_bwd_q", "::bq_tc<"),
+                      ("relpos_bwd_kv", "::bkv_tc<")):
+        hit = [r for r in prof[0] if tag in r[0]]
+        if len(hit) != 1:
+            raise Failed(f"relpos-attention: the profile holds {len(hit)} kernels named {tag}")
+        dev_ms[name] = hit[0][1] / hit[0][2] / 1e3  # per launch
+    # each kernel's inputs read once and outputs written once, its products
+    # at the bf16 tensor-core peak: forward qu k^T and P v; the query-tile
+    # backward recomputes S, forms dP and dqu (o and dO for D; dbd whole,
+    # zeros included), the key-tile one S, dP, dv and dk
+    n_x, n_bd, n_row = Bq * Tq * Hq * hd * 2, Bq * Hq * Tq * L * 2, Bq * Hq * Tq * 4
+    prod = 2 * Bq * Hq * Tq * Tq * hd
+    bounds = {"relpos_fwd": bound(4 * n_x + n_bd + Bq * Tq + n_row, 2 * prod, BF16_FLOP_PER_S),
+              "relpos_bwd_q": bound(6 * n_x + 2 * n_bd + Bq * Tq + 2 * n_row, 3 * prod, BF16_FLOP_PER_S),
+              "relpos_bwd_kv": bound(6 * n_x + n_bd + Bq * Tq + 2 * n_row, 4 * prod, BF16_FLOP_PER_S)}
+    # the pair's backward with every input read and every output written once
+    pair_bwd = bound(8 * n_x + 2 * n_bd + Bq * Tq + n_row, 5 * prod, BF16_FLOP_PER_S)
+    err_of = {"relpos_fwd": ("o",), "relpos_bwd_q": ("dqu", "dbd_raw"), "relpos_bwd_kv": ("dk", "dv")}
+    plain_ms = {"relpos_fwd": ms["plain_fwd"], "relpos_bwd_q": ms["plain"] - ms["plain_fwd"],
+                "relpos_bwd_kv": ms["plain"] - ms["plain_fwd"]}
+    library_ms = {"relpos_fwd": ms["library_fwd"], "relpos_bwd_q": ms["library"] - ms["library_fwd"],
+                  "relpos_bwd_kv": ms["library"] - ms["library_fwd"]}
+    report = {name: dict(err=max(max_abs[n] for n in err_of[name]),
+                         norm_err=max(errs["contract"][n] for n in err_of[name]),
+                         tol=RELPOS_TOL, ms=dev_ms[name], plain_ms=plain_ms[name],
+                         library_ms=library_ms[name], launches=1) for name in dev_ms}
+    with open(os.path.join(out_dir, "relpos.json"), "w") as f:
+        json.dump({"errs": errs, "report": report, "bounds": bounds, "pair_bwd": pair_bwd, "timed": ms,
+                   "keys": [int(lens.min()), Tq]}, f)
+
+
+def relpos_attention_phase():
+    """``relpos_worker`` in a process of its own; its readings and times
+    printed.  Returns ({kernel: report entry}, {kernel: bound})."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_workers([["--relpos-worker", out_dir]], "relpos-attention", timeout=RELPOS_TIMEOUT_S)
+        with open(os.path.join(out_dir, "relpos.json")) as f:
+            res = json.load(f)
+    Bq, Tq, Hq, hd = RELPOS_SHAPE
+    errs, report, bounds = res["errs"], res["report"], {k: tuple(v) for k, v in res["bounds"].items()}
+
+    def shown(d):
+        return ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+
+    phase("relpos-attention", f"B={Bq} T={Tq} H={Hq} hd={hd} bf16, keys {res['keys'][0]}-{Tq}, in a process "
+          f"of its own; norm-wise errors against the float64 contract: {shown(errs['contract'])} (tol "
+          f"{RELPOS_TOL}); against the plain version: {shown(errs['plain'])} (tol {RELPOS_PLAIN_TOL}); "
+          f"the plain version against the contract: {shown(errs['plain_vs_contract'])}; "
+          + "; ".join(f"with dS dropped where P < {d}: {shown(errs[f'fault {d}'])}" for d in RELPOS_DROPS)
+          + ", each failing; d(bd_raw) 0 off the band; one launch of each kernel a step; kernel ms "
+          "(profiler, a launch) "
+          + ", ".join(f"{k} {v['ms']:.4f} (bound {bounds[k][0]:.4f} by {bounds[k][1]})" for k, v in report.items())
+          + f"; the backward's bound with each tensor moved once {res['pair_bwd'][0]:.4f} by "
+          f"{res['pair_bwd'][1]}; CUDA-event ms " + ", ".join(f"{k} {v:.4f}" for k, v in res["timed"].items()))
+    return report, bounds
+
+
 def launch_counters():
     """Each kernel wrapper's launch count by its name in the ``kernels``
     line: {name: (the wrapper module's LAUNCHES dict, key)}."""
-    from fast_rnnt_tpu_torch.ops.kernels import latbuild, pruned, ranges, wavefront
+    from fast_rnnt_tpu_torch.ops.kernels import latbuild, pruned, ranges, relpos_attention, wavefront
 
     return {
         "wavefront_fwd": (wavefront.LAUNCHES, "fwd"),
@@ -1011,6 +1212,9 @@ def launch_counters():
         "pruned_band": (pruned.LAUNCHES, "band"),
         "pruned_rows": (pruned.LAUNCHES, "rows"),
         "pruned_bwd": (pruned.LAUNCHES, "bwd"),
+        "relpos_fwd": (relpos_attention.LAUNCHES, "fwd"),
+        "relpos_bwd_q": (relpos_attention.LAUNCHES, "bwd_q"),
+        "relpos_bwd_kv": (relpos_attention.LAUNCHES, "bwd_kv"),
     }
 
 
@@ -3453,6 +3657,10 @@ def main():
     pruned_report, pruned_bounds = pruned_lattice_phase(dev)
     report.update(pruned_report)
     bounds.update(pruned_bounds)
+    # icefall's relative-position attention at the conformer cell's largest bucket
+    relpos_report, relpos_bounds = relpos_attention_phase()
+    report.update(relpos_report)
+    bounds.update(relpos_bounds)
 
     # --- 4. the paths: forward only, training, smoothed training ------------
     counters = launch_counters()
@@ -3952,6 +4160,10 @@ def main():
         "pruned_band": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
         "pruned_rows": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
         "pruned_bwd": ("fast_rnnt_tpu_torch/csrc/pruned_rows.cu", None),
+        # nor the attention's: the JAX package's model leaves it to XLA
+        "relpos_fwd": ("fast_rnnt_tpu_torch/csrc/relpos_attention.cu", None),
+        "relpos_bwd_q": ("fast_rnnt_tpu_torch/csrc/relpos_attention.cu", None),
+        "relpos_bwd_kv": ("fast_rnnt_tpu_torch/csrc/relpos_attention.cu", None),
     }
     # each kernel's launches from the first path that runs it
     path_launches = {}
@@ -3961,7 +4173,8 @@ def main():
                 path_launches.setdefault(k, n)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[name], "max_abs_err": report[name]["err"],
+         "launches": path_launches.get(name, report[name].get("launches")), "max_abs_err": report[name]["err"],
+         **({"norm_err": report[name]["norm_err"]} if "norm_err" in report[name] else {}),
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": report[name].get("library_ms"),
@@ -3983,6 +4196,10 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--dp-worker"]:  # one rank of dp_train_phase
             sys.path.insert(0, HERE)
             dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+            sys.exit(0)
+        if sys.argv[1:2] == ["--relpos-worker"]:  # relpos_attention_phase's process
+            sys.path.insert(0, HERE)
+            relpos_worker(sys.argv[2])
             sys.exit(0)
         if sys.argv[1:2] == ["--dtensor-worker"]:  # one rank of dtensor_phase
             sys.path.insert(0, HERE)

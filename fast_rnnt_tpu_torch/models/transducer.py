@@ -73,6 +73,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.relpos_attention import relpos_attention
 from ..utils.profiling import annotate
 
 __all__ = ["TransducerConfig", "Encoder", "Predictor", "Joiner", "PrunedTransducer",
@@ -230,23 +231,15 @@ def rel_positions(T: int, d: int, device=None) -> torch.Tensor:
     return pe
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, 2T-1) scores against the relative positions -> (B, H, T, T)
-    with out[..., i, j] = x[..., i, T-1-i+j], the position i - j: a strided
-    view of the contiguous ``x`` (icefall's ``rel_shift``)."""
-    x = x.contiguous()
-    B, H, T, n = x.shape
-    sb, sh, st, sn = x.stride()
-    return x.as_strided((B, H, T, T), (sb, sh, st - sn, sn), x.storage_offset() + sn * (T - 1))
-
-
 class RelPositionMultiHeadAttention(nn.Module):
     """icefall's ``RelPositionMultiheadAttention``, Transformer-XL relative
     positions (Dai et al., arXiv:1901.02860, section 3.3) in ESPnet's form:
     q, k, v from one in-projection, p = pe W_pos (no bias), and
     score[b, h, i, j] = ((q_i + u_h) k_j + (q_i + v_h) p_{T-1-i+j}) / sqrt(hd);
     padded keys masked, the softmax over keys in float32, then v and the
-    out-projection.  Products in ``dtype``."""
+    out-projection.  Products in ``dtype``.  The (B, H, T, T) part is
+    :func:`~fast_rnnt_tpu_torch.ops.kernels.relpos_attention.relpos_attention`:
+    on the card a kernel pair that keeps the scores out of device memory."""
 
     def __init__(self, d: int, num_heads: int, dtype: torch.dtype):
         super().__init__()
@@ -264,17 +257,18 @@ class RelPositionMultiHeadAttention(nn.Module):
         H = self.num_heads
         hd = d // H
         q, k, v = self.in_proj(x).view(B, T, 3, H, hd).unbind(2)  # each (B, T, H, hd)
-        p = self.linear_pos(pos).view(2 * T - 1, H, hd).permute(1, 2, 0)  # (H, hd, 2T-1)
+        # zero positions after the 2T-1, to L a multiple of 8: bd_raw's rows
+        # start on 16 bytes, which the product's fast kernels need
+        pos = F.pad(pos, (0, 0, 0, -(2 * T - 1) % 8))
+        p = self.linear_pos(pos).view(-1, H, hd).permute(1, 2, 0)  # (H, hd, L)
         dt = q.dtype
-        qu = (q + self.pos_bias_u.to(dt)).transpose(1, 2)  # (B, H, T, hd)
-        qv = (q + self.pos_bias_v.to(dt)).transpose(1, 2)
-        ac = torch.matmul(qu, k.permute(0, 2, 3, 1))  # (B, H, T, T)
-        bd = rel_shift(torch.matmul(qv, p))  # (B, H, T, 2T-1) -> (B, H, T, T)
-        w = (ac.float() + bd) * hd ** -0.5  # bd promoted to float32
-        w = w.masked_fill(~key_mask[:, None, None, :], float("-inf"))
-        w = torch.softmax(w, dim=-1).to(dt)
-        o = torch.matmul(w, v.transpose(1, 2)).transpose(1, 2).reshape(B, T, d)
-        return self.out_proj(o)
+        qu = q + self.pos_bias_u.to(dt)  # (B, T, H, hd)
+        # a head's (B T, hd) rows against its positions, one product a head:
+        # bd_raw (B, H, T, L) stored (H, B, T, L), no operand copied
+        qv = (q + self.pos_bias_v.to(dt)).permute(2, 0, 1, 3).reshape(H, B * T, hd)
+        bd_raw = torch.bmm(qv, p).view(H, B, T, -1).transpose(0, 1)
+        o = relpos_attention(qu, k, v, bd_raw, key_mask)  # (B, T, H, hd)
+        return self.out_proj(o.reshape(B, T, d))
 
 
 class ConvModule(nn.Module):

@@ -34,7 +34,8 @@ NVCC_FLAGS = [
 ]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LL = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of every C entry (see the .cu files for the argument meanings)
 _SIGNATURES = {
     # px, py, boundary, lo, K, S, B, T, modified, p, scores, threads, dtype,
@@ -71,6 +72,12 @@ _SIGNATURES = {
     # logits, lse, gpx, gpy, symbols, ranges, boundary, B, T, T1, K, S, C,
     # term_sym, term_col, mode, sym64, rg64, bnd64, dtype, vec, d_logits, stream
     "frt_pruned_bwd": [P] * 7 + [I] * 14 + [P] * 2,
+    # qu, k, v, bd_raw, key_mask, layout (int64[15]: strides, bd_raw's size),
+    # B, T, H, hd, L (bd_raw's rows), scale, dtype, o, lse, stream
+    "frt_relpos_fwd": [P] * 5 + [LL] + [I] * 5 + [F, I] + [P] * 3,
+    # qu, k, v, bd_raw, key_mask, o, lse, dout, layout, B, T, H, hd, L,
+    # scale, dtype, dq, dk, dv, d_bd_raw, D (scratch), stream
+    "frt_relpos_bwd": [P] * 8 + [LL] + [I] * 5 + [F, I] + [P] * 6,
 }
 
 _lock = threading.Lock()

@@ -121,12 +121,15 @@ def counters() -> Dict[str, int]:
     ``BLOCKS``; B x strips a launch, where an utterance's strips run at
     once); ``pruned_lattice.kernel_frames``, the B x T frames of each
     pruned lattice the kernels built (``ops/kernels/pruned.py``
-    ``FRAMES``).  Read it before and after a window for the window's
-    count."""
-    from ..ops.kernels import pruned, wavefront
+    ``FRAMES``); ``model.attention.kernel_rows``, the B x H x T query rows
+    of each relative-position attention forward the kernels computed
+    (``ops/kernels/relpos_attention.py`` ``ROWS``).  Read it before and
+    after a window for the window's count."""
+    from ..ops.kernels import pruned, relpos_attention, wavefront
 
     return {"recursion.strip_blocks": wavefront.BLOCKS["sweep"],
-            "pruned_lattice.kernel_frames": pruned.FRAMES}
+            "pruned_lattice.kernel_frames": pruned.FRAMES,
+            "model.attention.kernel_rows": relpos_attention.ROWS}
 
 
 @contextlib.contextmanager

@@ -9,7 +9,9 @@ NVIDIA GPU and skip without one; run them there with
     (the 16.6 s bucket: the longest utterances), held against the plain
     reference by the benchmark cell's own check and limits;
   * one profiled step sees every span of the model's parts, each with
-    device time.
+    device time, and the attention kernels' device time under
+    ``frt.model.attention``: the forward kernel through the forward op, the
+    backward ones through the autograd node of that op.
 """
 
 import json
@@ -19,7 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from perfbench import model_spans
+from perfbench import model_spans, spans
 from perfbench.drivers import model_step
 
 pytestmark = pytest.mark.cuda
@@ -63,3 +65,17 @@ def test_one_profiled_step_sees_every_model_span(cell):
     a = model_spans.attribute(prof.events(), 1)
     assert SPANS <= set(a["seen"])
     assert all(a["device_s"].get(s, 0.0) > 0.0 for s in SPANS), a["device_s"]
+
+
+def test_attention_kernels_run_under_the_attention_span(cell):
+    obj, _ = cell
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        obj.step(0)
+        torch.cuda.synchronize()
+    named = spans.Spans(prof.events())
+    seen = {}
+    for d, op in named.launches():
+        for tag in ("::fwd_tc<", "::bq_tc<", "::bkv_tc<"):
+            if tag in d.name:
+                seen.setdefault(tag, set()).add(named.span(op) if op is not None else None)
+    assert seen == {tag: {"frt.model.attention"} for tag in ("::fwd_tc<", "::bq_tc<", "::bkv_tc<")}, seen

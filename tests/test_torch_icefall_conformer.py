@@ -31,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from fast_rnnt_tpu_torch.models import (LossConfig, TransducerConfig, init_model,
                                         make_train_step, training)
-from fast_rnnt_tpu_torch.models.transducer import rel_shift
+from fast_rnnt_tpu_torch.ops.kernels.relpos_attention import rel_shift
 
 from .torch_reference import icefall_conformer as ref
 
